@@ -1,0 +1,112 @@
+"""Weights carried across from the JAX package.
+
+The JAX package's trees arrive as nested dicts/lists of numpy arrays
+(``to_numpy_tree`` makes them from JAX/flax trees; it imports no JAX itself).
+
+* The flow tree maps 1:1 onto the port's (``flow_params``): same nesting,
+  same leaf shapes.  Stacked ``ScannedSteps`` leaves keep their leading
+  n axis; the port walks them like the JAX scan does.
+* The frozen flax nets map path by path onto the port's modules, whose
+  names repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW,
+  transpose-conv kernels are flipped, and spectral norm is collapsed here
+  with flax's eval rule (``collapse_spectral_norm``).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .flows.base import tree_map
+from .nn.blocks import Conv, ConvTranspose, GroupNorm
+
+
+def to_numpy_tree(tree):
+    """A JAX/flax tree (dicts, FrozenDicts, lists, tuples, arrays) as nested
+    dicts/lists of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {str(k): to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def flow_params(tree, device="cpu", dtype=None):
+    """Torch tree of a numpy flow tree; float leaves cast to ``dtype``."""
+    def leaf(a):
+        t = torch.as_tensor(np.array(a), device=device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    return tree_map(leaf, tree)
+
+
+def _l2_normalize(x, eps):
+    return x * (1.0 / np.sqrt((x * x).sum(keepdims=True) + eps))
+
+
+def collapse_spectral_norm(kernel, u, eps: float = 1e-12):
+    """The weight that flax's ``SpectralNorm`` uses in eval mode
+    (``update_stats=False``): one power-iteration step from the stored ``u``
+    over the kernel reshaped to (-1, out), sigma = v W u^T, then W / sigma.
+    Computed in fp32 like flax."""
+    kernel = np.asarray(kernel, np.float32)
+    value = kernel.reshape(-1, kernel.shape[-1])
+    u0 = np.asarray(u, np.float32).reshape(1, -1)
+    v0 = _l2_normalize(u0 @ value.T, eps)
+    u0 = _l2_normalize(v0 @ value, eps)
+    sigma = (v0 @ value @ u0.T)[0, 0]
+    return kernel / (sigma if sigma != 0 else np.float32(1.0))
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _copy(param, value, where):
+    value = torch.as_tensor(np.array(value))
+    if tuple(param.shape) != tuple(value.shape):
+        raise ValueError(f"{where}: port shape {tuple(param.shape)} != "
+                         f"converted {tuple(value.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def load_flax(module: torch.nn.Module, params, stats=None) -> None:
+    """Copy a flax variable tree (``params`` and its ``batch_stats``) into
+    ``module``, whose submodule names repeat the flax names.  Every port
+    parameter must be found; flax leaves of submodules the port does not
+    have (e.g. the motion encoder) are ignored."""
+    stats = stats or {}
+    for name, sub in module.named_modules():
+        path = name.split(".") if name else []
+        where = "/".join(path) or "<root>"
+        if isinstance(sub, (Conv, ConvTranspose)):
+            node = _get(params, path)
+            kernel = np.asarray(node["kernel"], np.float32)
+            u = None
+            if path:  # flax keeps u at <block>/SpectralNorm_0/"<layer>/kernel/u"
+                try:
+                    u = _get(stats, path[:-1] + ["SpectralNorm_0",
+                                                  f"{path[-1]}/kernel/u"])
+                except KeyError:
+                    pass
+            if u is not None:
+                kernel = collapse_spectral_norm(kernel, u)
+            if isinstance(sub, Conv):
+                w = kernel.transpose(3, 2, 0, 1)
+            else:
+                w = np.flip(kernel, (0, 1)).transpose(2, 3, 0, 1)
+            _copy(sub.weight, w, where)
+            if sub.bias is not None:
+                _copy(sub.bias, node["bias"], where)
+        elif isinstance(sub, GroupNorm):
+            if sub.scale is not None:
+                node = _get(params, path)
+                _copy(sub.scale, node["scale"], where)
+                _copy(sub.bias, node["bias"], where)
+        else:
+            for pname, p in sub.named_parameters(recurse=False):
+                _copy(p, _get(params, path + [pname]), f"{where}/{pname}")

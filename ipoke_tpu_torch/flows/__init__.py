@@ -1,0 +1,42 @@
+"""Invertible-flow engine, inverse direction (counterpart of
+``ipoke_tpu/flows``)."""
+
+from .base import Chain, Flow, ParamTree, count_params, tree_leaves, tree_map
+from .macow import (
+    MaCowUnitChain,
+    MaskedConvFlow,
+    MultiScaleInternal,
+    MultiScalePrior,
+    NICE2d,
+    ScannedSteps,
+    make_macow_step,
+    make_macow_unit,
+)
+from .primitives import ActNorm, Shuffle
+
+
+def build_macow_transformer(arch) -> MultiScaleInternal:
+    """The multi-scale MaCow cINN from an ``architecture`` config block with
+    the reference's key names (flow_in_channels, flow_mid_channels or
+    flow_mid_channels_factor, h_channels, factor, num_steps, kernel_size,
+    transform, prior_transform, activation, use1x1, condition_nice)."""
+    get = arch.get
+    if get("multistack", False):
+        raise NotImplementedError("multistack (MultiscaleStack) is not ported yet")
+    in_c = get("flow_in_channels")
+    mid = get("flow_mid_channels")
+    if mid is None:
+        mid = int(get("flow_mid_channels_factor", 8) * in_c)
+    return MultiScaleInternal(
+        num_steps=tuple(get("num_steps")),
+        in_channels=in_c,
+        hidden_channels=mid,
+        h_channels=int(get("h_channels", 0)),
+        factor=int(get("factor", 16)),
+        transform=get("transform", "affine"),
+        prior_transform=get("prior_transform", "affine"),
+        kernel_size=tuple(get("kernel_size", (2, 3))),
+        activation=get("activation", "elu"),
+        use_1x1=bool(get("use1x1", False)),
+        condition_nice=bool(get("condition_nice", False)),
+    )

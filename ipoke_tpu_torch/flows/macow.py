@@ -1,0 +1,423 @@
+"""MaCow conditional invertible flow, inverse direction (counterpart of
+``ipoke_tpu/flows/macow.py``).
+
+The same functional flows as the JAX package, NHWC, over the same parameter
+trees.  Two places dispatch to hand-written kernels, both as in the JAX
+package: ``NICE2d._raw_inference`` (K1, ``ops/nice_net.py``) inside the
+kernel's shape family with bf16 activations, and ``MaCowUnitChain.inverse``
+(K2, ``ops/masked_conv.py``) for affine/ELU units on square latents.  Each
+wrapper takes its plain PyTorch version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .base import Chain, Flow, tree_map
+from .primitives import (
+    ActNorm,
+    Shuffle,
+    _v_norm,
+    conv1x1_dot,
+    conv_init,
+    get_transform,
+    plain_conv_apply,
+    wn_conv_apply_packed,
+    wn_conv_init,
+)
+
+
+def _act(name: str):
+    return {"relu": F.relu, "elu": F.elu,
+            "leaky_relu": lambda x: F.leaky_relu(x, 0.1)}[name]
+
+
+def default_mcf_hidden(in_channels: int) -> int:
+    if in_channels <= 96:
+        return 4 * in_channels
+    return min(2 * in_channels, 512)
+
+
+# ---------------------------------------------------------------------------
+# Masked convolutional flow
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MaskedConvFlow(Flow):
+    """Autoregressive masked-conv flow (one of orders A/B/C/D).  Orders C/D
+    store their kernel with the dims already swapped, as the JAX package
+    (and its reference) does."""
+
+    in_channels: int
+    kernel_size: Tuple[int, int]
+    order: str = "A"
+    hidden_channels: Optional[int] = None
+    h_channels: int = 0
+    transform: str = "affine"
+    alpha: float = 1.0
+    activation: str = "elu"
+
+    @property
+    def _hidden(self):
+        return self.hidden_channels or default_mcf_hidden(self.in_channels)
+
+    @property
+    def _tr(self):
+        return get_transform(self.transform, self.alpha)
+
+    def init(self, generator, device):
+        kh, kw = self.kernel_size
+        out_c = self.in_channels * self._tr.n_params
+        return {
+            "w_shift": conv_init(generator, device, kh, kw, self.in_channels,
+                                 self._hidden),
+            "out": wn_conv_init(generator, device, 1, 1,
+                                self._hidden + self.h_channels, out_c,
+                                zero_init=True),
+        }
+
+    def inverse(self, params, y, h=None):
+        if self.order in ("A", "B"):
+            return self._inverse_height(params, y, h, reverse=self.order == "B")
+        # C/D: transpose H<->W and the kernel axes, run the height scan
+        yt = y.transpose(1, 2)
+        ht = None if h is None else h.transpose(1, 2)
+        pt = dict(params, w_shift=params["w_shift"].transpose(0, 1))
+        xt = self._inverse_height(pt, yt, ht, reverse=self.order == "D")
+        return xt.transpose(1, 2)
+
+    def _inverse_height(self, params, y, h, reverse: bool):
+        """Sequential row reconstruction: row i of x needs the rows of x
+        before it (after it when ``reverse``)."""
+        b, height, width, c = y.shape
+        kh, kw = params["w_shift"].shape[0], params["w_shift"].shape[1]
+        cw = (kw - 1) // 2
+        buf = y.new_zeros((b, height + kh, width + 2 * cw, c))
+        tr, act = self._tr, _act(self.activation)
+        out = params["out"]
+        w_out = (out["v"] * (out["g"] / _v_norm(out["v"])))[0, 0]
+        if self.h_channels and h is None:
+            raise ValueError(
+                f"MaskedConvFlow built with h_channels={self.h_channels} "
+                "requires conditioning input h")
+        use_h = h is not None and self.h_channels
+        for i in range(height):
+            row = height - 1 - i if reverse else i
+            start = row + 1 if reverse else row
+            window = buf[:, start:start + kh]
+            hid = plain_conv_apply(params["w_shift"], window)[:, 0]  # (b, W, hid)
+            if use_h:
+                hid = torch.cat([hid, h[:, row]], dim=-1)
+            raw = torch.matmul(act(hid), w_out) + out["b"]
+            write_at = row if reverse else row + kh
+            buf[:, write_at, cw:cw + width] = tr.bwd(y[:, row], tr.calc(raw))
+        if reverse:
+            return buf[:, :height, cw:cw + width]
+        return buf[:, kh:, cw:cw + width]
+
+
+# ---------------------------------------------------------------------------
+# NICE coupling over channel splits
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NICE2d(Flow):
+    in_channels: int
+    hidden_channels: Optional[int] = None
+    h_channels: int = 0
+    split_type: str = "continuous"  # or "skip"
+    order: str = "up"  # or "down"
+    factor: int = 2
+    transform: str = "affine"
+    alpha: float = 1.0
+    activation: str = "elu"
+
+    def __post_init__(self):
+        if self.split_type == "skip" and self.in_channels % self.factor == 1:
+            object.__setattr__(self, "split_type", "continuous")
+
+    @property
+    def _out_channels(self):
+        return self.in_channels // self.factor
+
+    @property
+    def _in1(self):
+        return self.in_channels - self._out_channels
+
+    @property
+    def z1_channels(self):
+        return self._in1 if self.order == "up" else self._out_channels
+
+    @property
+    def _hidden(self):
+        return self.hidden_channels or min(8 * self.in_channels, 512)
+
+    @property
+    def _tr(self):
+        return get_transform(self.transform, self.alpha)
+
+    def init(self, generator, device):
+        hid = self._hidden
+        out_c = self._out_channels * self._tr.n_params
+        return {
+            "w1": conv_init(generator, device, 3, 3, self._in1, hid),
+            "w2": conv_init(generator, device, 1, 1, hid, hid),
+            "out": wn_conv_init(generator, device, 3, 3, hid + self.h_channels,
+                                out_c, zero_init=True),
+        }
+
+    def _split(self, z):
+        if self.split_type == "continuous":
+            return z[..., :self.z1_channels], z[..., self.z1_channels:]
+        return z[..., 0::2], z[..., 1::2]
+
+    def _unsplit(self, z1, z2):
+        if self.split_type == "continuous":
+            return torch.cat([z1, z2], dim=-1)
+        return torch.stack([z1, z2], dim=-1).reshape(*z1.shape[:-1], -1)
+
+    def _net_hidden(self, params, z, h):
+        act = _act(self.activation)
+        c = act(plain_conv_apply(params["w1"], z, padding="SAME"))
+        c = conv1x1_dot(params["w2"], c)
+        if self.h_channels:
+            c = torch.cat([c, h], dim=-1)
+        return act(c)
+
+    def _raw(self, params, z, h):
+        return wn_conv_apply_packed(params["out"], self._net_hidden(params, z, h))
+
+    def _zp_z(self, z1, z2):
+        return (z1, z2) if self.order == "up" else (z2, z1)
+
+    def inverse(self, params, y, h=None):
+        z1, z2 = self._split(y)
+        z, zp = self._zp_z(z1, z2)
+        zp = self._tr.bwd(zp, self._tr.calc(self._raw_inference(params, z, h)))
+        z1, z2 = (z, zp) if self.order == "up" else (zp, z)
+        return self._unsplit(z1, z2)
+
+    def _raw_inference(self, params, z, h):
+        """``_raw`` through K1 inside the JAX package's family for it: ELU,
+        bf16 activations, and the kernel's shape family."""
+        from ..ops.nice_net import nice_net_fits, nice_net_raw
+
+        hh = h if self.h_channels else None
+        if (self.activation == "elu" and z.dtype == torch.bfloat16
+                and (self.h_channels == 0 or h is not None)
+                and nice_net_fits(params, z, hh)):
+            return nice_net_raw(params, z, hh)
+        return self._raw(params, z, h)
+
+
+# ---------------------------------------------------------------------------
+# Units / steps / multi-scale
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MaCowUnitChain(Chain):
+    """A MaCowUnit chain whose inverse runs as one kernel (K2) for affine/ELU
+    units on square latents; otherwise the plain chain inverse."""
+
+    def inverse(self, params, y, h=None):
+        from ..ops.masked_conv import macow_unit_inverse
+
+        mcf = self.flows[0]
+        if (isinstance(mcf, MaskedConvFlow) and mcf.transform == "affine"
+                and mcf.activation == "elu" and y.shape[1] == y.shape[2]
+                # a unit built with h-conditioning rows must receive h
+                and (mcf.h_channels == 0 or h is not None)):
+            x = macow_unit_inverse(
+                y, h if mcf.h_channels else None,
+                [params[0], params[1], params[3], params[4]],
+                [params[2], params[5]], mcf.kernel_size, mcf.alpha)
+            return x.to(y.dtype)
+        return super().inverse(params, y, h)
+
+
+def make_macow_unit(in_channels, kernel_size, h_channels=0, transform="affine",
+                    alpha=1.0, activation="elu") -> Chain:
+    """MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D) -> ActNorm."""
+    kh, kw = kernel_size
+    mk = lambda order, ks: MaskedConvFlow(
+        in_channels, ks, order=order, h_channels=h_channels,
+        transform=transform, alpha=alpha, activation=activation)
+    return MaCowUnitChain((
+        mk("A", (kh, kw)), mk("B", (kh, kw)), ActNorm(in_channels),
+        mk("C", (kw, kh)), mk("D", (kw, kh)), ActNorm(in_channels),
+    ))
+
+
+def make_macow_step(in_channels, kernel_size, hidden_channels, h_channels=0,
+                    transform="affine", alpha=1.0, activation="elu",
+                    condition_nice=False) -> Chain:
+    """ActNorm -> Shuffle -> 2x unit -> NICE(up) -> NICE(dn) -> ActNorm ->
+    2x unit -> NICE(skip,up) -> NICE(skip,dn)."""
+    nice_h = h_channels if condition_nice else 0
+    unit = lambda: make_macow_unit(in_channels, kernel_size, h_channels,
+                                   transform, alpha, activation)
+    nice = lambda split, order: NICE2d(
+        in_channels, hidden_channels=hidden_channels, h_channels=nice_h,
+        split_type=split, order=order, transform=transform, alpha=alpha,
+        activation=activation)
+    return Chain((
+        ActNorm(in_channels), Shuffle(in_channels), unit(), unit(),
+        nice("continuous", "up"), nice("continuous", "down"),
+        ActNorm(in_channels), unit(), unit(),
+        nice("skip", "up"), nice("skip", "down"),
+    ))
+
+
+def _permutation(use_1x1: bool, channels: int) -> Flow:
+    if use_1x1:
+        raise NotImplementedError("use1x1 (InvConvLU) is not ported yet")
+    return Shuffle(channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiScalePrior(Flow):
+    """perm -> NICE(continuous, up) -> ActNorm on the factored-out half."""
+
+    in_channels: int
+    hidden_channels: int
+    h_channels: int = 0
+    factor: int = 2
+    transform: str = "affine"
+    alpha: float = 1.0
+    activation: str = "elu"
+    use_1x1: bool = False
+    condition_nice: bool = False
+
+    @property
+    def _perm(self):
+        return _permutation(self.use_1x1, self.in_channels)
+
+    @property
+    def _coupling(self):
+        return NICE2d(
+            self.in_channels, hidden_channels=self.hidden_channels,
+            h_channels=self.h_channels if self.condition_nice else 0,
+            split_type="continuous", order="up", factor=self.factor,
+            transform=self.transform, alpha=self.alpha,
+            activation=self.activation)
+
+    @property
+    def z1_channels(self):
+        return self._coupling.z1_channels
+
+    @property
+    def _actnorm(self):
+        return ActNorm(self.in_channels // self.factor)
+
+    def init(self, generator, device):
+        return {"perm": self._perm.init(generator, device),
+                "coupling": self._coupling.init(generator, device),
+                "actnorm": self._actnorm.init(generator, device)}
+
+    def inverse(self, params, y, h=None):
+        z1, z2 = y[..., :self.z1_channels], y[..., self.z1_channels:]
+        z2 = self._actnorm.inverse(params["actnorm"], z2)
+        out = torch.cat([z1, z2], dim=-1)
+        out = self._coupling.inverse(params["coupling"], out, h)
+        return self._perm.inverse(params["perm"], out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScannedSteps(Flow):
+    """``n`` structurally identical steps over stacked parameters: every leaf
+    carries a leading axis of length ``n``, as in the JAX package; the
+    inverse walks the steps in reverse."""
+
+    step: Flow
+    n: int
+
+    def init(self, generator, device):
+        return _stack([self.step.init(generator, device) for _ in range(self.n)])
+
+    def inverse(self, params, y, h=None):
+        for i in reversed(range(self.n)):
+            y = self.step.inverse(tree_map(lambda a: a[i], params), y, h)
+        return y
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiScaleInternal(Flow):
+    """Multi-scale MaCow stack with channel factoring per level.
+
+    Per level i: ``num_steps[i]`` MaCowSteps (stacked), a MultiScalePrior, a
+    permutation, then the last ``in_channels // factor`` channels are
+    factored out.  The packed z is [final, split_{L-1}, ..., split_0] on the
+    channel axis."""
+
+    num_steps: Tuple[int, ...]
+    in_channels: int
+    hidden_channels: int
+    h_channels: int = 0
+    factor: int = 16
+    transform: str = "affine"
+    prior_transform: str = "affine"
+    alpha: float = 1.0
+    kernel_size: Tuple[int, int] = (2, 3)
+    activation: str = "elu"
+    use_1x1: bool = False
+    condition_nice: bool = False
+
+    def __post_init__(self):
+        if len(self.num_steps) >= self.factor:
+            raise ValueError("need len(num_steps) < factor")
+
+    def _levels(self):
+        """Static per-level structure: (steps, prior, perm, z1_channels)."""
+        levels = []
+        c = self.in_channels
+        channel_step = self.in_channels // self.factor
+        factor = self.factor
+        for n in self.num_steps:
+            step = make_macow_step(
+                c, self.kernel_size, self.hidden_channels, self.h_channels,
+                self.transform, self.alpha, self.activation,
+                self.condition_nice)
+            prior = MultiScalePrior(
+                c, self.hidden_channels, self.h_channels, factor,
+                self.prior_transform, self.alpha, self.activation,
+                self.use_1x1, self.condition_nice)
+            perm = _permutation(self.use_1x1, c)
+            levels.append((ScannedSteps(step, n), prior, perm,
+                           prior.z1_channels))
+            c = c - channel_step
+            factor -= 1
+        return levels
+
+    def init(self, generator, device):
+        return [{"steps": steps.init(generator, device),
+                 "prior": prior.init(generator, device),
+                 "perm": perm.init(generator, device)}
+                for steps, prior, perm, _ in self._levels()]
+
+    def inverse(self, params, y, h=None):
+        levels = self._levels()
+        out = y
+        splits = []
+        for _, _, _, z1c in levels:
+            splits.append(out[..., z1c:])
+            out = out[..., :z1c]
+        for (steps, prior, perm, _), p, z2 in zip(
+                reversed(levels), reversed(params), reversed(splits)):
+            out = torch.cat([out, z2], dim=-1)
+            out = perm.inverse(p["perm"], out)
+            out = prior.inverse(p["prior"], out, h)
+            out = steps.inverse(p["steps"], out, h)
+        return out

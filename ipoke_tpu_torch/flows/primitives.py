@@ -1,0 +1,134 @@
+"""Elementwise transforms and small invertible layers, inverse direction
+(counterpart of ``ipoke_tpu/flows/primitives.py``).  All arrays NHWC."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .base import Flow, randn
+
+
+class Affine:
+    """``y = scale*z + mu`` with ``scale = 1 + alpha*tanh(log_scale/2)``."""
+
+    n_params = 2
+
+    def __init__(self, alpha: float = 1.0):
+        self.alpha = alpha
+
+    def calc(self, raw):
+        mu, log_scale = torch.chunk(raw, 2, dim=-1)
+        scale = torch.tanh(log_scale * 0.5) * self.alpha + 1.0
+        return mu, scale
+
+    @staticmethod
+    def bwd(z, params):
+        mu, scale = params
+        return (z - mu) / (scale + 1e-12)
+
+
+def get_transform(name: str, alpha: float = 1.0) -> Affine:
+    if name == "affine":
+        return Affine(alpha)
+    raise NotImplementedError(
+        f"transform {name!r} is not ported yet (only 'affine', the shipped one)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ActNorm(Flow):
+    channels: int
+
+    def init(self, generator, device):
+        return {"log_scale": randn((self.channels,), generator, device, 0.05),
+                "bias": torch.zeros((self.channels,), device=device)}
+
+    def inverse(self, params, y, h=None):
+        return (y - params["bias"]) / (torch.exp(params["log_scale"]) + 1e-8)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shuffle(Flow):
+    """Fixed channel permutation; the int32 perms are buffers."""
+
+    channels: int
+
+    def init(self, generator, device):
+        if torch.device(device).type == "meta":
+            perm = torch.empty((self.channels,), dtype=torch.int32, device="meta")
+            return {"buf_perm": perm, "buf_inv_perm": torch.empty_like(perm)}
+        perm = torch.randperm(self.channels, generator=generator, device=device)
+        return {"buf_perm": perm.to(torch.int32),
+                "buf_inv_perm": torch.argsort(perm).to(torch.int32)}
+
+    def inverse(self, params, y, h=None):
+        return torch.index_select(y, -1, params["buf_inv_perm"])
+
+
+# ---------------------------------------------------------------------------
+# convolutions on NHWC tensors with HWIO kernels (the JAX layouts)
+# ---------------------------------------------------------------------------
+
+def conv_init(generator, device, kh, kw, cin, cout):
+    return randn((kh, kw, cin, cout), generator, device, (kh * kw * cin) ** -0.5)
+
+
+def wn_conv_init(generator, device, kh, kw, cin, cout, zero_init=False):
+    v = randn((kh, kw, cin, cout), generator, device, 0.05)
+    g = torch.zeros((cout,), device=device) if zero_init else _v_norm(v)
+    return {"v": v, "g": g, "b": torch.zeros((cout,), device=device)}
+
+
+def _v_norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=(0, 1, 2)) + 1e-12)
+
+
+def plain_conv_apply(w, x, padding="VALID"):
+    """Stride-1 conv of NHWC ``x`` with HWIO ``w``; ``"SAME"`` pads like
+    XLA (the extra row/column of an even kernel goes after)."""
+    kh, kw = w.shape[0], w.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        ph, pw = (kh - 1) // 2, (kw - 1) // 2
+        xc = F.pad(xc, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    elif padding != "VALID":
+        raise ValueError(padding)
+    return F.conv2d(xc, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+
+def conv1x1_dot(w, x):
+    """1x1 conv as one (M, Cin) @ (Cin, N) product, fp32 accumulation, cast
+    back to the input dtype."""
+    b, hh, ww, cin = x.shape
+    o = torch.matmul(x.reshape(-1, cin).float(), w[0, 0].float())
+    return o.reshape(b, hh, ww, -1).to(x.dtype)
+
+
+def shifted_tap_sum(u, kh, kw):
+    """Epilogue of the tap-packed conv: ``u`` (B, H, W, kh, kw, N) holds each
+    tap's output at the pixel it reads; the tap that sees input pixel
+    (y+dy-ph, x+dx-pw) contributes to output pixel (y, x)."""
+    bsz, hh, ww = u.shape[:3]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    up = F.pad(u, (0, 0, 0, 0, 0, 0, pw, kw - 1 - pw, ph, kh - 1 - ph))
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            s = up[:, dy:dy + hh, dx:dx + ww, dy, dx, :]
+            acc = s if acc is None else acc + s
+    return acc
+
+
+def wn_conv_apply_packed(params, x):
+    """3x3 SAME weight-norm conv as one (M, Cin) @ (Cin, 9*N) product plus
+    nine shifted adds; fp32 accumulation, cast back to the input dtype."""
+    v, g, b = params["v"], params["g"], params["b"]
+    kh, kw, cin, n = v.shape
+    w = (v * (g / _v_norm(v))).to(x.dtype)
+    bsz, hh, ww, _ = x.shape
+    wp = w.permute(2, 0, 1, 3).reshape(cin, kh * kw * n)
+    u = torch.matmul(x.reshape(-1, cin).float(), wp.float())
+    acc = shifted_tap_sum(u.reshape(bsz, hh, ww, kh, kw, n), kh, kw)
+    return acc.to(x.dtype) + b

@@ -1,0 +1,206 @@
+"""Conv building blocks, inference (counterpart of ``ipoke_tpu/nn/blocks.py``).
+
+Modules take and return NHWC tensors, like the JAX package; each conv runs
+on an NCHW view of them (a channels-last NCHW tensor, so no copy).  Module
+and attribute names repeat the flax names (``Conv_0``, ``GroupNorm_0``,
+``Conv2dBlock_1``, ...) so that ``ipoke_tpu_torch.convert`` maps a flax tree
+onto them path by path.  Spectral norm exists only in the JAX package's
+parameters: ``convert`` collapses it into the conv weight (flax's eval rule).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.spade_gn import spade_gn_modulate
+
+
+def get_activation(name: str):
+    return {"elu": F.elu, "tanh": torch.tanh, "none": None}[name]
+
+
+def _num_groups(channels: int, max_groups: int = 16) -> int:
+    g = min(channels, max_groups)
+    while channels % g != 0:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NHWC: fp32 statistics with the fast variance
+    max(E[x^2] - E[x]^2, 0), normalise, scale and shift in fp32, one cast to
+    the input dtype at the end."""
+
+    def __init__(self, num_groups: int, channels: int, affine: bool = True,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        if affine:
+            self.scale = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.scale = self.bias = None
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        g = self.num_groups
+        x32 = x.float()
+        xg = x32.reshape(n, h * w, g, c // g)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
+                          min=0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(n, h, w, c)
+        if self.scale is not None:
+            y = y * self.scale.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+def make_norm(name: Optional[str], channels: int) -> Optional[nn.Module]:
+    if name == "none":
+        return None
+    if name == "group":
+        return GroupNorm(_num_groups(channels), channels)
+    if name == "in":  # instance norm: one channel per group, no scale/shift
+        return GroupNorm(channels, channels, affine=False)
+    raise ValueError(f"unsupported norm {name!r}")
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` with symmetric integer padding, on NHWC tensors.
+    ``weight`` is OIHW (converted from flax's HWIO kernel)."""
+
+    def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 1,
+                 padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(cout, cin, ks, ks))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(k3, s2, "SAME", transpose_kernel=False)`` on
+    NHWC tensors: ``F.conv_transpose2d`` with the spatially flipped kernel,
+    output cropped by one row and column at the end.  ``weight`` is
+    (in, out, kh, kw) = flip(kernel, (0, 1)).permute(2, 3, 0, 1)."""
+
+    def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 2):
+        super().__init__()
+        if (ks, stride) != (3, 2):
+            raise NotImplementedError("only the k3 s2 transpose conv is ported")
+        self.weight = nn.Parameter(torch.empty(cin, cout, ks, ks))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                               stride=2)
+        return y[:, :, :-1, :-1].permute(0, 2, 3, 1)
+
+
+class Conv2dBlock(nn.Module):
+    """conv -> norm -> activation."""
+
+    def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 1,
+                 padding: int = 0, norm: str = "none", activation: str = "elu",
+                 use_bias: bool = True):
+        super().__init__()
+        self.Conv_0 = Conv(cin, out_dim, ks, st, padding, use_bias)
+        self.GroupNorm_0 = make_norm(norm, out_dim)
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        x = self.Conv_0(x)
+        if self.GroupNorm_0 is not None:
+            x = self.GroupNorm_0(x)
+        return self.act(x) if self.act is not None else x
+
+
+class Conv2dTransposeBlock(nn.Module):
+    """2x upsampling transpose conv -> norm -> activation."""
+
+    def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 2,
+                 norm: str = "none", activation: str = "elu"):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose(cin, out_dim, ks, st)
+        self.GroupNorm_0 = make_norm(norm, out_dim)
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        x = self.ConvTranspose_0(x)
+        if self.GroupNorm_0 is not None:
+            x = self.GroupNorm_0(x)
+        return self.act(x) if self.act is not None else x
+
+
+class ResBlock(nn.Module):
+    """Two-conv residual block, optional stride-2 down or transpose-conv up.
+    Children carry flax's auto-names in creation order."""
+
+    def __init__(self, dim_in: int, dim_out: int, norm: str = "group",
+                 activation: str = "elu", upsampling: bool = False,
+                 stride: int = 1):
+        super().__init__()
+        self.upsampling = upsampling
+        if upsampling:
+            self.Conv2dTransposeBlock_0 = Conv2dTransposeBlock(
+                dim_in, dim_out, 3, 2, norm=norm, activation=activation)
+            self.Conv2dBlock_0 = Conv2dBlock(dim_out, dim_out, 3, 1, 1, norm=norm,
+                                             activation="none")
+            self.Conv2dTransposeBlock_1 = Conv2dTransposeBlock(
+                dim_in, dim_out, 3, 2, norm="in", activation=activation)
+        else:
+            self.Conv2dBlock_0 = Conv2dBlock(dim_in, dim_out, 3, stride, 1,
+                                             norm=norm, activation=activation)
+            self.Conv2dBlock_1 = Conv2dBlock(dim_out, dim_out, 3, 1, 1, norm=norm,
+                                             activation="none")
+            if dim_in != dim_out or stride != 1:
+                self.Conv2dBlock_2 = Conv2dBlock(dim_in, dim_out, 3, stride, 1,
+                                                 norm="in", activation=activation)
+
+    def forward(self, x):
+        if self.upsampling:
+            h = self.Conv2dBlock_0(self.Conv2dTransposeBlock_0(x))
+            return h + self.Conv2dTransposeBlock_1(x)
+        h = self.Conv2dBlock_1(self.Conv2dBlock_0(x))
+        residual = self.Conv2dBlock_2(x) if hasattr(self, "Conv2dBlock_2") else x
+        return h + residual
+
+
+def resize_bilinear(y, height: int, width: int):
+    """``jax.image.resize(..., "bilinear")`` on NHWC: half-pixel centres and,
+    when downscaling, an antialiasing (triangle) filter.  Computed in fp32
+    (the antialiased filter has no bf16 CPU kernel), cast back once."""
+    out = F.interpolate(y.permute(0, 3, 1, 2).float(), size=(height, width),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1).to(y.dtype)
+
+
+class Spade(nn.Module):
+    """SPADE conditioning: parameter-free GroupNorm modulated by gamma/beta
+    convs over the resized conditioning image.  ``modulation`` depends only on
+    the conditioning image, so a T-frame decode computes it once per clip."""
+
+    def __init__(self, num_features: int, cond_channels: int = 3,
+                 hidden: int = 128):
+        super().__init__()
+        self.num_features = num_features
+        self.Conv_0 = Conv(cond_channels, hidden, 3, 1, 1)
+        self.Conv_1 = Conv(hidden, num_features, 3, 1, 1)
+        self.Conv_2 = Conv(hidden, num_features, 3, 1, 1)
+
+    def modulation(self, y, height: int, width: int):
+        y = F.leaky_relu(self.Conv_0(resize_bilinear(y, height, width)), 0.2)
+        return self.Conv_1(y), self.Conv_2(y)
+
+    def forward(self, x, mod):
+        gamma, beta = mod
+        return spade_gn_modulate(x, gamma, beta, _num_groups(self.num_features),
+                                 1e-5)

@@ -1,0 +1,90 @@
+"""Conv encoder and SPADE decoder used by sampling (counterpart of
+``ipoke_tpu/nn/encoders.py``), NHWC.  Only the deterministic encoder branch
+and ``FirstStageWrapper.encode`` are ported: sampling runs nothing else."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+from torch import nn
+
+from .blocks import Conv2dBlock, ResBlock, Spade
+
+
+class ConvEncoder(nn.Module):
+    """Strided Conv2dBlock stem, stride-2 ResBlocks, bottleneck ResBlock."""
+
+    def __init__(self, nf_in: int, nf_max: int, n_stages: int,
+                 norm: str = "group"):
+        super().__init__()
+        nf = 32
+        self.Conv2dBlock_0 = Conv2dBlock(nf_in, nf, 3, 2, 1, norm=norm,
+                                         activation="elu")
+        for i in range(n_stages - 1):
+            nf_next = min(nf * 2, nf_max)
+            self.add_module(f"ResBlock_{i}", ResBlock(
+                nf, nf_next, norm=norm, activation="elu", stride=2))
+            nf = nf_next
+        self.n_res = n_stages
+        self.add_module(f"ResBlock_{n_stages - 1}", ResBlock(
+            nf, nf_max, norm=norm, activation="elu"))
+
+    def forward(self, x):
+        """(h, mean_pre, None), as the deterministic JAX encoder returns."""
+        h = self.Conv2dBlock_0(x)
+        for i in range(self.n_res - 1):
+            h = getattr(self, f"ResBlock_{i}")(h)
+        mean_pre = h
+        h = getattr(self, f"ResBlock_{self.n_res - 1}")(h)
+        return h, mean_pre, None
+
+
+class SpadeCondConvDecoder(nn.Module):
+    """Upsampling decoder with SPADE(start_frame) after every ResBlock."""
+
+    def __init__(self, nf_in: int, dec_channels: Sequence[int],
+                 out_channels: int = 3, norm: str = "group"):
+        super().__init__()
+        self.ResBlock_0 = ResBlock(nf_in, dec_channels[0], norm=norm)
+        self.n_up = len(dec_channels) - 1
+        for i, (cin, nf) in enumerate(zip(dec_channels[:-1], dec_channels[1:])):
+            self.add_module(f"ResBlock_{i + 1}", ResBlock(
+                cin, nf, norm="none", upsampling=True))
+            self.add_module(f"Spade_{i}", Spade(nf))
+        self.Conv2dBlock_0 = Conv2dBlock(
+            dec_channels[-1], out_channels, 3, 1, 1, norm="none",
+            activation="tanh" if out_channels == 3 else "none")
+
+    def spade_modulations(self, start_frame, in_size: int):
+        """Per-level SPADE (gamma, beta) from the start frame alone."""
+        mods, size = [], in_size
+        for i in range(self.n_up):
+            size *= 2
+            mods.append(getattr(self, f"Spade_{i}").modulation(
+                start_frame, size, size))
+        return tuple(mods)
+
+    def forward(self, h_t, mods):
+        h = self.ResBlock_0(h_t)
+        for i in range(self.n_up):
+            h = getattr(self, f"ResBlock_{i + 1}")(h)
+            h = getattr(self, f"Spade_{i}")(h, mods[i])
+        return self.Conv2dBlock_0(h)
+
+
+class FirstStageWrapper(nn.Module):
+    """The deterministic encoder of the image conditioner / poke embedder
+    (its decoder does not take part in sampling and is not ported; nor are
+    the variational heads and ``poke_and_image``, unused at the shipped
+    config)."""
+
+    def __init__(self, spatial_size: int, nf_in: int, nf_max: int,
+                 min_spatial_size: int = 8):
+        super().__init__()
+        self.nf_max, self.min_spatial_size = nf_max, min_spatial_size
+        n_stages = int(np.log2(spatial_size // min_spatial_size))
+        self.encoder = ConvEncoder(nf_in, nf_max, n_stages)
+
+    def encode(self, x):
+        return self.encoder(x)

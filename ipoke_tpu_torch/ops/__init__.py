@@ -1,0 +1,22 @@
+"""Kernel layer of the port: one hand-written Hopper kernel per TPU kernel on
+the sampling path, each beside a plain PyTorch version of the same function.
+
+* ``nice_net`` (K1, CUDA C++ ``csrc/nice_net.cu``) replaces
+  ``ipoke_tpu/ops/nice_net.py::nice_net_raw_pallas``;
+* ``masked_conv`` (K2, CUDA C++ ``csrc/macow_unit_inverse.cu``) replaces
+  ``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``;
+* ``spade_gn`` (K3, Triton) replaces
+  ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``.
+
+Dispatch is by device: a wrapper given CPU tensors runs the plain version; on
+CUDA tensors it launches its kernel or raises - there is no fallback.
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are not
+counted), so a run can show that its main path went through the kernels.
+"""
+
+LAUNCHES = {"nice_net": 0, "macow_unit_inverse": 0, "spade_gn": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,122 @@
+"""The port's flows (ipoke_tpu_torch/flows) against the JAX package's, inverse
+direction, with the same perturbed weights and the same inputs (numpy seeds).
+On CPU the unit inverse takes K2's plain version."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from ipoke_tpu.flows import macow as jm
+from ipoke_tpu_torch import entry
+from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
+from ipoke_tpu_torch.flows import macow as tm
+from ipoke_tpu_torch.flows import count_params, tree_leaves
+
+from test_torch_ops import _jnp, _np, _perturb, _t
+
+B, H, W, C, HC = 2, 8, 8, 8, 6
+
+
+def _case(jflow, seed, channels=C, h_channels=HC, g_std=0.3, b_std=0.1):
+    rng = np.random.default_rng(seed)
+    params = _perturb(to_numpy_tree(jflow.init(jax.random.PRNGKey(seed), None)),
+                      rng, g_std, b_std)
+    x = rng.standard_normal((B, H, W, channels)).astype(np.float32)
+    h = rng.standard_normal((B, H, W, h_channels)).astype(np.float32) \
+        if h_channels else None
+    pj = _jnp(params)
+    hj = None if h is None else jnp.asarray(h)
+    # jitted: one compile each instead of op-by-op dispatch of the scans
+    y, _ = jax.jit(jflow.forward)(pj, jnp.asarray(x), hj)
+    want = jax.jit(jflow.inverse)(pj, y, hj)
+    return params, x, h, y, want
+
+
+def _check(tflow, params, h, y, want, x, tol):
+    got = tflow.inverse(flow_params(params), _t(y), None if h is None else _t(h))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=tol)
+    if x is not None:  # and it inverts the JAX forward
+        np.testing.assert_allclose(got.numpy(), x, atol=1e-3)
+
+
+@pytest.mark.parametrize("order,ks", [("A", (2, 3)), ("B", (2, 3)),
+                                      ("C", (3, 2)), ("D", (3, 2))])
+def test_masked_conv_flow_inverse(order, ks):
+    jflow = jm.MaskedConvFlow(C, ks, order=order, h_channels=HC)
+    params, x, h, y, want = _case(jflow, 1 + ord(order))
+    _check(tm.MaskedConvFlow(C, ks, order=order, h_channels=HC),
+           params, h, y, want, x, 1e-4)
+
+
+@pytest.mark.parametrize("split,order", [("continuous", "up"),
+                                         ("continuous", "down"),
+                                         ("skip", "up"), ("skip", "down")])
+def test_nice2d_inverse(split, order):
+    kw = dict(hidden_channels=128, split_type=split, order=order)
+    params, x, h, y, want = _case(jm.NICE2d(C, **kw), 30, h_channels=0)
+    _check(tm.NICE2d(C, **kw), params, h, y, want, x, 1e-4)
+
+
+def test_macow_unit_inverse():
+    params, x, h, y, want = _case(jm.make_macow_unit(C, (2, 3), HC), 40)
+    _check(tm.make_macow_unit(C, (2, 3), HC), params, h, y, want, x, 1e-4)
+
+
+def test_macow_step_inverse():
+    params, x, h, y, want = _case(
+        jm.make_macow_step(C, (2, 3), 128, HC), 50, g_std=0.1, b_std=0.05)
+    _check(tm.make_macow_step(C, (2, 3), 128, HC), params, h, y, want, x, 1e-4)
+
+
+def test_multiscale_internal_inverse():
+    """The whole flow, from a z drawn like the sampler's (no JAX forward:
+    its compile would dominate the test)."""
+    kw = dict(num_steps=(2, 1), in_channels=16, hidden_channels=128,
+              h_channels=HC, factor=16)
+    jflow = jm.MultiScaleInternal(**kw)
+    rng = np.random.default_rng(60)
+    params = _perturb(to_numpy_tree(jflow.init(jax.random.PRNGKey(60), None)),
+                      rng, 0.1, 0.05)
+    z = rng.standard_normal((B, H, W, 16)).astype(np.float32)
+    h = rng.standard_normal((B, H, W, HC)).astype(np.float32)
+    want = jax.jit(jflow.inverse)(_jnp(params), jnp.asarray(z), jnp.asarray(h))
+    _check(tm.MultiScaleInternal(**kw), params, h, z, want, None, 1e-3)
+
+
+def _shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_shapes(v, f"{prefix}[{i}]"))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
+def test_shipped_meta_build_matches_jax_init():
+    """The port's SHIPPED flow tree, built on ``meta``, has the JAX init's
+    1755 leaves at the same paths and shapes (1054.43M parameters)."""
+    import __graft_entry__ as ge
+
+    cfg = entry.SHIPPED
+    model, _ = ge._make_models(
+        spatial=cfg["spatial"], min_spatial=cfg["min_spatial"], T=cfg["T"],
+        z_dim=cfg["z_dim"], enc_ch=(64, 128, 256, 256, 256),
+        dec_ch=cfg["dec_ch"], nf_cond=cfg["nf_cond"],
+        num_steps=cfg["num_steps"], mid_factor=cfg["mid_factor"])
+    want = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(4)))["flow"]
+    port = entry.build(cfg, "meta")
+    got = port.flow_params.tree()
+    assert len(tree_leaves(got)) == len(jax.tree_util.tree_leaves(want)) == 1755
+    assert _shapes(got) == _shapes(want)
+    assert round(count_params(got) / 1e6, 2) == 1054.43
+    assert port.flow == tm.MultiScaleInternal(**{
+        f: getattr(model.flow, f) for f in (
+            "num_steps", "in_channels", "hidden_channels", "h_channels",
+            "factor", "transform", "prior_transform", "alpha", "kernel_size",
+            "activation", "use_1x1", "condition_nice")})

@@ -1,0 +1,174 @@
+"""The port's kernel wrappers (ipoke_tpu_torch/ops) against the JAX
+package's Pallas kernels in interpret mode, on CPU tensors: there the
+wrappers run their plain PyTorch versions.  Inputs come from numpy seeds."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ipoke_tpu.flows.macow import NICE2d, make_macow_unit
+from ipoke_tpu.ops.masked_conv import macow_unit_inverse_pallas
+from ipoke_tpu.ops.nice_net import nice_net_raw_pallas
+from ipoke_tpu.ops.spade_gn import spade_gn_modulate_pallas
+from ipoke_tpu_torch import ops
+from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
+from ipoke_tpu_torch.ops import _build
+from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse
+from ipoke_tpu_torch.ops.nice_net import nice_net_fits, nice_net_raw
+from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate
+
+B, H, W = 2, 8, 8
+
+
+def _perturb(tree, rng, g_std, b_std):
+    """Non-trivial out convs (zero-initialised g) and ActNorms, in place."""
+    if isinstance(tree, dict):
+        if {"v", "g", "b"} <= tree.keys():
+            tree["g"] = (g_std * rng.standard_normal(tree["g"].shape)).astype(np.float32)
+            tree["b"] = (b_std * rng.standard_normal(tree["b"].shape)).astype(np.float32)
+        elif {"log_scale", "bias"} <= tree.keys():
+            tree["bias"] = (b_std * rng.standard_normal(tree["bias"].shape)).astype(np.float32)
+        for v in tree.values():
+            _perturb(v, rng, g_std, b_std)
+    elif isinstance(tree, list):
+        for v in tree:
+            _perturb(v, rng, g_std, b_std)
+    return tree
+
+
+def _jnp(tree, dtype=None):
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, dtype) if dtype is not None and a.dtype.kind == "f"
+        else jnp.asarray(a), tree)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.as_tensor(np.array(a, np.float32)).to(dtype)
+
+
+@pytest.fixture(autouse=True)
+def _zero_launches():
+    ops.reset_launches()
+    yield
+    # on CPU tensors the wrappers run their plain versions: no launch counted
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# K1: the NICE coupling net
+# ---------------------------------------------------------------------------
+
+def _nice(h_channels, factor, split, seed, in_channels=8, hidden=256):
+    nice = NICE2d(in_channels, hidden_channels=hidden, h_channels=h_channels,
+                  split_type=split, order="up", factor=factor)
+    rng = np.random.default_rng(seed)
+    params = _perturb(to_numpy_tree(nice.init(jax.random.PRNGKey(seed), None)),
+                      rng, 0.3, 0.1)
+    x = rng.standard_normal((B, H, W, in_channels)).astype(np.float32)
+    h = rng.standard_normal((B, H, W, h_channels)).astype(np.float32) \
+        if h_channels else None
+    return nice, params, x, h
+
+
+@pytest.mark.parametrize("h_channels,factor,split,dtype,tol", [
+    (0, 2, "continuous", "float32", 2e-4),
+    (6, 2, "continuous", "float32", 2e-4),
+    (0, 4, "continuous", "float32", 2e-4),
+    (0, 2, "skip", "float32", 2e-4),
+    (0, 2, "continuous", "bfloat16", 5e-2),
+])
+def test_nice_net_plain_matches_pallas(h_channels, factor, split, dtype, tol):
+    nice, params, x, h = _nice(h_channels, factor, split, 50 + h_channels + factor)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    z = nice._split(jnp.asarray(x, jdt))[0]
+    hj = None if h is None else jnp.asarray(h, jdt)
+    want = nice_net_raw_pallas(_jnp(params, jdt), z, hj, interpret=True)
+    pt = flow_params(params, dtype=tdt)
+    zt = _t(z, tdt)
+    ht = None if h is None else _t(h, tdt)
+    assert nice_net_fits(pt, zt, ht)
+    got = nice_net_raw(pt, zt, ht)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=tol, atol=tol)
+
+
+def test_nice_net_family():
+    """The kernel's static family: conditioning rows need h, the hidden
+    width is a multiple of 128, at most 512 pixels per image."""
+    nice, params, x, h = _nice(6, 2, "continuous", 80)
+    pt = flow_params(params)
+    z, ht = _t(x[..., :4]), _t(h)
+    assert nice_net_fits(pt, z, ht)
+    assert not nice_net_fits(pt, z, None)
+    assert not nice_net_fits(dict(pt, w1=torch.zeros(3, 3, 4, 200)), z, ht)
+    assert not nice_net_fits(pt, torch.zeros(B, 32, 32, 4), ht)
+
+
+# ---------------------------------------------------------------------------
+# K2: the MaCowUnit inverse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h_channels", [0, 6])
+def test_unit_inverse_plain_matches_pallas(h_channels):
+    c = 8
+    unit = make_macow_unit(c, (2, 3), h_channels=h_channels)
+    rng = np.random.default_rng(20 + h_channels)
+    params = _perturb(to_numpy_tree(unit.init(jax.random.PRNGKey(22), None)),
+                      rng, 0.3, 0.1)
+    x = rng.standard_normal((B, H, W, c)).astype(np.float32)
+    h = rng.standard_normal((B, H, W, h_channels)).astype(np.float32) \
+        if h_channels else None
+    pj = _jnp(params)
+    hj = None if h is None else jnp.asarray(h)
+    y, _ = unit.forward(pj, jnp.asarray(x), hj)
+    want = macow_unit_inverse_pallas(y, hj, [pj[0], pj[1], pj[3], pj[4]],
+                                     [pj[2], pj[5]], (2, 3), 1.0, interpret=True)
+    pt = flow_params(params)
+    got = macow_unit_inverse(_t(y), None if h is None else _t(h),
+                             [pt[0], pt[1], pt[3], pt[4]], [pt[2], pt[5]],
+                             (2, 3), 1.0)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), x, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K3: SPADE GroupNorm + modulation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,clips,dtype,tol", [
+    ((6, 8, 8, 32), 2, "float32", 2e-5),
+    ((4, 4, 4, 256), 2, "float32", 2e-5),
+    ((6, 8, 8, 32), 2, "bfloat16", 3e-2),
+    ((4, 4, 4, 256), 4, "bfloat16", 3e-2),
+])
+def test_spade_gn_plain_matches_pallas(shape, clips, dtype, tol):
+    rng = np.random.default_rng(sum(shape) + clips)
+    x = (2.0 * rng.standard_normal(shape) + 0.5).astype(np.float32)
+    mshape = (clips, *shape[1:])
+    gamma = (0.5 * rng.standard_normal(mshape)).astype(np.float32)
+    beta = (0.5 * rng.standard_normal(mshape)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = spade_gn_modulate_pallas(jnp.asarray(x, jdt), jnp.asarray(gamma, jdt),
+                                    jnp.asarray(beta, jdt), 16, 1e-5,
+                                    interpret=True)
+    got = spade_gn_modulate(_t(x, tdt), _t(gamma, tdt), _t(beta, tdt), 16, 1e-5)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA build
+# ---------------------------------------------------------------------------
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc, no kernels: the build raises instead of falling back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
