@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sampling path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's sampling pass and second-stage train step
+on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+
+``--profile`` adds, after phase (g), one SHIPPED train step split into its
+parts on the host clock (each closed by a synchronize) and one step under
+``torch.profiler``: kernel launches, device time by kernel, idle share.
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -9,32 +14,58 @@ Phases, in order; any failure raises and exits non-zero:
   (b) build: the CUDA kernels from ipoke_tpu_torch/csrc (nvcc, sm_90a).
   (c) each kernel against its plain PyTorch version on the card, at the
       shipped shapes, TF32 off for the plain side: max error and both times.
-  (d) the SMALL config end to end in bf16: the same weights and z on the
-      card (kernels) and on the CPU (plain versions); frames compared, and
-      the kernel launch counts of the card's pass checked.
+  (c') K4 against its plain version (u, a, b), its u bitwise equal to K1's,
+      and autograd gradients through K4 against autograd of the plain
+      coupling net, in bf16.
+  (d) the SMALL config sampling end to end in bf16: the same weights and z
+      on the card (kernels) and on the CPU (plain versions); frames
+      compared, and the kernel launch counts of the card's pass checked.
   (e) the SHIPPED config (128 px, B=40, T=10, the 1054.43M-param cINN) in
-      bf16: one pass with the launch counts zeroed before and read after
-      (the main path's run), then 3 timed passes.
+      bf16: one sampling pass with the launch counts zeroed before and read
+      after (the sampling path's run), then 3 timed passes.
+  (f) the SMALL config trained 3 steps in bf16 with fp32 masters at a
+      constant lr, card against CPU from the same post-DDI weights: losses
+      compared, launch counts of every card step checked.
+  (g) the SHIPPED config trained: fp32 DDI on the batch, couplings
+      perturbed, bf16 params with fp32 AMSGrad masters; one step with the
+      launch counts zeroed before and read after (the train path's run),
+      then 3 steps timed with CUDA events: ms/step, clips/s, peak memory.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
-source, the TPU kernel it replaces, its launches in the SHIPPED pass, its
-largest error over the phase (c) cases, and ``ms``/``plain_ms`` per call at
-the first phase (c) case (the level-0 shapes; K3: the 128 px decode level).
-The last line is ``{"ok": true, "device": {...}}``.
+source, the TPU kernel it replaces, its launches in the two main-path runs
+(their sum, and per path), its largest error over the phase (c)/(c') cases,
+``ms``/``plain_ms`` per call at the first case (the level-0 shapes; K3: the
+128 px decode level), and its bound there: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the peak rate of their type
+(989 TFLOP/s bf16, 67 TFLOP/s fp32).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 K1_CASES = ((16, 32), (30, 4))  # (C1, Cout): level-0 step coupling, prior
 K2_CASES = (32, 4)              # MCF channels C at the first and last level
 K3_CASES = ((128, 64), (64, 128), (32, 256), (16, 256))  # (S, Ch) of the decode
 K1_TOL, K2_TOL, K3_TOL = 5e-2, 1e-4, 3e-2
+# K4's gradients vs autograd of the plain coupling net, both bf16: each
+# tensor's max error over its max magnitude.  The two sides round the hidden
+# activations and their cotangents to bf16 at different sums (kernel vs
+# cuDNN/cuBLAS order), ~2^-8 relative each; a wrong backward is off by O(1).
+K4_GRAD_TOL = 5e-2
+HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# SMALL train, card vs CPU, both bf16 from the same post-DDI weights, 3 steps
+# at lr 1e-3: relative loss difference.  One step moves the loss by ~60%;
+# on the CPU, bf16 against fp32 differs by 5-8% over these steps; card and
+# CPU round at different places (cuDNN/cuBLAS vs oneDNN sums, K4 vs plain).
+SMALL_TRAIN_LR, SMALL_TRAIN_TOL = 1e-3, 5e-2
 # SMALL, card vs CPU, both bf16, couplings perturbed at 0.03: each side sits
 # within bf16 noise of the fp32 result, and they round at different places
 # (cuDNN vs oneDNN conv sums, kernel vs plain sum order).  On the CPU, bf16 vs
@@ -73,6 +104,29 @@ def check_close(name, got, want, tol, rel=0.0):
     return err.max().item()
 
 
+def bound(nbytes, ops, peak):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of device memory
+    traffic and ``ops`` operations at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nice_work(m, k1, hid, n, train):
+    """(bytes, flops) of K1 (K4 with ``train``): bf16 zcol and weights read
+    once, u written in fp32 (and a, b in bf16)."""
+    nbytes = 2 * (m * k1 + k1 * hid + hid * hid + hid * n) + 4 * m * n
+    if train:
+        nbytes += 2 * 2 * m * hid
+    return nbytes, 2 * m * (k1 * hid + hid * hid + hid * n)
+
+
+def row(err, times, work, peak):
+    ms, plain = times
+    bound_ms, bound_by = bound(*work, peak)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def phase_kernels(dev):
     from ipoke_tpu_torch.ops import masked_conv, nice_net, spade_gn
 
@@ -97,7 +151,19 @@ def phase_kernels(dev):
               f"{plain:.4f} ms")
         errs.append(err)
         times.append((ms, plain))
-    out["nice_net"] = (max(errs), *times[0])
+    c1, cout = K1_CASES[0]
+    out["nice_net"] = row(max(errs), times[0],
+                          nice_work(m, 9 * c1, hid, 9 * cout, False), BF16_FLOPS)
+    # a yardstick, used nowhere in the port: the same chain as three bf16
+    # cuBLAS products with ELU between them (it keeps a and b too, as K4)
+    zcol = randn(m, 9 * c1).bfloat16()
+    w1 = (randn(9 * c1, hid) * (9 * c1) ** -0.5).bfloat16()
+    w2 = (randn(hid, hid) * hid ** -0.5).bfloat16()
+    wp = (randn(hid, 9 * cout) * (9 * hid) ** -0.5).bfloat16()
+    chain = cuda_ms(lambda: F.elu(F.elu(zcol @ w1) @ w2) @ wp, 20)
+    print(f"bf16 chain of three torch.matmul, M={m} C1={c1} Hid={hid} "
+          f"Cout={cout}: {chain:.4f} ms")
+    out["nice_net"]["bf16_matmul_chain_ms"] = chain
 
     errs, times = [], []
     b, s, ch = 40, 8, 128
@@ -125,7 +191,15 @@ def phase_kernels(dev):
               f"plain {plain:.4f} ms")
         errs.append(err)
         times.append((ms, plain))
-    out["macow_unit_inverse"] = (max(errs), *times[0])
+    # K2 at C = K2_CASES[0]: fp32; per MCF and pixel 6 tap dots C -> hid and
+    # the hid -> 2C out dot (the conditioning term hc is precomputed)
+    c, hid = K2_CASES[0], 4 * K2_CASES[0]
+    pix = b * s * s
+    k2_bytes = 4 * (2 * pix * c + 4 * 6 * c * hid + 4 * hid * 2 * c
+                    + 4 * pix * 2 * c + 4 * c)
+    k2_ops = 4 * pix * 2 * (6 * c * hid + hid * 2 * c)
+    out["macow_unit_inverse"] = row(max(errs), times[0], (k2_bytes, k2_ops),
+                                    FP32_FLOPS)
 
     errs, times = [], []
     for s, ch in K3_CASES:
@@ -141,15 +215,96 @@ def phase_kernels(dev):
               f"{plain:.4f} ms")
         errs.append(err)
         times.append((ms, plain))
-    out["spade_gn"] = (max(errs), *times[0])
+    # K3 at the 128 px level: bf16 x and out (400 frames), gamma and beta
+    # (40 clips); ~8 fp32 operations per element (statistics, normalise,
+    # modulate)
+    s, ch = K3_CASES[0]
+    n_x, n_m = 400 * s * s * ch, 40 * s * s * ch
+    out["spade_gn"] = row(max(errs), times[0],
+                          (2 * (2 * n_x + 2 * n_m), 8 * n_x), FP32_FLOPS)
     return out
 
 
+def phase_k4(dev):
+    """(c') K4: outputs against the plain version, u bitwise K1's, autograd
+    gradients against the plain coupling net; kernel and plain times."""
+    from ipoke_tpu_torch.flows.macow import NICE2d
+    from ipoke_tpu_torch.ops import nice_net
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    m, hid = 40 * 8 * 8, 2048
+    errs, times = [], []
+    for c1, cout in K1_CASES:
+        zcol = randn(m, 9 * c1).bfloat16()
+        w1 = (randn(9 * c1, hid) * (9 * c1) ** -0.5).bfloat16()
+        w2 = (randn(hid, hid) * hid ** -0.5).bfloat16()
+        wp = (randn(hid, 9 * cout) * (9 * hid) ** -0.5).bfloat16()
+        u, a, b = nice_net.nice_net_train_cuda(zcol, w1, w2, wp)
+        want = nice_net.nice_net_train_plain(zcol, w1, w2, wp)
+        err = max(check_close(f"K4 {name} C1={c1} Cout={cout}", got, ref,
+                              K1_TOL, K1_TOL)
+                  for name, got, ref in zip("uab", (u, a, b), want))
+        if not torch.equal(u, nice_net.nice_net_cuda(zcol, w1, w2, wp)):
+            raise AssertionError(f"K4 u C1={c1} Cout={cout} is not bitwise K1's")
+        ms = cuda_ms(lambda: nice_net.nice_net_train_cuda(zcol, w1, w2, wp), 20)
+        plain = cuda_ms(lambda: nice_net.nice_net_train_plain(zcol, w1, w2, wp), 20)
+        print(f"K4 nice_net_train M={m} C1={c1} Hid={hid} Cout={cout}: u, a, b "
+              f"max_abs_err {err:.3e} (tol {K1_TOL} abs+rel), u bitwise equal "
+              f"to K1's; kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        errs.append(err)
+        times.append((ms, plain))
+
+    # gradients of sum(sin(raw)) at the level-0 step coupling, bf16
+    c1, cout = K1_CASES[0]
+    nice = NICE2d(2 * c1, hidden_channels=hid)
+    params = nice.init(gen, dev)
+    params["out"]["g"] = randn(*params["out"]["g"].shape) * 0.3
+    params["out"]["b"] = randn(*params["out"]["b"].shape) * 0.1
+    leaves = lambda p: [p["w1"], p["w2"], p["out"]["v"], p["out"]["g"],
+                        p["out"]["b"]]
+    z = randn(40, 8, 8, c1).bfloat16()
+    grads = []
+    for fn in (lambda p, zz: nice_net.nice_net_raw_train(p, zz, None),
+               lambda p, zz: nice._raw(p, zz, None)):
+        p = {"w1": params["w1"].bfloat16().requires_grad_(),
+             "w2": params["w2"].bfloat16().requires_grad_(),
+             "out": {k: v.bfloat16().requires_grad_()
+                     for k, v in params["out"].items()}}
+        zz = z.clone().requires_grad_()
+        loss = torch.sin(fn(p, zz).float()).sum()
+        grads.append(torch.autograd.grad(loss, leaves(p) + [zz]))
+    rel = []
+    for name, got, want in zip(("w1", "w2", "out.v", "out.g", "out.b", "z"), *grads):
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"K4 grad {name}: dtype {got.dtype}, want bf16")
+        r = max_err(got, want) / want.float().abs().max().item()
+        if not bool(torch.isfinite(got).all()) or r > K4_GRAD_TOL:
+            raise AssertionError(f"K4 grad {name}: max error / max |want| "
+                                 f"{r:.3e} over {K4_GRAD_TOL}")
+        rel.append(f"{name} {r:.2e}")
+    print(f"K4 autograd grads vs plain _raw autograd (bf16, max error / max "
+          f"|want|, tol {K4_GRAD_TOL}): " + ", ".join(rel))
+    return {"nice_net_train": row(max(errs), times[0],
+                                  nice_work(m, 9 * c1, hid, 9 * cout, True),
+                                  BF16_FLOPS)}
+
+
 def expected_launches(cfg):
+    """Per sampling pass."""
     steps = sum(cfg["num_steps"])
     return {"nice_net": 4 * steps + len(cfg["num_steps"]),
-            "macow_unit_inverse": 4 * steps,
+            "nice_net_train": 0, "macow_unit_inverse": 4 * steps,
             "spade_gn": len(cfg["dec_ch"]) - 1}
+
+
+def expected_train_launches(cfg):
+    """Per train step: the remat's no-grad pass runs K1 in each step's 4
+    couplings, its recompute K4, and the priors K4 directly."""
+    steps = sum(cfg["num_steps"])
+    return {"nice_net": 4 * steps,
+            "nice_net_train": 4 * steps + len(cfg["num_steps"]),
+            "macow_unit_inverse": 0, "spade_gn": 0}
 
 
 def check_launches(name, want):
@@ -250,7 +405,151 @@ def phase_shipped(dev, smi):
     return launches
 
 
-def main():
+def phase_small_train(dev):
+    """(f) SMALL, 3 train steps, card against CPU from the same weights."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    cfg = entry.SMALL
+    gen = torch.Generator().manual_seed(0)
+    model = entry.build(cfg, "cpu", gen)
+    batch = entry.make_batch(cfg, "cpu", seed=0)
+    SecondStageTrainer(model, SMALL_TRAIN_LR).ddi(batch)  # fp32
+    entry.perturb(model, gen, SMALL_PERTURB, SMALL_PERTURB)
+    models = {"card": copy.deepcopy(model).to(dev), "cpu": model,
+              "cpu fp32": copy.deepcopy(model)}
+    models["cpu fp32"].config["training"]["mixed_prec_master"] = False
+    want = expected_train_launches(cfg)
+    losses = {}
+    for name, m in models.items():
+        trainer = SecondStageTrainer(m, SMALL_TRAIN_LR)
+        trainer.start()
+        b = {k: v.to(dev if name == "card" else "cpu") for k, v in batch.items()}
+        losses[name] = []
+        for step in range(3):
+            ops.reset_launches()
+            # no generator: the motion latent is mu on both sides
+            loss = trainer.train_step(b)["flow_loss"].item()
+            if name == "card":
+                torch.cuda.synchronize()
+                check_launches(f"SMALL train step {step}", want)
+            losses[name].append(loss)
+    rel = [abs(a - c) / abs(c) for a, c in zip(losses["card"], losses["cpu"])]
+    drift = [abs(a - c) / abs(c) for a, c in zip(losses["cpu"], losses["cpu fp32"])]
+    print(f"SMALL train bf16, 3 steps at lr {SMALL_TRAIN_LR}: card losses "
+          f"{losses['card']}, CPU {losses['cpu']} (rel diff "
+          f"{', '.join(f'{r:.2e}' for r in rel)}, tol {SMALL_TRAIN_TOL}); CPU "
+          f"fp32 {losses['cpu fp32']} (bf16 drift "
+          f"{', '.join(f'{r:.2e}' for r in drift)})")
+    if not all(map(math.isfinite, losses["card"])) or max(rel) > SMALL_TRAIN_TOL:
+        raise AssertionError("SMALL train: card losses disagree with the CPU port")
+
+
+def profile_train_step(model, trainer, batch, gen):
+    """One SHIPPED train step split into its parts, then one under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ipoke_tpu_torch.core.optim import cast_floats
+    from ipoke_tpu_torch.flows import flow_loss
+
+    b16 = cast_floats(batch, torch.bfloat16)
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    mark("start")
+    motion, cond = model._flow_input(b16, gen)
+    mark("frozen nets (conditioning, motion encoder)")
+    z, logdet = model.flow.forward(model.flow_params.tree(), motion, cond)
+    loss = flow_loss(z, logdet, generator=gen)[0]
+    mark("flow forward (no-grad remat pass, priors) + loss")
+    loss.backward()
+    mark("backward (step recomputes, K4 backward)")
+    trainer.tx.step()
+    mark("optimizer (AMSGrad on fp32 masters, bf16 copy)")
+    print("SHIPPED train step parts, host clock: " + "; ".join(
+        f"{name} {1e3 * (t - t_prev):.1f} ms"
+        for (_, t_prev), (name, t) in zip(marks, marks[1:])))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    # device-side events only (the kernels and memcpys/memsets themselves;
+    # the CPU ops that launched them carry the same time again)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"SHIPPED train step under torch.profiler: "
+          f"{sum(e.count for e in kernels)} device launches, {dev_ms:.1f} ms of "
+          f"device time in {wall:.1f} ms of (profiled) wall")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
+              f"{e.key[:90]}")
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: -e.count)[:12]
+    print("  most launched aten ops: " + ", ".join(
+        f"{e.key[6:]} {e.count}" for e in ops))
+
+
+def phase_shipped_train(dev, smi, profile=False):
+    """(g) SHIPPED train: DDI, perturb, bf16 + fp32 masters, one checked
+    step, 3 timed steps."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.core.optim import warmup_linear_decay
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    cfg = entry.SHIPPED
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = entry.build(cfg, dev, gen)
+    batch = entry.make_batch(cfg, dev, seed=0)
+    # the shipped schedule (config/second_stage.yaml: lr 1e-3, 500 warmup
+    # steps, 100 epochs of 2000 batches)
+    trainer = SecondStageTrainer(model, warmup_linear_decay(1e-3, 500, 200000))
+    trainer.ddi(batch, gen)
+    entry.perturb(model, gen)
+    trainer.start()
+    torch.cuda.synchronize()
+    print(f"SHIPPED train set-up (build, fp32 DDI, bf16 cast, fp32 masters) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launches()  # the train path's run
+    losses = [trainer.train_step(batch, gen)["flow_loss"]]
+    torch.cuda.synchronize()
+    launches = check_launches("SHIPPED train step", expected_train_launches(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        losses.append(trainer.train_step(batch, gen)["flow_loss"])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = [l.item() for l in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"SHIPPED train losses {losses}")
+    ms = sum(times) / len(times)
+    print(f"SHIPPED train bf16 + fp32 AMSGrad masters B={cfg['batch_size']} "
+          f"T={cfg['T']} {cfg['spatial']}px: {ms:.1f} ms/step "
+          f"({', '.join(f'{t:.1f}' for t in times)}), "
+          f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; "
+          f"losses {losses}")
+    if profile:
+        profile_train_step(model, trainer, batch, gen)
+    return launches
+
+
+def main(argv=None):
+    profile = "--profile" in (sys.argv[1:] if argv is None else argv)
     # (a) device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -276,16 +575,25 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    # (c) kernels vs plain versions
+    # (c) kernels vs plain versions, (c') K4
     kernels = phase_kernels(dev)
-    # (d) SMALL end to end
+    kernels.update(phase_k4(dev))
+    kernels["nice_net_train"]["bf16_matmul_chain_ms"] = \
+        kernels["nice_net"]["bf16_matmul_chain_ms"]
+    # (d) SMALL sampling end to end
     phase_small(dev)
-    # (e) SHIPPED
-    launches = phase_shipped(dev, smi)
+    # (e) SHIPPED sampling
+    paths = {"sample": phase_shipped(dev, smi)}
+    # (f) SMALL train, card vs CPU
+    phase_small_train(dev)
+    # (g) SHIPPED train
+    paths["train"] = phase_shipped_train(dev, smi, profile)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",
                      "ipoke_tpu/ops/nice_net.py:127"),
+        "nice_net_train": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",
+                           "ipoke_tpu/ops/nice_net.py:278"),
         "macow_unit_inverse": ("cuda", "ipoke_tpu_torch/csrc/macow_unit_inverse.cu",
                                "ipoke_tpu/ops/masked_conv.py:215"),
         "spade_gn": ("triton", "ipoke_tpu_torch/ops/spade_gn.py",
@@ -293,10 +601,10 @@ def main():
     }
     rows = []
     for name, (route, source, replaces) in meta.items():
-        err, ms, plain = kernels[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
         rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                     "replaces": replaces, "launches": sum(by_path.values()),
+                     "launches_by_path": by_path, **kernels[name]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """ipoke_tpu_torch — the PyTorch/CUDA port of ``ipoke_tpu`` for NVIDIA Hopper.
 
 The layout mirrors ``ipoke_tpu``: ``ipoke_tpu_torch/flows/macow.py`` is the
-counterpart of ``ipoke_tpu/flows/macow.py``.  This slice covers the
-poke-conditioned sampling pass (``models.second_stage.SecondStageModel.
-forward_sample``).  The TPU kernels on that path are hand-written Hopper
-kernels in ``ops/`` (CUDA C++ sources in ``csrc/``, one Triton kernel), each
-beside a plain PyTorch version.  A CPU tensor takes the plain version; a
+counterpart of ``ipoke_tpu/flows/macow.py``.  It covers the poke-conditioned
+sampling pass (``models.second_stage.SecondStageModel.forward_sample``) and
+the second-stage NLL train step (``train.SecondStageTrainer``).  The TPU
+kernels on those paths are hand-written Hopper kernels in ``ops/`` (CUDA C++
+sources in ``csrc/``, one Triton kernel), each beside a plain PyTorch
+version.  A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.
 """
 

@@ -7,9 +7,10 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   same leaf shapes.  Stacked ``ScannedSteps`` leaves keep their leading
   n axis; the port walks them like the JAX scan does.
 * The frozen flax nets map path by path onto the port's modules, whose
-  names repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW,
-  transpose-conv kernels are flipped, and spectral norm is collapsed here
-  with flax's eval rule (``collapse_spectral_norm``).
+  names repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW
+  (the motion encoder's 3D kernels from DHWIO to OIDHW), transpose-conv
+  kernels are flipped, and spectral norm is collapsed here with flax's eval
+  rule (``collapse_spectral_norm``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from .flows.base import tree_map
 from .nn.blocks import Conv, ConvTranspose, GroupNorm
+from .nn.motion import Conv3d
 
 
 def to_numpy_tree(tree):
@@ -78,7 +80,8 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
     """Copy a flax variable tree (``params`` and its ``batch_stats``) into
     ``module``, whose submodule names repeat the flax names.  Every port
     parameter must be found; flax leaves of submodules the port does not
-    have (e.g. the motion encoder) are ignored."""
+    have (e.g. the motion encoder of a model built without one) are
+    ignored."""
     stats = stats or {}
     for name, sub in module.named_modules():
         path = name.split(".") if name else []
@@ -102,6 +105,9 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
             _copy(sub.weight, w, where)
             if sub.bias is not None:
                 _copy(sub.bias, node["bias"], where)
+        elif isinstance(sub, Conv3d):  # DHWIO -> OIDHW, no bias
+            kernel = np.asarray(_get(params, path)["kernel"], np.float32)
+            _copy(sub.weight, kernel.transpose(4, 3, 0, 1, 2), where)
         elif isinstance(sub, GroupNorm):
             if sub.scale is not None:
                 node = _get(params, path)

@@ -1,11 +1,12 @@
-"""Build the sampling model (counterpart of ``__graft_entry__._make_models`` /
-``_build``).
+"""Build the second-stage model (counterpart of
+``__graft_entry__._make_models`` / ``_build``).
 
 ``SHIPPED`` is the shipped configuration (128 px, B=40, T=10, the 1054M-param
-15-level cINN with NICE hidden 2048); ``SMALL`` its small variant (64 px,
-B=8).  ``build`` makes the model directly on a device from a
-``torch.Generator``, or on ``meta`` to count parameters.  The motion encoder's
-channels (``enc_ch`` in the JAX build) are absent: sampling does not run it.
+15-level cINN with NICE hidden 2048, motion encoder channels
+(64,128,256,256,256)); ``SMALL`` its small variant (64 px, B=8).  ``build``
+makes the model directly on a device from a ``torch.Generator``, or on
+``meta`` to count parameters.  A config without ``enc_ch`` builds no motion
+encoder (sampling does not run it).
 
 Every coupling's out conv starts at g = 0, which makes every NICE and masked
 conv flow an identity; ``perturb`` sets them (and the ActNorms) to
@@ -25,14 +26,16 @@ from .models.first_stage import FirstStageModel
 from .models.second_stage import SecondStageModel
 from .nn.blocks import Conv, ConvTranspose, GroupNorm
 from .nn.encoders import FirstStageWrapper
+from .nn.motion import Conv3d
 
 SHIPPED = dict(spatial=128, min_spatial=8, T=10, z_dim=32,
+               enc_ch=(64, 128, 256, 256, 256),
                dec_ch=(256, 256, 256, 128, 64), nf_cond=64,
                num_steps=(10, 5, 5, 4, 4, 4, 3, 3, 3, 2, 2, 2, 1, 1, 1),
                mid_factor=64, batch_size=40)
 SMALL = dict(spatial=64, min_spatial=8, T=10, z_dim=32,
-             dec_ch=(128, 128, 64, 32), nf_cond=32, num_steps=(2, 2, 1),
-             mid_factor=8, batch_size=8)
+             enc_ch=(32, 64, 128, 128), dec_ch=(128, 128, 64, 32), nf_cond=32,
+             num_steps=(2, 2, 1), mid_factor=8, batch_size=8)
 
 
 def second_stage_config(cfg) -> dict:
@@ -40,7 +43,10 @@ def second_stage_config(cfg) -> dict:
         "flow_mid_channels_factor": cfg["mid_factor"], "factor": 16,
         "num_steps": list(cfg["num_steps"]), "kernel_size": [2, 3],
         "transform": "affine", "prior_transform": "affine",
-        "activation": "elu", "augmented_input": False}}
+        "activation": "elu", "augmented_input": False},
+        # the shipped recipe (config/second_stage.yaml): bf16-resident
+        # params with fp32 masters; K4 runs in every bf16 NICE coupling
+        "training": {"spatial_mean": False, "mixed_prec_master": True}}
 
 
 def make_model(cfg, flow_params=None) -> SecondStageModel:
@@ -48,7 +54,9 @@ def make_model(cfg, flow_params=None) -> SecondStageModel:
     ``flow_params`` as its flow tree if given."""
     s, m = cfg["spatial"], cfg["min_spatial"]
     fs = FirstStageModel(s, z_dim=cfg["z_dim"], dec_channels=cfg["dec_ch"],
-                         n_gru_layers=2, min_spatial_size=m)
+                         n_gru_layers=2, min_spatial_size=m,
+                         enc_channels=cfg.get("enc_ch"), max_frames=cfg["T"],
+                         deterministic=cfg.get("deterministic", False))
     cond = FirstStageWrapper(s, nf_in=3, nf_max=cfg["nf_cond"],
                              min_spatial_size=m)
     poke = FirstStageWrapper(s, nf_in=2, nf_max=cfg["nf_cond"],
@@ -62,7 +70,10 @@ def _init_frozen(module: torch.nn.Module, generator) -> None:
     N(0, 1) motion bias."""
     with torch.no_grad():
         for sub in module.modules():
-            if isinstance(sub, (Conv, ConvTranspose)):
+            if isinstance(sub, Conv3d):
+                w = sub.weight
+                w.normal_(0.0, w[0].numel() ** -0.5, generator=generator)
+            elif isinstance(sub, (Conv, ConvTranspose)):
                 w = sub.weight
                 fan_in = (w.shape[1] if isinstance(sub, Conv) else w.shape[0]) \
                     * w.shape[2] * w.shape[3]

@@ -1,7 +1,16 @@
-"""Invertible-flow engine, inverse direction (counterpart of
-``ipoke_tpu/flows``)."""
+"""Invertible-flow engine (counterpart of ``ipoke_tpu/flows``)."""
 
-from .base import Chain, Flow, ParamTree, count_params, tree_leaves, tree_map
+from .base import (
+    Chain,
+    Flow,
+    ParamTree,
+    count_params,
+    trainable_mask,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+)
+from .loss import flow_loss, nll
 from .macow import (
     MaCowUnitChain,
     MaskedConvFlow,

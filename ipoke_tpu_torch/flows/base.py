@@ -3,17 +3,18 @@
 A flow is a small frozen dataclass holding static configuration, with
 
   * ``init(generator, device) -> params``   a tree (nested dicts/lists) of tensors
+  * ``forward(params, x, h=None) -> (y, logdet)``   logdet (B,) fp32
   * ``inverse(params, y, h=None) -> x``
+  * ``ddi(params, x, h=None) -> (y, logdet, params')``  data-dependent init
 
 exactly as in the JAX package, so that a parameter tree converted from JAX
 (``ipoke_tpu_torch.convert``) drives the same code path as one made here.
 Arrays are NHWC; channel ops act on the last axis.  Leaves under keys that
-start with ``buf_`` (the shuffle permutations) are buffers, not parameters.
+start with ``buf_`` (the shuffle permutations) are buffers, not parameters
+(:func:`trainable_mask`).
 
 :class:`ParamTree` registers such a tree in an ``nn.Module`` so that
 ``.to(device/dtype)``, ``state_dict`` and ``parameters()`` work on it.
-
-This slice of the port covers the inverse (sampling) direction only.
 """
 
 from __future__ import annotations
@@ -43,6 +44,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_flatten(tree):
+    """(leaves, unflatten): ``unflatten(leaves)`` rebuilds the tree's
+    nesting around new leaves, in ``tree_leaves`` order."""
+    leaves = tree_leaves(tree)
+
+    def unflatten(new):
+        it = iter(new)
+        return tree_map(lambda _: next(it), tree)
+
+    return leaves, unflatten
+
+
+def trainable_mask(tree):
+    """A tree of bools: True for trainable leaves, False for ``buf_*``
+    buffers."""
+    if isinstance(tree, dict):
+        return {k: trainable_mask(v) if isinstance(v, (dict, list, tuple))
+                else not k.startswith("buf_") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [trainable_mask(v) for v in tree]
+    return True
+
+
 def count_params(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree))
 
@@ -62,8 +86,16 @@ class Flow:
     def init(self, generator, device) -> Params:
         raise NotImplementedError
 
+    def forward(self, params, x, h=None):
+        raise NotImplementedError
+
     def inverse(self, params, y, h=None):
         raise NotImplementedError
+
+    def ddi(self, params, x, h=None):
+        """Default: forward with the params unchanged."""
+        y, ld = self.forward(params, x, h)
+        return y, ld, params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,19 +107,37 @@ class Chain(Flow):
     def init(self, generator, device):
         return [f.init(generator, device) for f in self.flows]
 
+    def forward(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        for f, p in zip(self.flows, params):
+            x, l = f.forward(p, x, h)
+            ld = ld + l
+        return x, ld
+
     def inverse(self, params, y, h=None):
         for f, p in zip(reversed(self.flows), reversed(params)):
             y = f.inverse(p, y, h)
         return y
 
+    def ddi(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        new_params = []
+        for f, p in zip(self.flows, params):
+            x, l, p2 = f.ddi(p, x, h)
+            new_params.append(p2)
+            ld = ld + l
+        return x, ld, new_params
+
 
 class ParamTree(nn.Module):
     """A parameter tree held by an ``nn.Module``: dict keys and list indices
-    become submodule names, ``buf_*`` leaves buffers and every other leaf a
-    frozen ``nn.Parameter``.  ``tree()`` gives the nested tree back."""
+    become submodule names, ``buf_*`` leaves buffers and every other leaf an
+    ``nn.Parameter``, frozen until ``trainable()`` hands the leaves out.
+    ``tree()`` gives the nested tree back."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, mask=None):
         super().__init__()
+        mask = trainable_mask(tree) if mask is None else mask
         self._is_list = isinstance(tree, (list, tuple))
         items = enumerate(tree) if self._is_list else tree.items()
         self._keys = []
@@ -95,13 +145,25 @@ class ParamTree(nn.Module):
             name = str(k)
             self._keys.append(name)
             if isinstance(v, (dict, list, tuple)):
-                self.add_module(name, ParamTree(v))
-            elif name.startswith("buf_"):
-                self.register_buffer(name, v)
-            else:
+                self.add_module(name, ParamTree(v, mask[k]))
+            elif mask[k]:
                 self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+            else:
+                self.register_buffer(name, v)
 
     def tree(self):
         vals = [getattr(self, k) for k in self._keys]
         vals = [v.tree() if isinstance(v, ParamTree) else v for v in vals]
         return vals if self._is_list else dict(zip(self._keys, vals))
+
+    def trainable(self) -> list:
+        """The trainable leaves (every parameter; ``buf_*`` leaves are
+        buffers), switched to ``requires_grad=True``."""
+        return [p.requires_grad_(True) for p in self.parameters()]
+
+    @torch.no_grad()
+    def load_tree(self, tree) -> None:
+        """Copy the values of a tree of the same structure in, in place
+        (dtype and device stay the module's)."""
+        for dst, src in zip(tree_leaves(self.tree()), tree_leaves(tree)):
+            dst.copy_(src)

@@ -1,12 +1,18 @@
-"""MaCow conditional invertible flow, inverse direction (counterpart of
-``ipoke_tpu/flows/macow.py``).
+"""MaCow conditional invertible flow (counterpart of
+``ipoke_tpu/flows/macow.py``): density direction with logdet and
+data-dependent init, and the inverse.
 
 The same functional flows as the JAX package, NHWC, over the same parameter
-trees.  Two places dispatch to hand-written kernels, both as in the JAX
-package: ``NICE2d._raw_inference`` (K1, ``ops/nice_net.py``) inside the
-kernel's shape family with bf16 activations, and ``MaCowUnitChain.inverse``
-(K2, ``ops/masked_conv.py``) for affine/ELU units on square latents.  Each
+trees.  Three places dispatch to hand-written kernels, as in the JAX
+package, inside the NICE kernels' shape family with bf16 activations:
+``NICE2d._raw_inference`` (K1, ``ops/nice_net.py``), ``NICE2d._raw_train``
+(K4 while autograd records, else K1) and ``MaCowUnitChain.inverse`` (K2,
+``ops/masked_conv.py``) for affine/ELU units on square latents.  Each
 wrapper takes its plain PyTorch version on CPU tensors.
+
+``ScannedSteps.forward`` recomputes each step in the backward pass (the JAX
+package's ``remat``): the forward keeps only step boundaries, and its
+no-grad pass runs K1 while the recompute runs K4.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .base import Chain, Flow, tree_map
+from .base import Chain, Flow, tree_flatten, tree_map
 from .primitives import (
     ActNorm,
     Shuffle,
@@ -26,7 +33,10 @@ from .primitives import (
     conv_init,
     get_transform,
     plain_conv_apply,
+    shifted_conv_apply,
+    wn_conv_apply,
     wn_conv_apply_packed,
+    wn_conv_ddi,
     wn_conv_init,
 )
 
@@ -79,6 +89,28 @@ class MaskedConvFlow(Flow):
                                 self._hidden + self.h_channels, out_c,
                                 zero_init=True),
         }
+
+    def _net_hidden(self, params, x, h):
+        c = shifted_conv_apply(params["w_shift"], x, self.order)
+        if self.h_channels:
+            if h is None:
+                raise ValueError(
+                    f"MaskedConvFlow built with h_channels={self.h_channels} "
+                    "requires conditioning input h")
+            c = torch.cat([c, h], dim=-1)
+        return _act(self.activation)(c)
+
+    def _net(self, params, x, h):
+        return wn_conv_apply(params["out"], self._net_hidden(params, x, h))
+
+    def forward(self, params, x, h=None):
+        return self._tr.fwd(x, self._tr.calc(self._net(params, x, h)))
+
+    def ddi(self, params, x, h=None):
+        new = dict(params, out=wn_conv_ddi(
+            params["out"], self._net_hidden(params, x, h), init_scale=0.0))
+        y, ld = self.forward(new, x, h)
+        return y, ld, new
 
     def inverse(self, params, y, h=None):
         if self.order in ("A", "B"):
@@ -194,6 +226,13 @@ class NICE2d(Flow):
     def _zp_z(self, z1, z2):
         return (z1, z2) if self.order == "up" else (z2, z1)
 
+    def forward(self, params, x, h=None):
+        z1, z2 = self._split(x)
+        z, zp = self._zp_z(z1, z2)
+        zp, ld = self._tr.fwd(zp, self._tr.calc(self._raw_train(params, z, h)))
+        z1, z2 = (z, zp) if self.order == "up" else (zp, z)
+        return self._unsplit(z1, z2), ld
+
     def inverse(self, params, y, h=None):
         z1, z2 = self._split(y)
         z, zp = self._zp_z(z1, z2)
@@ -212,6 +251,33 @@ class NICE2d(Flow):
                 and nice_net_fits(params, z, hh)):
             return nice_net_raw(params, z, hh)
         return self._raw(params, z, h)
+
+    def _raw_train(self, params, z, h):
+        """``_raw`` of the density direction inside the JAX package's gate
+        (ELU, bf16 activations, bf16 out bias, the kernels' shape family):
+        K4 with its hand-written backward while autograd records, K1 when
+        it does not (the no-grad pass of a remat step); else plain."""
+        from ..ops.nice_net import nice_net_fits, nice_net_raw, nice_net_raw_train
+
+        hh = h if self.h_channels else None
+        if (self.activation == "elu" and z.dtype == torch.bfloat16
+                and params["out"]["b"].dtype == torch.bfloat16
+                and (self.h_channels == 0 or h is not None)
+                and nice_net_fits(params, z, hh)):
+            inputs = [z, hh, params["w1"], params["w2"], *params["out"].values()]
+            if torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad for t in inputs):
+                return nice_net_raw_train(params, z, hh)
+            return nice_net_raw(params, z, hh)
+        return self._raw(params, z, h)
+
+    def ddi(self, params, x, h=None):
+        z1, z2 = self._split(x)
+        z, _ = self._zp_z(z1, z2)
+        new = dict(params, out=wn_conv_ddi(
+            params["out"], self._net_hidden(params, z, h), init_scale=0.0))
+        y, ld = self.forward(new, x, h)
+        return y, ld, new
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +384,13 @@ class MultiScalePrior(Flow):
                 "coupling": self._coupling.init(generator, device),
                 "actnorm": self._actnorm.init(generator, device)}
 
+    def forward(self, params, x, h=None):
+        out, ld = self._perm.forward(params["perm"], x)
+        out, l2 = self._coupling.forward(params["coupling"], out, h)
+        z1, z2 = out[..., :self.z1_channels], out[..., self.z1_channels:]
+        z2, l3 = self._actnorm.forward(params["actnorm"], z2)
+        return torch.cat([z1, z2], dim=-1), ld + l2 + l3
+
     def inverse(self, params, y, h=None):
         z1, z2 = y[..., :self.z1_channels], y[..., self.z1_channels:]
         z2 = self._actnorm.inverse(params["actnorm"], z2)
@@ -325,12 +398,28 @@ class MultiScalePrior(Flow):
         out = self._coupling.inverse(params["coupling"], out, h)
         return self._perm.inverse(params["perm"], out)
 
+    def ddi(self, params, x, h=None):
+        out, ld = self._perm.forward(params["perm"], x)
+        out, l2, new_coupling = self._coupling.ddi(params["coupling"], out, h)
+        z1, z2 = out[..., :self.z1_channels], out[..., self.z1_channels:]
+        z2, l3, new_an = self._actnorm.ddi(params["actnorm"], z2)
+        new = {"perm": params["perm"], "coupling": new_coupling,
+               "actnorm": new_an}
+        return torch.cat([z1, z2], dim=-1), ld + l2 + l3, new
+
 
 @dataclasses.dataclass(frozen=True)
 class ScannedSteps(Flow):
     """``n`` structurally identical steps over stacked parameters: every leaf
     carries a leading axis of length ``n``, as in the JAX package; the
-    inverse walks the steps in reverse."""
+    inverse walks the steps in reverse.
+
+    While autograd records, each step of ``forward`` runs in a reentrant
+    checkpoint (the JAX package's ``remat``, the scan under
+    ``jax.checkpoint``), so training stores only the step boundaries.  The
+    checkpoint's first pass runs without grad; the step's parameter leaves
+    are its explicit inputs, since the level-0 input (the stop-gradient
+    motion latent) requires no grad."""
 
     step: Flow
     n: int
@@ -338,10 +427,36 @@ class ScannedSteps(Flow):
     def init(self, generator, device):
         return _stack([self.step.init(generator, device) for _ in range(self.n)])
 
+    def forward(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        for i in range(self.n):
+            p = tree_map(lambda a: a[i], params)
+            leaves, unflatten = tree_flatten(p)
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in [x, *leaves]):
+                def run(x, h, *leaves, unflatten=unflatten):
+                    return self.step.forward(unflatten(leaves), x, h)
+
+                x, l = checkpoint(run, x, h, *leaves, use_reentrant=True,
+                                  preserve_rng_state=False)
+            else:
+                x, l = self.step.forward(p, x, h)
+            ld = ld + l
+        return x, ld
+
     def inverse(self, params, y, h=None):
         for i in reversed(range(self.n)):
             y = self.step.inverse(tree_map(lambda a: a[i], params), y, h)
         return y
+
+    def ddi(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        new = []
+        for i in range(self.n):
+            x, l, p2 = self.step.ddi(tree_map(lambda a: a[i], params), x, h)
+            ld = ld + l
+            new.append(p2)
+        return x, ld, _stack(new)
 
 
 def _stack(trees):
@@ -406,6 +521,34 @@ class MultiScaleInternal(Flow):
                  "prior": prior.init(generator, device),
                  "perm": perm.init(generator, device)}
                 for steps, prior, perm, _ in self._levels()]
+
+    def forward(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        out, splits = x, []
+        for (steps, prior, perm, z1c), p in zip(self._levels(), params):
+            out, l1 = steps.forward(p["steps"], out, h)
+            out, l2 = prior.forward(p["prior"], out, h)
+            out, l3 = perm.forward(p["perm"], out)
+            ld = ld + l1 + l2 + l3
+            splits.append(out[..., z1c:])
+            out = out[..., :z1c]
+        splits.append(out)
+        return torch.cat(splits[::-1], dim=-1), ld
+
+    def ddi(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        out, splits, new = x, [], []
+        for (steps, prior, perm, z1c), p in zip(self._levels(), params):
+            out, l1, new_steps = steps.ddi(p["steps"], out, h)
+            out, l2, new_prior = prior.ddi(p["prior"], out, h)
+            out, l3 = perm.forward(p["perm"], out)
+            ld = ld + l1 + l2 + l3
+            new.append({"steps": new_steps, "prior": new_prior,
+                        "perm": p["perm"]})
+            splits.append(out[..., z1c:])
+            out = out[..., :z1c]
+        splits.append(out)
+        return torch.cat(splits[::-1], dim=-1), ld, new
 
     def inverse(self, params, y, h=None):
         levels = self._levels()

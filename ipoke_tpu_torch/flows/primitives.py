@@ -1,5 +1,6 @@
-"""Elementwise transforms and small invertible layers, inverse direction
-(counterpart of ``ipoke_tpu/flows/primitives.py``).  All arrays NHWC."""
+"""Elementwise transforms, small invertible layers and the convolutions of
+the coupling nets (counterpart of ``ipoke_tpu/flows/primitives.py``).  All
+arrays NHWC, kernels HWIO."""
 
 from __future__ import annotations
 
@@ -9,6 +10,12 @@ import torch
 import torch.nn.functional as F
 
 from .base import Flow, randn
+
+
+def _sum_logdet(t):
+    """Per-sample sum in fp32: under bf16 a sum over H*W*C log-scales would
+    round away ~3 decimal digits."""
+    return t.reshape(t.shape[0], -1).float().sum(dim=1)
 
 
 class Affine:
@@ -23,6 +30,11 @@ class Affine:
         mu, log_scale = torch.chunk(raw, 2, dim=-1)
         scale = torch.tanh(log_scale * 0.5) * self.alpha + 1.0
         return mu, scale
+
+    @staticmethod
+    def fwd(z, params):
+        mu, scale = params
+        return scale * z + mu, _sum_logdet(torch.log(scale))
 
     @staticmethod
     def bwd(z, params):
@@ -45,8 +57,23 @@ class ActNorm(Flow):
         return {"log_scale": randn((self.channels,), generator, device, 0.05),
                 "bias": torch.zeros((self.channels,), device=device)}
 
+    def forward(self, params, x, h=None):
+        y = x * torch.exp(params["log_scale"]) + params["bias"]
+        hw = x.shape[1] * x.shape[2] if x.ndim == 4 else 1
+        ld = (params["log_scale"].float().sum() * hw).expand(x.shape[0])
+        return y, ld
+
     def inverse(self, params, y, h=None):
         return (y - params["bias"]) / (torch.exp(params["log_scale"]) + 1e-8)
+
+    def ddi(self, params, x, h=None):
+        """Glow-style init from the *input* statistics (ddof 1), so that the
+        output is exactly normalised, as the JAX package does."""
+        flat = x.reshape(-1, x.shape[-1])
+        inv = 1.0 / (flat.std(dim=0) + 1e-6)
+        new = {"log_scale": torch.log(inv), "bias": -flat.mean(dim=0) * inv}
+        y, ld = self.forward(new, x)
+        return y, ld, new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +89,10 @@ class Shuffle(Flow):
         perm = torch.randperm(self.channels, generator=generator, device=device)
         return {"buf_perm": perm.to(torch.int32),
                 "buf_inv_perm": torch.argsort(perm).to(torch.int32)}
+
+    def forward(self, params, x, h=None):
+        return (torch.index_select(x, -1, params["buf_perm"]),
+                x.new_zeros(x.shape[0], dtype=torch.float32))
 
     def inverse(self, params, y, h=None):
         return torch.index_select(y, -1, params["buf_inv_perm"])
@@ -96,6 +127,43 @@ def plain_conv_apply(w, x, padding="VALID"):
     elif padding != "VALID":
         raise ValueError(padding)
     return F.conv2d(xc, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+
+def wn_conv_apply(params, x, padding="SAME"):
+    """Weight-norm conv: ``v * g / ||v||`` (norm over all but the output
+    axis), then bias."""
+    w = params["v"] * (params["g"] / _v_norm(params["v"]))
+    return plain_conv_apply(w, x, padding) + params["b"]
+
+
+def wn_conv_ddi(params, x, padding="SAME", init_scale=1.0):
+    """Data-dependent re-init of (g, b) so that the outputs have zero mean and
+    ``init_scale`` times unit std (ddof 1) over the batch."""
+    flat = wn_conv_apply(params, x, padding).reshape(-1, params["v"].shape[-1])
+    inv = init_scale / (flat.std(dim=0) + 1e-6)
+    return dict(params, g=params["g"] * inv, b=-flat.mean(dim=0) * inv)
+
+
+def shifted_conv_apply(w, x, order: str):
+    """Masked ("causal") conv without bias: order A sees the rows strictly
+    above, B strictly below, C the columns strictly left, D strictly right.
+    ``w`` is (kh, kw, Cin, Cout) as stored (C/D store the dims swapped)."""
+    kh, kw = w.shape[0], w.shape[1]
+    if order in ("A", "B"):
+        cw = (kw - 1) // 2
+        if order == "A":
+            xp = F.pad(x, (0, 0, cw, cw, kh, 0))[:, :-1]
+        else:
+            xp = F.pad(x, (0, 0, cw, cw, 0, kh))[:, 1:]
+    elif order in ("C", "D"):
+        ch = (kh - 1) // 2
+        if order == "C":
+            xp = F.pad(x, (0, 0, kw, 0, ch, ch))[:, :, :-1]
+        else:
+            xp = F.pad(x, (0, 0, 0, kw, ch, ch))[:, :, 1:]
+    else:
+        raise ValueError(order)
+    return plain_conv_apply(w, xp)
 
 
 def conv1x1_dot(w, x):

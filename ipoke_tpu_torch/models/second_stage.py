@@ -1,30 +1,33 @@
-"""Second-stage conditional INN, sampling direction (counterpart of
-``ipoke_tpu/models/second_stage.py``): a multi-scale MaCow cINN maps
-z ~ N(0, I) back to the frozen first stage's motion latent, conditioned on
-``h = [phi(x_0), phi(poke)]`` from the frozen conditioner and poke embedder,
-and the first stage decodes it to video."""
+"""Second-stage conditional INN (counterpart of
+``ipoke_tpu/models/second_stage.py``): a multi-scale MaCow cINN maps the
+frozen first stage's motion latent to z ~ N(0, I) (the density direction that
+training fits by NLL) and back (sampling), conditioned on
+``h = [phi(x_0), phi(poke)]`` from the frozen conditioner and poke embedder;
+the first stage decodes a sampled latent to video."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from ..flows import ParamTree, build_macow_transformer
+from ..core.optim import cast_floats
+from ..flows import ParamTree, build_macow_transformer, flow_loss
 from ..nn.encoders import FirstStageWrapper
 from .first_stage import FirstStageModel
 
 
 class SecondStageModel(nn.Module):
-    """The sampling model: ``flow`` is the static cINN description,
-    ``flow_params`` its parameter tree; the three frozen nets are
-    submodules."""
+    """``flow`` is the static cINN description, ``flow_params`` its parameter
+    tree; the three frozen nets are submodules.  ``config`` carries the
+    ``architecture`` block and, for training, the ``training`` block."""
 
     def __init__(self, config, first_stage: FirstStageModel,
                  conditioner: FirstStageWrapper,
                  poke_embedder: FirstStageWrapper, flow_params=None):
         super().__init__()
+        self.config = config
         arch = config["architecture"]
         self.first_stage = first_stage
         self.conditioner = conditioner
@@ -54,6 +57,32 @@ class SecondStageModel(nn.Module):
         cond, _, _ = self.conditioner.encode(batch["images"][:, 0])
         return torch.cat([cond, poke_emb], dim=-1)
 
+    def encode_first_stage(self, X, generator: Optional[torch.Generator] = None):
+        """The motion latent of the clip ``X``: a sample drawn from
+        ``generator`` (mu without one, or when deterministic)."""
+        motion, _, _ = self.first_stage.encode(X, generator)
+        return motion
+
+    def _flow_input(self, batch, generator):
+        """(motion, h) from the frozen nets, outside autograd: the
+        stop-gradient of the JAX package, which differentiates the flow
+        params only."""
+        with torch.no_grad():
+            cond = self.embed_conditioning(batch)
+            return self.encode_first_stage(batch["images"], generator), cond
+
+    def forward_density(self, batch, generator: Optional[torch.Generator] = None):
+        """(z, logdet) of the batch's motion latent for NLL training."""
+        motion, cond = self._flow_input(batch, generator)
+        return self.flow.forward(self.flow_params.tree(), motion, cond)
+
+    @torch.no_grad()
+    def ddi(self, batch, generator: Optional[torch.Generator] = None):
+        """Data-dependent init of the flow from one batch: the new flow tree
+        (``flow_params.load_tree`` takes it in)."""
+        motion, cond = self._flow_input(batch, generator)
+        return self.flow.ddi(self.flow_params.tree(), motion, cond)[2]
+
     @torch.no_grad()
     def forward_sample(self, batch, length: int,
                        generator: Optional[torch.Generator] = None,
@@ -70,3 +99,34 @@ class SecondStageModel(nn.Module):
                             dtype=x.dtype)
         motion = self.flow.inverse(self.flow_params.tree(), z, cond)
         return self.first_stage.decode(motion, x[:, 0], length)
+
+
+def create_second_stage_state(model: SecondStageModel, make_tx: Callable):
+    """The optimizer over the flow's trainable leaves (which it switches to
+    ``requires_grad``); the frozen nets stay frozen.  The port's train state
+    is the model's own params plus this optimizer."""
+    model.requires_grad_(False)
+    return make_tx(model.flow_params.trainable())
+
+
+def make_second_stage_train_step(model: SecondStageModel, tx) -> Callable:
+    """``step(batch, generator=None) -> log``: density forward, NLL, backward,
+    one optimizer step.  Under ``training.mixed_prec_master`` the batch is
+    cast to bf16 to match the bf16-resident params; the loss and logdet
+    reductions are fp32.  ``generator`` draws the motion sample and the
+    ``reference_nll_loss`` diagnostic's sample."""
+    tcfg = model.config.get("training", {})
+    spatial_mean = bool(tcfg.get("spatial_mean", False))
+    mixed = bool(tcfg.get("mixed_prec_master", False))
+
+    def step(batch, generator: Optional[torch.Generator] = None):
+        if mixed:
+            batch = cast_floats(batch, torch.bfloat16)
+        z, logdet = model.forward_density(batch, generator)
+        loss, log = flow_loss(z, logdet, generator=generator,
+                              spatial_mean=spatial_mean)
+        loss.backward()
+        tx.step()
+        return {k: v.detach() for k, v in log.items()}
+
+    return step

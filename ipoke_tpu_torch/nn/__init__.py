@@ -1,4 +1,4 @@
-"""Conv building blocks, GRU, encoders and decoder of the sampling path."""
+"""Conv building blocks, GRU, encoders, decoder and motion encoder."""
 
 from .blocks import (
     Conv,
@@ -13,3 +13,4 @@ from .blocks import (
 )
 from .encoders import ConvEncoder, FirstStageWrapper, SpadeCondConvDecoder
 from .gru import ConvGRU, ConvGRUCell
+from .motion import BasicBlock3d, Conv3d, ResNetMotionEncoder

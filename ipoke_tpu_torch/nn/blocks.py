@@ -31,7 +31,8 @@ def _num_groups(channels: int, max_groups: int = 16) -> int:
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm`` on NHWC: fp32 statistics with the fast variance
+    """flax ``nn.GroupNorm`` on channels-last tensors (NHWC, or NTHWC with the
+    statistics over all non-batch axes): fp32 statistics with the fast variance
     max(E[x^2] - E[x]^2, 0), normalise, scale and shift in fp32, one cast to
     the input dtype at the end."""
 
@@ -46,14 +47,12 @@ class GroupNorm(nn.Module):
             self.scale = self.bias = None
 
     def forward(self, x):
-        n, h, w, c = x.shape
-        g = self.num_groups
-        x32 = x.float()
-        xg = x32.reshape(n, h * w, g, c // g)
+        c, g = x.shape[-1], self.num_groups
+        xg = x.float().reshape(x.shape[0], -1, g, c // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
                           min=0.0)
-        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(n, h, w, c)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         if self.scale is not None:
             y = y * self.scale.float() + self.bias.float()
         return y.to(x.dtype)

@@ -1,8 +1,12 @@
 """Kernel layer of the port: one hand-written Hopper kernel per TPU kernel on
-the sampling path, each beside a plain PyTorch version of the same function.
+the sampling and training paths, each beside a plain PyTorch version of the
+same function.
 
 * ``nice_net`` (K1, CUDA C++ ``csrc/nice_net.cu``) replaces
   ``ipoke_tpu/ops/nice_net.py::nice_net_raw_pallas``;
+* ``nice_net_train`` (K4, the same CUDA source, with its autograd backward in
+  ``ops/nice_net.py``) replaces ``ipoke_tpu/ops/nice_net.py::_train_impl``,
+  the forward rule of ``nice_net_raw_train``;
 * ``masked_conv`` (K2, CUDA C++ ``csrc/macow_unit_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``;
 * ``spade_gn`` (K3, Triton) replaces
@@ -14,7 +18,8 @@ CUDA tensors it launches its kernel or raises - there is no fallback.
 counted), so a run can show that its main path went through the kernels.
 """
 
-LAUNCHES = {"nice_net": 0, "macow_unit_inverse": 0, "spade_gn": 0}
+LAUNCHES = {"nice_net": 0, "nice_net_train": 0, "macow_unit_inverse": 0,
+            "spade_gn": 0}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
-"""K1: the fused NICE coupling net, inference (replaces
-``ipoke_tpu/ops/nice_net.py::nice_net_raw_pallas``).
+"""K1 and K4: the fused NICE coupling net, for inference (replaces
+``ipoke_tpu/ops/nice_net.py::nice_net_raw_pallas``) and for training
+(replaces ``_train_impl`` under ``nice_net_raw_train``).
 
 Every NICE coupling of the cINN evaluates w1 (3x3 conv) -> ELU -> w2 (1x1,
 hidden x hidden) -> ELU -> out (3x3 weight-norm conv, skinny).  The kernel
@@ -13,6 +14,10 @@ the shifted-add epilogue of the tap-packed conv, the bias and the
 h-conditioning half of the out conv run here in torch, as the JAX package
 runs them outside its kernel.  ``nice_net_plain`` is the same chain in
 plain PyTorch.
+
+K4 is the same kernel with two extra stores, of the post-ELU hiddens a and b
+(``nice_net_train_plain`` beside it), inside ``_NiceNetTrain``, an autograd
+Function whose backward is the JAX package's hand-written one.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from . import LAUNCHES, _build
-from ..flows.primitives import _v_norm, plain_conv_apply, shifted_tap_sum
+from ..flows.primitives import (
+    _v_norm,
+    plain_conv_apply,
+    shifted_tap_sum,
+    wn_conv_apply_packed,
+)
 
 
 def nice_net_fits(params, z, h) -> bool:
@@ -43,61 +53,93 @@ def _elu_f32(a):
     return torch.where(a > 0, a, torch.expm1(torch.clamp(a, max=0.0)))
 
 
-def nice_net_plain(zcol, w1, w2, wp):
-    """Plain version of the kernel: every product in fp32 over the bf16
+def nice_net_train_plain(zcol, w1, w2, wp):
+    """Plain version of the kernels: every product in fp32 over the bf16
     operands, ELU on the fp32 sums, rounded to the operand dtype before the
-    next product, as the TPU kernel does."""
+    next product, as the TPU kernel does.  Returns (u fp32, a, b), the
+    post-ELU hiddens in the operand dtype."""
     dt = zcol.dtype
     a = _elu_f32(torch.matmul(zcol.float(), w1.float())).to(dt)
     b = _elu_f32(torch.matmul(a.float(), w2.float())).to(dt)
-    return torch.matmul(b.float(), wp.float())
+    return torch.matmul(b.float(), wp.float()), a, b
+
+
+def nice_net_plain(zcol, w1, w2, wp):
+    """Plain version of K1: u of ``nice_net_train_plain``."""
+    return nice_net_train_plain(zcol, w1, w2, wp)[0]
 
 
 def _pad_cols(t, n):
     return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
 
 
-def nice_net_cuda(zcol, w1, w2, wp):
-    """Launch the kernel: ``zcol`` (M, K1), ``w1`` (K1, Hid), ``w2``
-    (Hid, Hid), ``wp`` (Hid, N), all bf16 on one CUDA device; returns u
-    (M, N) fp32.  K1 and N are zero-padded to multiples of 16 here."""
+def _launch(zcol, w1, w2, wp, train: bool):
+    """Launch K1 (``train=False``: returns u) or K4 (returns u, a, b):
+    ``zcol`` (M, K1), ``w1`` (K1, Hid), ``w2`` (Hid, Hid), ``wp`` (Hid, N),
+    all bf16 on one CUDA device; u is (M, N) fp32, a and b (M, Hid) bf16.
+    K1 and N are zero-padded to multiples of 16 here."""
+    name = "nice_net_train" if train else "nice_net"
     tensors = (zcol, w1, w2, wp)
     if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError("nice_net kernel takes bf16 operands only")
+        raise TypeError(f"{name} kernel takes bf16 operands only")
     if any(t.device != zcol.device for t in tensors):
-        raise ValueError("nice_net operands must lie on one device")
+        raise ValueError(f"{name} operands must lie on one device")
     m, k1 = zcol.shape
     hid, n = wp.shape
     if w1.shape != (k1, hid) or w2.shape != (hid, hid):
-        raise ValueError(f"nice_net shapes: zcol {tuple(zcol.shape)}, w1 "
+        raise ValueError(f"{name} shapes: zcol {tuple(zcol.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, wp {tuple(wp.shape)}")
     if hid % 128:
-        raise ValueError(f"nice_net kernel needs hidden % 128 == 0, got {hid}")
+        raise ValueError(f"{name} kernel needs hidden % 128 == 0, got {hid}")
     k1p, n_p = -(-k1 // 16) * 16, -(-n // 16) * 16
     zcol_p = _pad_cols(zcol, k1p).contiguous()
     w1_p = F.pad(w1, (0, 0, 0, k1p - k1)).contiguous()
     w2_c = w2.contiguous()
     wp_p = _pad_cols(wp, n_p).contiguous()
     u = torch.empty((m, n_p), dtype=torch.float32, device=zcol.device)
+    ptrs = [zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
+            wp_p.data_ptr(), u.data_ptr()]
+    if train:
+        a = torch.empty((m, hid), dtype=torch.bfloat16, device=zcol.device)
+        b = torch.empty_like(a)
+        ptrs += [a.data_ptr(), b.data_ptr()]
     lib = _build.load()
     with torch.cuda.device(zcol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nice_net_u(zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
-                             wp_p.data_ptr(), u.data_ptr(), m, k1p, hid, n_p,
-                             stream)
-    _build.check(err, "nice_net_u")
-    LAUNCHES["nice_net"] += 1
-    return u[:, :n]
+        fn = lib.nice_net_train_u if train else lib.nice_net_u
+        err = fn(*ptrs, m, k1p, hid, n_p, stream)
+    _build.check(err, f"{name}_u")
+    LAUNCHES[name] += 1
+    return (u[:, :n], a, b) if train else u[:, :n]
+
+
+def nice_net_cuda(zcol, w1, w2, wp):
+    """Launch K1; see ``_launch``."""
+    return _launch(zcol, w1, w2, wp, train=False)
+
+
+def nice_net_train_cuda(zcol, w1, w2, wp):
+    """Launch K4; see ``_launch``."""
+    return _launch(zcol, w1, w2, wp, train=True)
+
+
+def _on_device(kernel, plain, zcol, *rest):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if zcol.is_cuda:
+        return kernel(zcol, *rest)
+    if zcol.device.type != "cpu":
+        raise ValueError(f"nice_net: unsupported device {zcol.device}")
+    return plain(zcol, *rest)
 
 
 def nice_net_u(zcol, w1, w2, wp):
-    """u = elu(elu(zcol @ w1) @ w2) @ wp: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if zcol.is_cuda:
-        return nice_net_cuda(zcol, w1, w2, wp)
-    if zcol.device.type != "cpu":
-        raise ValueError(f"nice_net: unsupported device {zcol.device}")
-    return nice_net_plain(zcol, w1, w2, wp)
+    """u = elu(elu(zcol @ w1) @ w2) @ wp (K1 on CUDA tensors)."""
+    return _on_device(nice_net_cuda, nice_net_plain, zcol, w1, w2, wp)
+
+
+def nice_net_train_u(zcol, w1, w2, wp):
+    """(u, a, b): u and the post-ELU hiddens (K4 on CUDA tensors)."""
+    return _on_device(nice_net_train_cuda, nice_net_train_plain, zcol, w1, w2, wp)
 
 
 def im2col3x3(z):
@@ -110,27 +152,122 @@ def im2col3x3(z):
     return cols.reshape(b * hh * ww, 9 * c)
 
 
-def nice_net_raw(params, z, h):
-    """Fused ``NICE2d._raw``: the pre-transform net output (B, H, W, Cout).
-
-    ``params``: the NICE2d param dict - w1 (3,3,C1,Hid), w2 (1,1,Hid,Hid),
-    out {v (3,3,Hid+Ch,Cout), g, b}.  ``h``: conditioning (B,H,W,Ch) or None;
-    its half of the out conv, ``conv3x3(elu(h)) @ w_out[Hid:]``, separates
-    from the hidden half (ELU is elementwise over the concat) and runs here.
-    """
-    w1, w2 = params["w1"], params["w2"]
-    v, g, b_out = params["out"]["v"], params["out"]["g"], params["out"]["b"]
+def _operands(params, z):
+    """The kernels' operands from a NICE2d param dict: (zcol, w1 (9*C1, Hid),
+    w2 (Hid, Hid), the tap-packed hidden half of the weight-normed out conv
+    wp (Hid, 9*Cout)), all in z's dtype, and the whole out weight w_eff."""
+    w1, w2, v, g = params["w1"], params["w2"], params["out"]["v"], params["out"]["g"]
     _, _, c1, hid = w1.shape
-    cout = v.shape[-1]
-    batch, hh, ww, _ = z.shape
     dt = z.dtype
     w_eff = (v * (g / _v_norm(v))).to(dt)  # (3, 3, Hid+Ch, Cout)
-    wp = w_eff[:, :, :hid, :].permute(2, 0, 1, 3).reshape(hid, 9 * cout)
-    u = nice_net_u(im2col3x3(z), w1.reshape(9 * c1, hid).to(dt),
-                   w2[0, 0].to(dt), wp)
-    raw = shifted_tap_sum(u.reshape(batch, hh, ww, 3, 3, cout), 3, 3)
-    raw = raw.to(dt) + b_out
+    wp = w_eff[:, :, :hid, :].permute(2, 0, 1, 3).reshape(hid, -1)
+    return im2col3x3(z), w1.reshape(9 * c1, hid).to(dt), w2[0, 0].to(dt), wp, w_eff
+
+
+def _epilogue(u, w_eff, b_out, z, h, hid):
+    """Shifted-add of the tap-packed out conv, bias, and the h-conditioning
+    half of the out conv, ``conv3x3(elu(h)) @ w_out[Hid:]``, which
+    separates from the hidden half (ELU is elementwise over the concat)."""
+    batch, hh, ww, _ = z.shape
+    raw = shifted_tap_sum(u.reshape(batch, hh, ww, 3, 3, -1), 3, 3)
+    raw = raw.to(z.dtype) + b_out
     if h is not None and w_eff.shape[2] > hid:
-        raw = raw + plain_conv_apply(w_eff[:, :, hid:, :], F.elu(h.to(dt)),
+        raw = raw + plain_conv_apply(w_eff[:, :, hid:, :], F.elu(h.to(z.dtype)),
                                      padding="SAME")
     return raw
+
+
+def nice_net_raw(params, z, h):
+    """Fused ``NICE2d._raw`` through K1: the pre-transform net output
+    (B, H, W, Cout).
+
+    ``params``: the NICE2d param dict - w1 (3,3,C1,Hid), w2 (1,1,Hid,Hid),
+    out {v (3,3,Hid+Ch,Cout), g, b}.  ``h``: conditioning (B,H,W,Ch) or
+    None."""
+    zcol, w1, w2, wp, w_eff = _operands(params, z)
+    return _epilogue(nice_net_u(zcol, w1, w2, wp), w_eff, params["out"]["b"],
+                     z, h, w1.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# K4: the differentiable fused path of the density forward
+# ---------------------------------------------------------------------------
+
+def nice_net_train_raw(params, z, h):
+    """K4's forward (``_train_impl`` of the JAX package): (raw, a, b), the
+    ``nice_net_raw`` output and the post-ELU hiddens, (B*H*W, Hid) each."""
+    zcol, w1, w2, wp, w_eff = _operands(params, z)
+    u, a, b = nice_net_train_u(zcol, w1, w2, wp)
+    return _epilogue(u, w_eff, params["out"]["b"], z, h, w1.shape[-1]), a, b
+
+
+def _mm(x, y):
+    """x @ y with fp32 sums, rounded to x's dtype, as the JAX package's dots
+    with ``preferred_element_type=float32`` (cuBLAS accumulates bf16
+    products in fp32; on the CPU the product runs in fp32)."""
+    if x.is_cuda:
+        return torch.matmul(x, y)
+    return torch.matmul(x.float(), y.float()).to(x.dtype)
+
+
+def _elu_bwd(post, g):
+    """Cotangent through ELU from the POST-activation value: elu'(x) is 1
+    for x > 0 and exp(x) = elu(x) + 1 otherwise."""
+    return g * torch.where(post > 0, torch.ones_like(post), post + 1)
+
+
+def _tail(out_params, h, b4d):
+    """The plain tail of ``NICE2d._raw``: the weight-norm packed out conv
+    over concat([post-ELU hidden, elu(h)]); its autograd gives the out-conv,
+    bias and h-branch adjoints."""
+    x = b4d if h is None else torch.cat([b4d, F.elu(h.to(b4d.dtype))], dim=-1)
+    return wn_conv_apply_packed(out_params, x)
+
+
+class _NiceNetTrain(torch.autograd.Function):
+    """K4 forward (the K1 chain storing the post-ELU hiddens a and b) with
+    the JAX package's hand-written backward (``_nice_train_bwd``): the four
+    big products over the stored a and b, each an fp32 sum rounded to the
+    working dtype; the tail and the im2col adjoints through autograd."""
+
+    @staticmethod
+    def forward(ctx, z, h, w1, w2, v, g, b_out):
+        params = {"w1": w1, "w2": w2, "out": {"v": v, "g": g, "b": b_out}}
+        raw, a, b = nice_net_train_raw(params, z, h)
+        ctx.save_for_backward(z, h, w1, w2, v, g, b_out, a, b)
+        return raw
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, h, w1, w2, v, g, b_out, a, b = ctx.saved_tensors
+        dt = z.dtype
+        hid = w1.shape[-1]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (v, g, b_out)]
+            b4d = b.reshape(*z.shape[:3], hid).detach().requires_grad_()
+            hd = None if h is None else h.detach().requires_grad_()
+            out = dict(zip(("v", "g", "b"), leaves))
+            inputs = leaves + [b4d] + ([] if hd is None else [hd])
+            dv, dg, db_out, db4d, *dh = torch.autograd.grad(
+                _tail(out, hd, b4d), inputs, grad)
+        db_pre = _elu_bwd(b, db4d.reshape(-1, hid))
+        dw2 = _mm(a.t(), db_pre)
+        da_pre = _elu_bwd(a, _mm(db_pre, w2[0, 0].to(dt).t()))
+        zcol = im2col3x3(z)
+        dw1 = _mm(zcol.t(), da_pre)
+        dzcol = _mm(da_pre, w1.reshape(-1, hid).to(dt).t())
+        with torch.enable_grad():
+            zd = z.detach().requires_grad_()
+            dz, = torch.autograd.grad(im2col3x3(zd), zd, dzcol)
+        return (dz, dh[0] if dh else None, dw1.reshape(w1.shape).to(w1.dtype),
+                dw2[None, None].to(w2.dtype), dv, dg, db_out)
+
+
+def nice_net_raw_train(params, z, h):
+    """Differentiable fused ``NICE2d._raw`` for the density forward of
+    training (``nice_net_raw_train`` of the JAX package): K4 forward,
+    hand-written backward.  Called only while autograd records; without it
+    ``nice_net_raw`` (K1) computes the same output bitwise."""
+    out = params["out"]
+    return _NiceNetTrain.apply(z, h, params["w1"], params["w2"], out["v"],
+                               out["g"], out["b"])

@@ -50,6 +50,24 @@ def test_nice_net_kernel_matches_plain(dev, m, c1, hid, cout):
     torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
 
 
+@pytest.mark.parametrize("m,c1,hid,cout", [(512, 16, 256, 32), (100, 5, 128, 3),
+                                           (2560, 30, 2048, 4)])
+def test_nice_net_train_kernel_matches_plain(dev, m, c1, hid, cout):
+    """K4 at a ragged row count (the last block stores 4 rows of a and b):
+    u, a and b against the plain version, u bitwise K1's."""
+    zcol = _randn(dev, m, 9 * c1, seed=1).bfloat16()
+    w1 = _randn(dev, 9 * c1, hid, std=(9 * c1) ** -0.5, seed=2).bfloat16()
+    w2 = _randn(dev, hid, hid, std=hid ** -0.5, seed=3).bfloat16()
+    wp = _randn(dev, hid, 9 * cout, std=(9 * hid) ** -0.5, seed=4).bfloat16()
+    got = nice_net.nice_net_train_cuda(zcol, w1, w2, wp)
+    want = nice_net.nice_net_train_plain(zcol, w1, w2, wp)
+    assert ops.LAUNCHES["nice_net_train"] == 1
+    assert [tuple(t.shape) for t in got] == [(m, 9 * cout), (m, hid), (m, hid)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=5e-2)
+    assert torch.equal(got[0], nice_net.nice_net_cuda(zcol, w1, w2, wp))
+
+
 @pytest.mark.parametrize("b,s,c,ch", [(3, 8, 8, 6), (2, 4, 4, 0), (40, 8, 32, 128)])
 def test_unit_inverse_kernel_matches_plain(dev, b, s, c, ch):
     """K2 with and without conditioning, at a 4x4 latent too."""
@@ -122,3 +140,30 @@ def test_toy_sampling_card_matches_cpu(dev, dtype, kernels, tol):
     diff = (got.cpu().float() - want.float()).abs()
     assert np.isfinite(diff.numpy()).all() and diff.max().item() <= tol, \
         diff.max().item()
+
+
+def test_toy_train_step_card_matches_cpu(dev):
+    """One bf16 train step with fp32 masters on the card (K1 in the remat's
+    no-grad pass, K4 in the recompute and the priors) against the CPU port,
+    from the same post-DDI weights; chip_smoke.py's bound for SMALL."""
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    cfg = dict(TOY, min_spatial=4, enc_ch=(16, 16, 32, 32), dec_ch=(32, 32, 16, 16))
+    gen = torch.Generator().manual_seed(0)
+    model = entry.build(cfg, "cpu", gen)
+    batch = entry.make_batch(cfg, "cpu")
+    SecondStageTrainer(model, 1e-3).ddi(batch)
+    entry.perturb(model, gen, 0.03, 0.03)
+    losses = []
+    for m, d in ((copy.deepcopy(model).to(dev), dev), (model, "cpu")):
+        trainer = SecondStageTrainer(m, 1e-3)
+        trainer.start()
+        ops.reset_launches()
+        losses.append(trainer.train_step({k: v.to(d) for k, v in batch.items()})
+                      ["flow_loss"].item())
+        if d == dev:
+            steps = sum(cfg["num_steps"])
+            assert ops.LAUNCHES["nice_net"] == 4 * steps
+            assert ops.LAUNCHES["nice_net_train"] == 4 * steps + len(cfg["num_steps"])
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 5e-2 * abs(losses[1]), losses

@@ -1,6 +1,8 @@
 """The port's kernel wrappers (ipoke_tpu_torch/ops) against the JAX
 package's Pallas kernels in interpret mode, on CPU tensors: there the
-wrappers run their plain PyTorch versions.  Inputs come from numpy seeds."""
+wrappers run their plain PyTorch versions.  K4's backward is held against
+``jax.grad`` of the JAX package's custom vjp.  Inputs come from numpy
+seeds."""
 
 import jax
 import jax.numpy as jnp
@@ -10,13 +12,19 @@ import torch
 
 from ipoke_tpu.flows.macow import NICE2d, make_macow_unit
 from ipoke_tpu.ops.masked_conv import macow_unit_inverse_pallas
+from ipoke_tpu.ops import nice_net as jnice
 from ipoke_tpu.ops.nice_net import nice_net_raw_pallas
 from ipoke_tpu.ops.spade_gn import spade_gn_modulate_pallas
 from ipoke_tpu_torch import ops
 from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
 from ipoke_tpu_torch.ops import _build
 from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse
-from ipoke_tpu_torch.ops.nice_net import nice_net_fits, nice_net_raw
+from ipoke_tpu_torch.ops.nice_net import (
+    nice_net_fits,
+    nice_net_raw,
+    nice_net_raw_train,
+    nice_net_train_raw,
+)
 from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate
 
 B, H, W = 2, 8, 8
@@ -108,6 +116,83 @@ def test_nice_net_family():
     assert not nice_net_fits(pt, z, None)
     assert not nice_net_fits(dict(pt, w1=torch.zeros(3, 3, 4, 200)), z, ht)
     assert not nice_net_fits(pt, torch.zeros(B, 32, 32, 4), ht)
+
+
+# ---------------------------------------------------------------------------
+# K4: the NICE train forward and its backward
+# ---------------------------------------------------------------------------
+
+def _leaves(p):
+    return [p["w1"], p["w2"], p["out"]["v"], p["out"]["g"], p["out"]["b"]]
+
+
+@pytest.mark.parametrize("h_channels", [0, 6])
+def test_nice_net_train_plain_matches_pallas(h_channels):
+    """K4's forward (plain on CPU): raw and the stored post-ELU hiddens
+    against ``_train_impl`` in interpret mode, fp32."""
+    nice, params, x, h = _nice(h_channels, 2, "continuous", 100 + h_channels)
+    z = nice._split(jnp.asarray(x))[0]
+    hj = None if h is None else jnp.asarray(h)
+    want = jnice._train_impl(_jnp(params), z, hj, interpret=True)
+    got = nice_net_train_raw(flow_params(params), _t(z),
+                             None if h is None else _t(h))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w).reshape(g.shape),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h_channels", [0, 6])
+def test_nice_net_train_grads_match_jax(h_channels):
+    """Autograd through K4's Function (hand-written backward) against
+    ``jax.grad`` of the JAX package's ``nice_net_raw_train`` (its custom vjp
+    over the interpret-mode kernel), for every param, z and h."""
+    nice, params, x, h = _nice(h_channels, 2, "continuous", 110 + h_channels)
+    z = nice._split(jnp.asarray(x))[0]
+    hj = None if h is None else jnp.asarray(h)
+    loss = lambda p, zz, hh: jnp.sum(jnp.sin(jnice.nice_net_raw_train(True, p, zz, hh)))
+    want = jax.grad(loss, argnums=(0, 1, 2) if h is not None else (0, 1))(
+        _jnp(params), z, hj)
+    pt = flow_params(params)
+    ins = _leaves(pt) + [_t(z)] + ([] if h is None else [_t(h)])
+    for t in ins:
+        t.requires_grad_(True)
+    out = nice_net_raw_train(pt, ins[5], ins[6] if h is not None else None)
+    got = torch.autograd.grad(torch.sin(out).sum(), ins)
+    flat = [want[0]["w1"], want[0]["w2"], want[0]["out"]["v"],
+            want[0]["out"]["g"], want[0]["out"]["b"], *want[1:]]
+    for g, w in zip(got, flat):
+        np.testing.assert_allclose(g.numpy(), _np(w), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h_channels", [0, 6])
+def test_nice_net_train_primal_matches_fwd_rule(h_channels, dtype):
+    """The no-grad path (K1) and the train path (K4) give the same raw
+    bitwise: under remat the loss comes from the first, the gradients from
+    the second."""
+    nice, params, x, h = _nice(h_channels, 2, "continuous", 140 + h_channels)
+    tdt = getattr(torch, dtype)
+    pt = flow_params(params, dtype=tdt)
+    z = _t(x[..., :4], tdt)
+    ht = None if h is None else _t(h, tdt)
+    with torch.no_grad():
+        primal = nice_net_raw(pt, z, ht)
+    for t in _leaves(pt):
+        t.requires_grad_(True)
+    train = nice_net_raw_train(pt, z, ht)
+    assert train.requires_grad and torch.equal(primal, train.detach())
+
+
+def test_nice_net_train_bf16_grad_dtypes():
+    """bf16 primals get bf16 cotangents (the master-weights contract)."""
+    nice, params, x, h = _nice(6, 2, "continuous", 120)
+    pt = flow_params(params, dtype=torch.bfloat16)
+    ins = _leaves(pt) + [_t(x[..., :4], torch.bfloat16), _t(h, torch.bfloat16)]
+    for t in ins:
+        t.requires_grad_(True)
+    out = nice_net_raw_train(pt, ins[5], ins[6])
+    for g in torch.autograd.grad(out.float().sum(), ins):
+        assert g.dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
