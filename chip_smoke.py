@@ -2,11 +2,7 @@
 """Drive the PyTorch/CUDA port's sampling pass and second-stage train step
 on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
-
-``--profile`` adds, after phase (g), one SHIPPED train step split into its
-parts on the host clock (each closed by a synchronize) and one step under
-``torch.profiler``: kernel launches, device time by kernel, idle share.
+    python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -29,7 +25,10 @@ Phases, in order; any failure raises and exits non-zero:
   (g) the SHIPPED config trained: fp32 DDI on the batch, couplings
       perturbed, bf16 params with fp32 AMSGrad masters; one step with the
       launch counts zeroed before and read after (the train path's run),
-      then 3 steps timed with CUDA events: ms/step, clips/s, peak memory.
+      then 3 steps timed with CUDA events: ms/step, clips/s, peak memory;
+      then one step split into its parts on the host clock (each closed by
+      a synchronize) and one under ``torch.profiler``: device launches,
+      device time by kernel, against the step's wall time.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the two main-path runs
@@ -480,26 +479,28 @@ def profile_train_step(model, trainer, batch, gen):
         trainer.train_step(batch, gen)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    events = prof.key_averages()
     # device-side events only (the kernels and memcpys/memsets themselves;
     # the CPU ops that launched them carry the same time again)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"SHIPPED train step under torch.profiler: "
           f"{sum(e.count for e in kernels)} device launches, {dev_ms:.1f} ms of "
-          f"device time in {wall:.1f} ms of (profiled) wall")
+          f"device time in {wall:.1f} ms of (profiled) wall; events averaged "
+          f"in {time.perf_counter() - t0:.1f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
               f"{e.key[:90]}")
-    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=lambda e: -e.count)[:12]
     print("  most launched aten ops: " + ", ".join(
         f"{e.key[6:]} {e.count}" for e in ops))
 
 
-def phase_shipped_train(dev, smi, profile=False):
+def phase_shipped_train(dev, smi):
     """(g) SHIPPED train: DDI, perturb, bf16 + fp32 masters, one checked
-    step, 3 timed steps."""
+    step, 3 timed steps, one split and one profiled step."""
     from ipoke_tpu_torch import entry, ops
     from ipoke_tpu_torch.core.optim import warmup_linear_decay
     from ipoke_tpu_torch.train import SecondStageTrainer
@@ -543,13 +544,11 @@ def phase_shipped_train(dev, smi, profile=False):
           f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; "
           f"losses {losses}")
-    if profile:
-        profile_train_step(model, trainer, batch, gen)
+    profile_train_step(model, trainer, batch, gen)
     return launches
 
 
-def main(argv=None):
-    profile = "--profile" in (sys.argv[1:] if argv is None else argv)
+def main():
     # (a) device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -587,7 +586,7 @@ def main(argv=None):
     # (f) SMALL train, card vs CPU
     phase_small_train(dev)
     # (g) SHIPPED train
-    paths["train"] = phase_shipped_train(dev, smi, profile)
+    paths["train"] = phase_shipped_train(dev, smi)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

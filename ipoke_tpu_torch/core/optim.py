@@ -46,21 +46,23 @@ def cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+WEIGHT_DECAY = 1e-5  # the JAX package's flow_adam default, which the trainer uses
+
+
 class _FlowAdam:
     """``flow_adam``'s update over a list of tensors: ``torch.optim.Adam``
-    with coupled weight decay at lr = ``schedule(count)``.  ``step`` reads
-    each tensor's ``.grad`` (a missing one counts as zero, as in optax, so
-    decay and moments still move) and clears it."""
+    with AMSGrad and coupled weight decay at lr = ``schedule(count)``.
+    ``step`` reads each tensor's ``.grad`` (a missing one counts as zero, as
+    in optax, so decay and moments still move) and clears it."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr_schedule: Schedule,
-                 weight_decay: float = 1e-5, use_amsgrad: bool = True):
+    def __init__(self, params: Iterable[torch.Tensor], lr_schedule: Schedule):
         self.params = list(params)
         self.schedule = lr_schedule if callable(lr_schedule) \
             else (lambda _: lr_schedule)
         self.count = 0
         self.adam = torch.optim.Adam(self.params, lr=0.0, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay,
-                                     amsgrad=use_amsgrad)
+                                     eps=1e-8, weight_decay=WEIGHT_DECAY,
+                                     amsgrad=True)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -74,15 +76,9 @@ class _FlowAdam:
         self.count += 1
 
 
-def flow_adam(params, lr_schedule: Schedule, weight_decay: float = 1e-5,
-              clip_grad_norm: float = 0.0, use_adabelief: bool = False,
-              use_adafactor: bool = False, use_amsgrad: bool = True) -> _FlowAdam:
+def flow_adam(params, lr_schedule: Schedule) -> _FlowAdam:
     """The flow optimizer over ``params`` (the trainable leaves)."""
-    if use_adabelief or use_adafactor or clip_grad_norm > 0:
-        raise NotImplementedError(
-            "AdaBelief, Adafactor and gradient clipping are not ported yet "
-            "(the shipped config uses none of them)")
-    return _FlowAdam(params, lr_schedule, weight_decay, use_amsgrad)
+    return _FlowAdam(params, lr_schedule)
 
 
 class _MasterWeights:

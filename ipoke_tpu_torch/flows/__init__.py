@@ -5,7 +5,6 @@ from .base import (
     Flow,
     ParamTree,
     count_params,
-    trainable_mask,
     tree_flatten,
     tree_leaves,
     tree_map,

@@ -10,8 +10,7 @@ A flow is a small frozen dataclass holding static configuration, with
 exactly as in the JAX package, so that a parameter tree converted from JAX
 (``ipoke_tpu_torch.convert``) drives the same code path as one made here.
 Arrays are NHWC; channel ops act on the last axis.  Leaves under keys that
-start with ``buf_`` (the shuffle permutations) are buffers, not parameters
-(:func:`trainable_mask`).
+start with ``buf_`` (the shuffle permutations) are buffers, not parameters.
 
 :class:`ParamTree` registers such a tree in an ``nn.Module`` so that
 ``.to(device/dtype)``, ``state_dict`` and ``parameters()`` work on it.
@@ -54,17 +53,6 @@ def tree_flatten(tree):
         return tree_map(lambda _: next(it), tree)
 
     return leaves, unflatten
-
-
-def trainable_mask(tree):
-    """A tree of bools: True for trainable leaves, False for ``buf_*``
-    buffers."""
-    if isinstance(tree, dict):
-        return {k: trainable_mask(v) if isinstance(v, (dict, list, tuple))
-                else not k.startswith("buf_") for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [trainable_mask(v) for v in tree]
-    return True
 
 
 def count_params(tree) -> int:
@@ -132,12 +120,12 @@ class Chain(Flow):
 class ParamTree(nn.Module):
     """A parameter tree held by an ``nn.Module``: dict keys and list indices
     become submodule names, ``buf_*`` leaves buffers and every other leaf an
-    ``nn.Parameter``, frozen until ``trainable()`` hands the leaves out.
-    ``tree()`` gives the nested tree back."""
+    ``nn.Parameter``, frozen until ``trainable()`` hands the leaves out (the
+    JAX package's ``trainable_mask``).  ``tree()`` gives the nested tree
+    back."""
 
-    def __init__(self, tree, mask=None):
+    def __init__(self, tree):
         super().__init__()
-        mask = trainable_mask(tree) if mask is None else mask
         self._is_list = isinstance(tree, (list, tuple))
         items = enumerate(tree) if self._is_list else tree.items()
         self._keys = []
@@ -145,11 +133,11 @@ class ParamTree(nn.Module):
             name = str(k)
             self._keys.append(name)
             if isinstance(v, (dict, list, tuple)):
-                self.add_module(name, ParamTree(v, mask[k]))
-            elif mask[k]:
-                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
-            else:
+                self.add_module(name, ParamTree(v))
+            elif name.startswith("buf_"):
                 self.register_buffer(name, v)
+            else:
+                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
 
     def tree(self):
         vals = [getattr(self, k) for k in self._keys]

@@ -8,48 +8,33 @@ from typing import Optional
 import torch
 
 
-def nll(sample, spatial_mean: bool = False, radial: bool = False):
+def nll(sample, spatial_mean: bool = False):
     """Per-sample negative log-likelihood under N(0, I), up to a constant.
     ``sample``: (B, H, W, C) or (B, D)."""
     sample = sample.float()
     if sample.ndim == 2:
         sample = sample[:, None, None, :]
-    if radial:
-        flat = sample.reshape(sample.shape[0], -1)
-        r = torch.linalg.vector_norm(flat, dim=1)
-        # the sum of the dims, not their product: the reference's quirk
-        dof = sum(sample.shape[1:]) - 1.0
-        return dof * torch.log(r) + 0.5 * r ** 2
     if spatial_mean:
         return 0.5 * torch.sum(torch.mean(sample ** 2, dim=(1, 2)), dim=-1)
     return 0.5 * torch.sum(sample.reshape(sample.shape[0], -1) ** 2, dim=1)
 
 
 def flow_loss(sample, logdet, generator: Optional[torch.Generator] = None,
-              spatial_mean: bool = False, logdet_weight: float = 1.0,
-              nll_weight: float = 1.0, radial: bool = False):
-    """NLL + negative-logdet objective; returns (loss, log dict).
+              spatial_mean: bool = False):
+    """NLL + negative-logdet objective, both weighted 1 (the JAX package's
+    defaults, which the trainer uses); returns (loss, log dict).
 
     ``generator`` enables the ``reference_nll_loss`` diagnostic: the NLL of a
     fresh N(0, I) sample of the same shape, drawn from it."""
     logdet = logdet.float()
-    nll_loss = torch.mean(nll(sample, spatial_mean=spatial_mean, radial=radial))
+    nll_loss = torch.mean(nll(sample, spatial_mean=spatial_mean))
     nlogdet = -torch.mean(logdet)
     if spatial_mean and sample.ndim == 4:
         nlogdet = nlogdet / (sample.shape[1] * sample.shape[2])
-    loss = nll_weight * nll_loss + logdet_weight * nlogdet
+    loss = nll_loss + nlogdet
     log = {"flow_loss": loss, "nlogdet_loss": nlogdet, "nll_loss": nll_loss}
     if generator is not None:
         ref = torch.randn(sample.shape, generator=generator,
                           device=sample.device, dtype=sample.dtype)
-        if radial:
-            b = sample.shape[0]
-            flat = ref.reshape(b, -1)
-            flat = flat / (torch.linalg.vector_norm(flat, dim=1, keepdim=True)
-                           + 1e-12)
-            r = torch.randn((b, 1), generator=generator, device=sample.device,
-                            dtype=sample.dtype).abs()
-            ref = (flat * r).reshape(sample.shape)
-        log["reference_nll_loss"] = torch.mean(
-            nll(ref, spatial_mean=spatial_mean, radial=radial))
+        log["reference_nll_loss"] = torch.mean(nll(ref, spatial_mean=spatial_mean))
     return loss, log

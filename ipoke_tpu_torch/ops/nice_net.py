@@ -193,7 +193,7 @@ def nice_net_raw(params, z, h):
 # K4: the differentiable fused path of the density forward
 # ---------------------------------------------------------------------------
 
-def nice_net_train_raw(params, z, h):
+def _train_forward(params, z, h):
     """K4's forward (``_train_impl`` of the JAX package): (raw, a, b), the
     ``nice_net_raw`` output and the post-ELU hiddens, (B*H*W, Hid) each."""
     zcol, w1, w2, wp, w_eff = _operands(params, z)
@@ -202,11 +202,14 @@ def nice_net_train_raw(params, z, h):
 
 
 def _mm(x, y):
-    """x @ y with fp32 sums, rounded to x's dtype, as the JAX package's dots
-    with ``preferred_element_type=float32`` (cuBLAS accumulates bf16
-    products in fp32; on the CPU the product runs in fp32)."""
+    """x @ y with fp32 sums, rounded once to x's dtype, as the JAX package's
+    dots with ``preferred_element_type=float32``.  On CUDA the product asks
+    cuBLAS for an fp32 output, so that no split-K partial is rounded to bf16
+    (a bf16-output matmul may do that under PyTorch's default
+    ``allow_bf16_reduced_precision_reduction``); on the CPU it runs in
+    fp32."""
     if x.is_cuda:
-        return torch.matmul(x, y)
+        return torch.mm(x, y, out_dtype=torch.float32).to(x.dtype)
     return torch.matmul(x.float(), y.float()).to(x.dtype)
 
 
@@ -233,7 +236,7 @@ class _NiceNetTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, h, w1, w2, v, g, b_out):
         params = {"w1": w1, "w2": w2, "out": {"v": v, "g": g, "b": b_out}}
-        raw, a, b = nice_net_train_raw(params, z, h)
+        raw, a, b = _train_forward(params, z, h)
         ctx.save_for_backward(z, h, w1, w2, v, g, b_out, a, b)
         return raw
 

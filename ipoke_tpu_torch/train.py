@@ -8,9 +8,9 @@
    bf16-rounded values;
 4. every step casts the batch to bf16 (``make_second_stage_train_step``).
 
-``train_step`` runs 1-3 before its first step.  Callers that change the
-params between DDI and the cast (``entry.perturb`` in tests) call ``ddi`` and
-``start`` themselves.
+The caller runs 1 (``ddi``) and 2-3 (``start``) before the first
+``train_step``, and may change the params between them (``entry.perturb``
+in tests).
 """
 
 from __future__ import annotations
@@ -28,12 +28,11 @@ from .models.second_stage import (
 
 
 class SecondStageTrainer:
-    def __init__(self, model: SecondStageModel, lr_schedule,
-                 weight_decay: float = 1e-5):
+    def __init__(self, model: SecondStageModel, lr_schedule):
         self.model = model
         self.mixed = bool(model.config.get("training", {}).get(
             "mixed_prec_master", False))
-        self.make_tx = lambda params: flow_adam(params, lr_schedule, weight_decay)
+        self.make_tx = lambda params: flow_adam(params, lr_schedule)
         self.tx = self._step = None
 
     def ddi(self, batch, generator: Optional[torch.Generator] = None) -> None:
@@ -53,6 +52,5 @@ class SecondStageTrainer:
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None):
         if self.tx is None:
-            self.ddi(batch, generator)
-            self.start()
+            raise RuntimeError("SecondStageTrainer.train_step before start()")
         return self._step(batch, generator)

@@ -133,17 +133,16 @@ def test_shifted_conv_and_wn_ddi_match_jax(order):
 # loss and schedule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,spatial_mean,radial", [
-    ((3, 4, 4, 8), False, False), ((3, 4, 4, 8), True, False),
-    ((3, 4, 4, 8), False, True), ((3, 10), False, False)])
-def test_flow_loss_matches_jax(shape, spatial_mean, radial):
-    rng = np.random.default_rng(len(shape) + 2 * spatial_mean + 4 * radial)
+@pytest.mark.parametrize("shape,spatial_mean", [
+    ((3, 4, 4, 8), False), ((3, 4, 4, 8), True), ((2, 8, 4, 6), True),
+    ((3, 10), False)])
+def test_flow_loss_matches_jax(shape, spatial_mean):
+    rng = np.random.default_rng(len(shape) + 2 * spatial_mean + shape[1])
     z = (2.0 * rng.standard_normal(shape)).astype(np.float32)
     ld = (10.0 * rng.standard_normal(shape[0])).astype(np.float32)
-    want = jflow_loss(jnp.asarray(z), jnp.asarray(ld), spatial_mean=spatial_mean,
-                      radial=radial)[1]
+    want = jflow_loss(jnp.asarray(z), jnp.asarray(ld), spatial_mean=spatial_mean)[1]
     loss, log = flow_loss(_t(z), _t(ld), torch.Generator().manual_seed(0),
-                          spatial_mean=spatial_mean, radial=radial)
+                          spatial_mean=spatial_mean)
     for k in ("flow_loss", "nlogdet_loss", "nll_loss"):
         close(log[k], want[k], 1e-6, 1e-5)
     assert log["flow_loss"] is loss

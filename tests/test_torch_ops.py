@@ -20,10 +20,10 @@ from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
 from ipoke_tpu_torch.ops import _build
 from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse
 from ipoke_tpu_torch.ops.nice_net import (
+    _train_forward,
     nice_net_fits,
     nice_net_raw,
     nice_net_raw_train,
-    nice_net_train_raw,
 )
 from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate
 
@@ -134,8 +134,8 @@ def test_nice_net_train_plain_matches_pallas(h_channels):
     z = nice._split(jnp.asarray(x))[0]
     hj = None if h is None else jnp.asarray(h)
     want = jnice._train_impl(_jnp(params), z, hj, interpret=True)
-    got = nice_net_train_raw(flow_params(params), _t(z),
-                             None if h is None else _t(h))
+    got = _train_forward(flow_params(params), _t(z),
+                         None if h is None else _t(h))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), _np(w).reshape(g.shape),
                                    rtol=2e-4, atol=2e-4)
