@@ -13,6 +13,10 @@ Phases, in order; any failure raises and exits non-zero:
   (c') K4 against its plain version (u, a, b), its u bitwise equal to K1's,
       and autograd gradients through K4 against autograd of the plain
       coupling net, in bf16.
+  (c) K5 against its plain version: the level-0 flow in orders A-D, a
+      non-square 8x16 latent, the last level's C=4 and a 32x32x32 latent.
+  (c'') K2 against the per-flow route (4 K5 + 2 ActNorm inverses) on one
+      level-0 unit with perturbed out convs and ActNorms; both timed.
   (d) the SMALL config sampling end to end in bf16: the same weights and z
       on the card (kernels) and on the CPU (plain versions); frames
       compared, and the kernel launch counts of the card's pass checked.
@@ -29,12 +33,18 @@ Phases, in order; any failure raises and exits non-zero:
       then one step split into its parts on the host clock (each closed by
       a synchronize) and one under ``torch.profiler``: device launches,
       device time by kernel, against the step's wall time.
+  (h) the SHIPPED-width cINN at a non-square 8x16 latent, where no unit
+      fits K2 and every masked-conv flow goes through K5: an fp32 round
+      trip (forward, then inverse with the launch counts checked), then in
+      bf16 one inverse with the launch counts zeroed before and read after
+      (this path's run) and 3 timed inverses; then the SMALL-width flow
+      inverse at 8x16 in bf16, card against CPU.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the two main-path runs
 (their sum, and per path), its largest error over the phase (c)/(c') cases,
 ``ms``/``plain_ms`` per call at the first case (the level-0 shapes; K3: the
-128 px decode level), and its bound there: the larger of the bytes it must
+128 px decode level; K5: the level-0 flow in order A), and its bound there: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
 (989 TFLOP/s bf16, 67 TFLOP/s fp32).  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,7 +63,13 @@ import torch.nn.functional as F
 K1_CASES = ((16, 32), (30, 4))  # (C1, Cout): level-0 step coupling, prior
 K2_CASES = (32, 4)              # MCF channels C at the first and last level
 K3_CASES = ((128, 64), (64, 128), (32, 256), (16, 256))  # (S, Ch) of the decode
-K1_TOL, K2_TOL, K3_TOL = 5e-2, 1e-4, 3e-2
+# K5 (B, H, W, C, Ch, order): the level-0 flow in all four orders (A/B
+# kernel (2, 3), C/D stored (3, 2)), a non-square 8x16 latent, the last
+# level's C=4, and a 32x32x32 latent that K2 cannot hold
+K5_CASES = (*((40, 8, 8, 32, 128, o) for o in "ABCD"),
+            *((40, 8, 16, 32, 128, o) for o in "ABCD"),
+            (40, 8, 8, 4, 128, "A"), (40, 32, 32, 32, 128, "A"))
+K1_TOL, K2_TOL, K3_TOL, K5_TOL = 5e-2, 1e-4, 3e-2, 1e-4
 # K4's gradients vs autograd of the plain coupling net, both bf16: each
 # tensor's max error over its max magnitude.  The two sides round the hidden
 # activations and their cotangents to bf16 at different sums (kernel vs
@@ -74,6 +90,21 @@ SMALL_TRAIN_LR, SMALL_TRAIN_TOL = 1e-3, 5e-2
 # O(1) everywhere and the mean far past it.
 SMALL_PERTURB = 0.03
 SMALL_MAX_TOL, SMALL_MEAN_TOL = 0.25, 2e-2
+# (h) the latent where no unit fits K2
+NONSQUARE = (8, 16)
+# (h) SHIPPED-width fp32 round trip z -> forward -> inverse at 8x16, TF32
+# off, couplings perturbed at entry.perturb's 0.01: max |x - z| read 9.3e-6
+# on an H100 (|y| up to 8): fp32 rounding through 50 steps of near-identity
+# couplings.  The bound is ten times that; a wrong K5 row, tap or order
+# breaks the inverse by O(1).
+ROUNDTRIP_TOL = 1e-4
+# (h) SMALL-width flow inverse at 8x16, card vs CPU, both bf16, couplings
+# perturbed at SMALL_PERTURB, z and h N(0, 1).  On the CPU, bf16 against
+# fp32 of this flow output differs by 0.41 / 0.48 max and 0.022 / 0.021 mean
+# (seeds 0 / 1, outputs up to 8 in magnitude); the two bf16 sides may sit on
+# opposite sides of the fp32 result, so the bound is twice that with margin.
+# A wrong kernel moves the output by O(1) everywhere and the mean far past it.
+SMALL_FLOW_MAX_TOL, SMALL_FLOW_MEAN_TOL = 1.0, 5e-2
 
 
 def cuda_ms(fn, iters):
@@ -289,12 +320,82 @@ def phase_k4(dev):
                                   BF16_FLOPS)}
 
 
+def phase_k5(dev):
+    """(c) K5 against its plain version on packed inputs in scan space;
+    (c'') K2 against the per-flow route on one unit; kernel and plain
+    times."""
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.flows.base import Chain
+    from ipoke_tpu_torch.flows.macow import make_macow_unit
+    from ipoke_tpu_torch.ops import masked_conv
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    errs, times = [], []
+    for b, hh, ww, c, ch, order in K5_CASES:
+        hid, transposed, reverse = 4 * c, order in "CD", order in "BD"
+        ks = (3, 2) if transposed else (2, 3)  # C/D store the kernel swapped
+        params = {"w_shift": randn(*ks, c, hid) * (6 * c) ** -0.5,
+                  "out": {"v": randn(1, 1, hid + ch, 2 * c) * 0.05,
+                          "g": randn(2 * c) * 0.3, "b": randn(2 * c) * 0.1}}
+        y, h = randn(b, hh, ww, c), randn(b, hh, ww, ch)
+        ys = (y.transpose(1, 2) if transposed else y).contiguous()
+        packed = [t.contiguous() for t in masked_conv.pack_mcf(
+            F.elu(h), params, transposed, b, hh, ww)]
+        args = (ys, *packed, 1.0, reverse)
+        got = masked_conv.masked_conv_inverse_cuda(*args)
+        want = masked_conv.masked_conv_inverse_plain(*args)
+        err = check_close(f"K5 {order} B={b} {hh}x{ww} C={c}", got, want, K5_TOL)
+        errs.append(err)
+        ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_cuda(*args), 20)
+        line = (f"K5 masked_conv_inverse order {order} B={b} H={hh} W={ww} C={c} "
+                f"hid={hid} Ch={ch}: max_abs_err {err:.3e} (tol {K5_TOL}), "
+                f"kernel {ms:.4f} ms")
+        if not times:  # the level-0 flow, order A
+            times = (ms, cuda_ms(lambda: masked_conv.masked_conv_inverse_plain(*args), 3))
+            line += f", plain {times[1]:.4f} ms"
+        print(line)
+    # K5 at the level-0 flow: fp32; per pixel 6 tap dots C -> hid and the
+    # hid -> 2C out dot (hc is precomputed); y, x, hc, the weights once each
+    b, hh, ww, c, ch, _ = K5_CASES[0]
+    hid, pix = 4 * c, b * hh * ww
+    k5_bytes = 4 * (2 * pix * c + 6 * c * hid + hid * 2 * c + pix * 2 * c)
+    k5_ops = pix * 2 * (6 * c * hid + hid * 2 * c)
+    out = row(max(errs), times, (k5_bytes, k5_ops), FP32_FLOPS)
+
+    # (c'') the level-0 unit (C=32, kernel (2, 3), 128 conditioning
+    # channels, hid 128, 8x8, B=40), out convs and ActNorms perturbed: K2
+    # in one launch against the chain inverse (4 K5 + 2 ActNorm^-1)
+    unit = make_macow_unit(32, (2, 3), h_channels=128)
+    uparams = unit.init(gen, dev)
+    for p in uparams:
+        if "out" in p:
+            p["out"]["g"], p["out"]["b"] = randn(64) * 0.3, randn(64) * 0.1
+        else:
+            p["log_scale"], p["bias"] = randn(32) * 0.05, randn(32) * 0.05
+    y, h = randn(40, 8, 8, 32), randn(40, 8, 8, 128)
+    k2 = lambda: unit.inverse(uparams, y, h)
+    per_flow = lambda: Chain.inverse(unit, uparams, y, h)
+    ops.reset_launches()
+    got, want = k2(), per_flow()
+    torch.cuda.synchronize()
+    if (ops.LAUNCHES["macow_unit_inverse"], ops.LAUNCHES["masked_conv_inverse"]) != (1, 4):
+        raise AssertionError(f"(c'') launches {ops.LAUNCHES}: want K2 1, K5 4")
+    err = check_close("K2 vs per-flow route", got, want, K2_TOL)
+    ms_k2, ms_flow = cuda_ms(k2, 20), cuda_ms(per_flow, 20)
+    print(f"K2 vs per-flow route (4 K5 + 2 ActNorm^-1) on the level-0 unit "
+          f"B=40 8x8 C=32 hid=128 Ch=128: max_abs_err {err:.3e} (tol {K2_TOL}); "
+          f"unit inverse with packing: K2 {ms_k2:.4f} ms, per-flow {ms_flow:.4f} ms")
+    out.update(unit_k2_vs_per_flow_err=err, unit_k2_ms=ms_k2, unit_per_flow_ms=ms_flow)
+    return {"masked_conv_inverse": out}
+
+
 def expected_launches(cfg):
     """Per sampling pass."""
     steps = sum(cfg["num_steps"])
     return {"nice_net": 4 * steps + len(cfg["num_steps"]),
             "nice_net_train": 0, "macow_unit_inverse": 4 * steps,
-            "spade_gn": len(cfg["dec_ch"]) - 1}
+            "masked_conv_inverse": 0, "spade_gn": len(cfg["dec_ch"]) - 1}
 
 
 def expected_train_launches(cfg):
@@ -303,7 +404,16 @@ def expected_train_launches(cfg):
     steps = sum(cfg["num_steps"])
     return {"nice_net": 4 * steps,
             "nice_net_train": 4 * steps + len(cfg["num_steps"]),
-            "macow_unit_inverse": 0, "spade_gn": 0}
+            "macow_unit_inverse": 0, "masked_conv_inverse": 0, "spade_gn": 0}
+
+
+def expected_flow_launches(cfg, bf16):
+    """Per flow inverse at a latent where no unit fits K2: each step's 4
+    units run 4 K5 each; K1 runs in bf16 only (its family, as on the TPU)."""
+    steps = sum(cfg["num_steps"])
+    return {"nice_net": 4 * steps + len(cfg["num_steps"]) if bf16 else 0,
+            "nice_net_train": 0, "macow_unit_inverse": 0,
+            "masked_conv_inverse": 16 * steps, "spade_gn": 0}
 
 
 def check_launches(name, want):
@@ -548,6 +658,84 @@ def phase_shipped_train(dev, smi):
     return launches
 
 
+def phase_nonsquare(dev, smi):
+    """(h) the SHIPPED-width cINN at 8x16: fp32 round trip, bf16 inverses
+    (this path's run and 3 timed); then SMALL widths card vs CPU."""
+    from ipoke_tpu_torch import entry, ops
+
+    cfg = entry.SHIPPED
+    gen = torch.Generator(device=dev).manual_seed(4)
+    model = entry.build(cfg, dev, gen)
+    entry.perturb(model, gen)
+    flow, b = model.flow, cfg["batch_size"]
+    z = torch.randn((b, *NONSQUARE, cfg["z_dim"]), generator=gen, device=dev)
+    h = torch.randn((b, *NONSQUARE, flow.h_channels), generator=gen, device=dev)
+    with torch.no_grad():
+        y, _ = flow.forward(model.flow_params.tree(), z, h)
+        ops.reset_launches()
+        x = flow.inverse(model.flow_params.tree(), y, h)
+        torch.cuda.synchronize()
+        check_launches("SHIPPED fp32 flow inverse at 8x16",
+                       expected_flow_launches(cfg, False))
+        err = max_err(x, z)
+        print(f"SHIPPED fp32 round trip z -> forward -> inverse at "
+              f"{tuple(z.shape)}: max |x - z| {err:.3e} (tol {ROUNDTRIP_TOL}), "
+              f"max |y| {y.abs().max().item():.3e}")
+        if not bool(torch.isfinite(x).all()) or err > ROUNDTRIP_TOL:
+            raise AssertionError("SHIPPED fp32 round trip at 8x16 out of bound")
+
+        model = model.to(torch.bfloat16)
+        inverse = lambda: flow.inverse(model.flow_params.tree(), y.bfloat16(),
+                                       h.bfloat16())
+        ops.reset_launches()  # the non-square inverse path's run
+        x16 = inverse()
+        torch.cuda.synchronize()
+        launches = check_launches("SHIPPED bf16 flow inverse at 8x16",
+                                  expected_flow_launches(cfg, True))
+        if x16.shape != z.shape or not bool(torch.isfinite(x16).all()):
+            raise AssertionError(f"bf16 inverse {tuple(x16.shape)}: want finite "
+                                 f"{tuple(z.shape)}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            inverse()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"SHIPPED bf16 flow inverse B={b} at {NONSQUARE[0]}x{NONSQUARE[1]}: "
+              f"{sum(times) / 3:.1f} ms/pass ({', '.join(f'{t:.1f}' for t in times)}) "
+              f"on {smi}; max |x - z| {max_err(x16, z):.3e} (bf16)")
+        del model, x, y, x16
+
+        cfg = entry.SMALL
+        gen = torch.Generator().manual_seed(0)
+        model = entry.build(cfg, "cpu", gen)
+        entry.perturb(model, gen, SMALL_PERTURB, SMALL_PERTURB)
+        flow = model.flow
+        z = torch.randn((cfg["batch_size"], *NONSQUARE, cfg["z_dim"]), generator=gen)
+        h = torch.randn((cfg["batch_size"], *NONSQUARE, flow.h_channels),
+                        generator=gen)
+        ref32 = flow.inverse(model.flow_params.tree(), z, h)
+        model = model.to(torch.bfloat16)
+        z, h = z.bfloat16(), h.bfloat16()
+        ref = flow.inverse(model.flow_params.tree(), z, h)
+        model = model.to(dev)
+        ops.reset_launches()
+        got = flow.inverse(model.flow_params.tree(), z.to(dev), h.to(dev))
+        torch.cuda.synchronize()
+        check_launches("SMALL bf16 flow inverse at 8x16",
+                       expected_flow_launches(cfg, True))
+    diff = (got.cpu().float() - ref.float()).abs()
+    drift = (ref.float() - ref32).abs()
+    print(f"SMALL flow inverse at {tuple(z.shape)}, bf16 card vs CPU: max_abs_err "
+          f"{diff.max().item():.3e} mean {diff.mean().item():.3e} (tol max "
+          f"{SMALL_FLOW_MAX_TOL}, mean {SMALL_FLOW_MEAN_TOL}); CPU bf16 vs fp32 "
+          f"max {drift.max().item():.3e} mean {drift.mean().item():.3e}")
+    if not bool(torch.isfinite(got).all()) or diff.max().item() > SMALL_FLOW_MAX_TOL \
+            or diff.mean().item() > SMALL_FLOW_MEAN_TOL:
+        raise AssertionError("SMALL flow inverse at 8x16: card disagrees with CPU")
+    return launches
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -579,6 +767,8 @@ def main():
     kernels.update(phase_k4(dev))
     kernels["nice_net_train"]["bf16_matmul_chain_ms"] = \
         kernels["nice_net"]["bf16_matmul_chain_ms"]
+    # (c) K5, (c'') K2 against the per-flow route
+    kernels.update(phase_k5(dev))
     # (d) SMALL sampling end to end
     phase_small(dev)
     # (e) SHIPPED sampling
@@ -587,6 +777,8 @@ def main():
     phase_small_train(dev)
     # (g) SHIPPED train
     paths["train"] = phase_shipped_train(dev, smi)
+    # (h) the non-square inverse: K5 in every masked-conv flow
+    paths["inverse_8x16"] = phase_nonsquare(dev, smi)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",
@@ -595,6 +787,8 @@ def main():
                            "ipoke_tpu/ops/nice_net.py:278"),
         "macow_unit_inverse": ("cuda", "ipoke_tpu_torch/csrc/macow_unit_inverse.cu",
                                "ipoke_tpu/ops/masked_conv.py:215"),
+        "masked_conv_inverse": ("cuda", "ipoke_tpu_torch/csrc/masked_conv_inverse.cu",
+                                "ipoke_tpu/ops/masked_conv.py:80"),
         "spade_gn": ("triton", "ipoke_tpu_torch/ops/spade_gn.py",
                      "ipoke_tpu/ops/spade_gn.py:232"),
     }

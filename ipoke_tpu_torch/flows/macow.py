@@ -3,12 +3,14 @@
 data-dependent init, and the inverse.
 
 The same functional flows as the JAX package, NHWC, over the same parameter
-trees.  Three places dispatch to hand-written kernels, as in the JAX
-package, inside the NICE kernels' shape family with bf16 activations:
-``NICE2d._raw_inference`` (K1, ``ops/nice_net.py``), ``NICE2d._raw_train``
-(K4 while autograd records, else K1) and ``MaCowUnitChain.inverse`` (K2,
-``ops/masked_conv.py``) for affine/ELU units on square latents.  Each
-wrapper takes its plain PyTorch version on CPU tensors.
+trees.  Four places dispatch to hand-written kernels, as in the JAX
+package, the NICE ones inside their kernels' shape family with bf16
+activations: ``NICE2d._raw_inference`` (K1, ``ops/nice_net.py``),
+``NICE2d._raw_train`` (K4 while autograd records, else K1),
+``MaCowUnitChain.inverse`` (K2, ``ops/masked_conv.py``) for affine/ELU units
+on the square latents it can hold, and ``MaskedConvFlow.inverse`` (K5) for
+every other affine/ELU masked-conv flow.  Each wrapper takes its plain
+PyTorch version on CPU tensors.
 
 ``ScannedSteps.forward`` recomputes each step in the backward pass (the JAX
 package's ``remat``): the forward keeps only step boundaries, and its
@@ -18,6 +20,7 @@ no-grad pass runs K1 while the recompute runs K4.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,7 +31,6 @@ from .base import Chain, Flow, tree_flatten, tree_map
 from .primitives import (
     ActNorm,
     Shuffle,
-    _v_norm,
     conv1x1_dot,
     conv_init,
     get_transform,
@@ -113,43 +115,32 @@ class MaskedConvFlow(Flow):
         return y, ld, new
 
     def inverse(self, params, y, h=None):
-        if self.order in ("A", "B"):
-            return self._inverse_height(params, y, h, reverse=self.order == "B")
-        # C/D: transpose H<->W and the kernel axes, run the height scan
-        yt = y.transpose(1, 2)
-        ht = None if h is None else h.transpose(1, 2)
-        pt = dict(params, w_shift=params["w_shift"].transpose(0, 1))
-        xt = self._inverse_height(pt, yt, ht, reverse=self.order == "D")
-        return xt.transpose(1, 2)
+        """Row by row: row i of x needs the rows of x before it (orders A/C)
+        or after it (B/D).  An affine/ELU flow goes through K5 (its plain
+        version on CPU tensors); another activation has no kernel, here or in
+        the JAX package, and takes the plain row scan.  Computed in fp32,
+        returned in ``y.dtype``, as the JAX package's portable path."""
+        from ..ops.masked_conv import (
+            masked_conv_inverse,
+            masked_conv_inverse_plain,
+            scan_inverse,
+        )
 
-    def _inverse_height(self, params, y, h, reverse: bool):
-        """Sequential row reconstruction: row i of x needs the rows of x
-        before it (after it when ``reverse``)."""
-        b, height, width, c = y.shape
-        kh, kw = params["w_shift"].shape[0], params["w_shift"].shape[1]
-        cw = (kw - 1) // 2
-        buf = y.new_zeros((b, height + kh, width + 2 * cw, c))
-        tr, act = self._tr, _act(self.activation)
-        out = params["out"]
-        w_out = (out["v"] * (out["g"] / _v_norm(out["v"])))[0, 0]
         if self.h_channels and h is None:
             raise ValueError(
                 f"MaskedConvFlow built with h_channels={self.h_channels} "
                 "requires conditioning input h")
-        use_h = h is not None and self.h_channels
-        for i in range(height):
-            row = height - 1 - i if reverse else i
-            start = row + 1 if reverse else row
-            window = buf[:, start:start + kh]
-            hid = plain_conv_apply(params["w_shift"], window)[:, 0]  # (b, W, hid)
-            if use_h:
-                hid = torch.cat([hid, h[:, row]], dim=-1)
-            raw = torch.matmul(act(hid), w_out) + out["b"]
-            write_at = row if reverse else row + kh
-            buf[:, write_at, cw:cw + width] = tr.bwd(y[:, row], tr.calc(raw))
-        if reverse:
-            return buf[:, :height, cw:cw + width]
-        return buf[:, kh:, cw:cw + width]
+        hh = h if self.h_channels else None
+        alpha = self._tr.alpha  # raises for a transform other than affine
+        if self.activation == "elu":
+            x = masked_conv_inverse(y, hh, params, self.order, alpha)
+        else:
+            act = _act(self.activation)
+            x = scan_inverse(
+                functools.partial(masked_conv_inverse_plain, act=act), y,
+                None if hh is None else act(hh.to(torch.float32)), params,
+                self.order, alpha)
+        return x.to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -287,14 +278,17 @@ class NICE2d(Flow):
 @dataclasses.dataclass(frozen=True)
 class MaCowUnitChain(Chain):
     """A MaCowUnit chain whose inverse runs as one kernel (K2) for affine/ELU
-    units on square latents; otherwise the plain chain inverse."""
+    units on the square latents K2 can hold (``unit_fits``); otherwise the
+    chain inverse, whose masked-conv flows go through K5 one by one.  The
+    route depends on shapes only, never on the device."""
 
     def inverse(self, params, y, h=None):
-        from ..ops.masked_conv import macow_unit_inverse
+        from ..ops.masked_conv import macow_unit_inverse, unit_fits
 
         mcf = self.flows[0]
         if (isinstance(mcf, MaskedConvFlow) and mcf.transform == "affine"
-                and mcf.activation == "elu" and y.shape[1] == y.shape[2]
+                and mcf.activation == "elu"
+                and unit_fits(y.shape, mcf._hidden, mcf.kernel_size)
                 # a unit built with h-conditioning rows must receive h
                 and (mcf.h_channels == 0 or h is not None)):
             x = macow_unit_inverse(

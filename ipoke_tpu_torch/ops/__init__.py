@@ -9,6 +9,9 @@ same function.
   the forward rule of ``nice_net_raw_train``;
 * ``masked_conv`` (K2, CUDA C++ ``csrc/macow_unit_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``;
+* ``masked_conv`` (K5, CUDA C++ ``csrc/masked_conv_inverse.cu``) replaces
+  ``ipoke_tpu/ops/masked_conv.py::masked_conv_inverse_pallas``, for the
+  units whose latent K2 cannot hold (``unit_fits``);
 * ``spade_gn`` (K3, Triton) replaces
   ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``.
 
@@ -19,7 +22,7 @@ counted), so a run can show that its main path went through the kernels.
 """
 
 LAUNCHES = {"nice_net": 0, "nice_net_train": 0, "macow_unit_inverse": 0,
-            "spade_gn": 0}
+            "masked_conv_inverse": 0, "spade_gn": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``ipoke_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
+``nvcc`` compiles every ``ipoke_tpu_torch/csrc/*.cu`` for ``sm_90a`` (one
+process per source, in parallel) and links them into one
 shared library with a plain C interface under ``build/ipoke_tpu_torch/`` at
 the repository root, at first use, and ``ctypes`` loads it.  The library name
 carries a hash of the sources and flags, so an edited source is rebuilt and a
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ipoke_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes), each returns the cudaError_t of its launch
@@ -30,6 +31,8 @@ SIGNATURES = {
     "nice_net_train_u": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "macow_unit_inverse": (_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "masked_conv_inverse": (_P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lib = None
@@ -57,23 +60,38 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists;
-    returns its path.  The compiler's report (registers, shared memory,
-    spills from ``-Xptxas=-v``) is kept beside it as ``<lib>.log``."""
+    returns its path.  One ``nvcc`` per source, all started together, then
+    one link.  The compiler's report (registers, shared memory, spills from
+    ``-Xptxas=-v``) is kept beside the library as ``<lib>.log``."""
     global build_seconds
     nvcc = find_nvcc()
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    out.with_suffix(".so.log").write_text(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n{log}")
+    cmds, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+               str(BUILD_DIR / f"{src.stem}.{tag}.o"), str(src)]
+        cmds.append(cmd)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    objs = [cmd[-2] for cmd in cmds]
+    tmp = out.with_suffix(f".{tag}")
+    cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs])
+    results = [(p.communicate()[0], p.returncode) for p in procs]
+    if all(rc == 0 for _, rc in results):
+        res = subprocess.run(cmds[-1], capture_output=True, text=True)
+        results.append((res.stdout + res.stderr, res.returncode))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    log = "\n".join(" ".join(cmd) + "\n" + text
+                    for cmd, (text, _) in zip(cmds, results))
+    out.with_suffix(".so.log").write_text(log)
+    if any(rc != 0 for _, rc in results):
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     build_seconds = time.perf_counter() - t0
     return out

@@ -1,16 +1,24 @@
 """K2: the whole MaCowUnit inverse in one launch (replaces
-``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``).
+``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``), and K5: the
+inverse of one masked-conv flow (replaces ``masked_conv_inverse_pallas``).
 
-A MaCowUnit is MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D) -> ActNorm.
-Its inverse runs four masked-conv recurrences of H dependent rows each; the
-kernel (``csrc/macow_unit_inverse.cu``) keeps the activation buffer on chip
-across all four.  Orders C/D run in H<->W-transposed space (square latents).
-``pack_unit`` does the precompute that the JAX package also runs outside its
-kernel: C/D kernels swapped back, the weight-norm 1x1 out conv split into its
-hidden half ``w_hid`` and the per-pixel conditioning term ``hc = elu(h) @ w_h
-+ b``, and the ActNorm inverses as (bias, 1 / (exp(log_scale) + 1e-8)).
-Everything is fp32, as on the TPU.  ``macow_unit_inverse_plain`` is the same
-computation as row scans in plain PyTorch.
+A MaskedConvFlow's inverse is a recurrence over H dependent rows in scan
+space: orders A/B as stored, C/D after an H<->W transpose and a swap of the
+kernel axes.  A MaCowUnit is MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D)
+-> ActNorm.  K2 (``csrc/macow_unit_inverse.cu``) runs the unit's four
+recurrences with the whole latent in shared memory, so it takes square
+latents up to what ``unit_fits`` allows (16x16 at C=32).  K5
+(``csrc/masked_conv_inverse.cu``) runs one flow and keeps only a ring of the
+last kh rows on chip, so it takes any latent: the flows route every unit
+that K2 cannot take through it, flow by flow.
+
+``pack_mcf`` does the precompute that the JAX package also runs outside its
+kernels: the kernel in scan space, the weight-norm 1x1 out conv split into
+its hidden half ``w_hid`` and the per-pixel conditioning term ``hc = act(h)
+@ w_h + b``; ``pack_unit`` stacks it for a unit's four flows and adds the
+ActNorm inverses as (bias, 1 / (exp(log_scale) + 1e-8)).  Everything is
+fp32, as on the TPU.  ``masked_conv_inverse_plain`` is one recurrence as a
+row scan in plain PyTorch; ``macow_unit_inverse_plain`` runs four of them.
 """
 
 from __future__ import annotations
@@ -21,77 +29,180 @@ import torch.nn.functional as F
 from . import LAUNCHES, _build
 from ..flows.primitives import _v_norm
 
+# shared memory one block may opt into on an H100: 227 KB
+SMEM_LIMIT = 232448
+
+
+def pack_mcf(h_act, params, transposed, batch, height, width):
+    """(w_shift (kh, kw, C, hid), w_hid (hid, 2C), hc (B, H, W, 2C)) of one
+    MaskedConvFlow in scan space, fp32.
+
+    ``h_act``: the activation of the conditioning rows in fp32, or None.
+    ``transposed``: orders C/D, which store their kernel with the dims
+    swapped; swapping them back and transposing ``hc`` puts them in
+    H<->W-transposed scan space.  ``height``, ``width``: the latent as
+    stored."""
+    f32 = torch.float32
+    w_shift = params["w_shift"].to(f32)
+    out = params["out"]
+    v, g = out["v"].to(f32), out["g"].to(f32)
+    w_out = (v * (g / _v_norm(v)))[0, 0]  # (hid + Ch, 2C)
+    hid = w_shift.shape[-1]
+    hc = out["b"].to(f32).expand(batch, height, width, w_out.shape[-1])
+    if h_act is not None:
+        hc = hc + torch.matmul(h_act, w_out[hid:])
+    if transposed:
+        return w_shift.transpose(0, 1), w_out[:hid], hc.transpose(1, 2)
+    return w_shift, w_out[:hid], hc
+
 
 def pack_unit(h, mcf_params, an_params, batch, height, width):
     """(w_shift (4,kh,kw,C,hid), w_hid (4,hid,2C), hc (4,B,H,W,2C),
     an_bias (2,C), an_inv (2,C)), all fp32 and contiguous.
 
-    ``mcf_params``: [A, B, C, D] MaskedConvFlow param dicts; C/D store their
-    kernel with the dims swapped, and swapping them back puts C/D in
-    transposed scan space.  ``an_params``: [AN1, AN2] ActNorm param dicts."""
+    ``mcf_params``: [A, B, C, D] MaskedConvFlow param dicts (``pack_mcf``
+    each).  ``an_params``: [AN1, AN2] ActNorm param dicts."""
     f32 = torch.float32
-    w_shift = torch.stack([
-        p["w_shift"].transpose(0, 1) if i >= 2 else p["w_shift"]
-        for i, p in enumerate(mcf_params)]).to(f32)
-    hid = w_shift.shape[-1]
-    h32 = None if h is None else F.elu(h.to(f32))
-    w_hids, hcs = [], []
-    for i, p in enumerate(mcf_params):
-        out = p["out"]
-        v, g = out["v"].to(f32), out["g"].to(f32)
-        w_out = (v * (g / _v_norm(v)))[0, 0]  # (hid + Ch, 2C)
-        w_hids.append(w_out[:hid])
-        hc = out["b"].to(f32).expand(batch, height, width, w_out.shape[-1])
-        if h32 is not None:
-            hc = hc + torch.matmul(h32, w_out[hid:])
-        if i >= 2:  # C/D run in H<->W-transposed scan space
-            hc = hc.transpose(1, 2)
-        hcs.append(hc)
+    h_act = None if h is None else F.elu(h.to(f32))
+    w_shift, w_hid, hc = (torch.stack(t) for t in zip(*(
+        pack_mcf(h_act, p, i >= 2, batch, height, width)
+        for i, p in enumerate(mcf_params))))
     an_bias = torch.stack([p["bias"] for p in an_params]).to(f32)
     an_inv = torch.stack(
         [1.0 / (torch.exp(p["log_scale"].to(f32)) + 1e-8) for p in an_params])
-    return (w_shift.contiguous(), torch.stack(w_hids).contiguous(),
-            torch.stack(hcs).contiguous(), an_bias.contiguous(),
-            an_inv.contiguous())
+    return w_shift, w_hid, hc, an_bias.contiguous(), an_inv.contiguous()
 
 
-def _rowscan(cur, w_shift, w_hid, hc, alpha, reverse):
-    """One masked-conv recurrence in scan space (rows depend on the rows
-    before them, or after them when ``reverse``), as
-    ``MaskedConvFlow._inverse_height``."""
-    b, height, width, c = cur.shape
+# ---------------------------------------------------------------------------
+# K5: one masked-conv flow
+# ---------------------------------------------------------------------------
+
+def masked_conv_inverse_plain(y, w_shift, w_hid, hc, alpha, reverse, act=F.elu):
+    """Plain version of K5: one masked-conv recurrence in scan space (rows
+    depend on the rows before them, or after them when ``reverse``), with
+    the elementwise activation ``act`` (ELU in the kernel)."""
+    b, height, width, c = y.shape
     kh, kw = w_shift.shape[0], w_shift.shape[1]
     cw = (kw - 1) // 2
-    buf = cur.new_zeros((b, height + kh, width + 2 * cw, c))
+    buf = y.new_zeros((b, height + kh, width + 2 * cw, c))
     w_conv = w_shift.permute(3, 2, 0, 1)  # OIHW
     for i in range(height):
         row = height - 1 - i if reverse else i
         start = row + 1 if reverse else row
         window = buf[:, start:start + kh].permute(0, 3, 1, 2)
         hid = F.conv2d(window, w_conv)[:, :, 0].transpose(1, 2)  # (b, W, hid)
-        raw = torch.matmul(F.elu(hid), w_hid) + hc[:, row]
+        raw = torch.matmul(act(hid), w_hid) + hc[:, row]
         mu, log_scale = raw[..., :c], raw[..., c:]
         scale = torch.tanh(log_scale * 0.5) * alpha + 1.0
         write_at = row if reverse else row + kh
-        buf[:, write_at, cw:cw + width] = (cur[:, row] - mu) / (scale + 1e-12)
+        buf[:, write_at, cw:cw + width] = (y[:, row] - mu) / (scale + 1e-12)
     if reverse:
         return buf[:, :height, cw:cw + width]
     return buf[:, kh:, cw:cw + width]
 
 
+def _k5_smem_bytes(width, c, hid, kh, kw):
+    """K5's shared memory (``smem_floats`` in the source): the flow's
+    weights, a ring of kh padded rows and one row of hiddens."""
+    wp = width + 2 * ((kw - 1) // 2)
+    return 4 * (kh * kw * c * hid + hid * 2 * c + kh * wp * c + width * hid)
+
+
+def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
+    """Launch K5 on fp32 inputs in scan space (one CUDA device)."""
+    tensors = (y, w_shift, w_hid, hc)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("masked_conv_inverse kernel takes fp32 inputs only")
+    if any(t.device != y.device for t in tensors):
+        raise ValueError("masked_conv_inverse inputs must lie on one device")
+    b, height, width, c = y.shape
+    kh, kw, _, hid = w_shift.shape
+    if w_shift.shape[2] != c or kw % 2 == 0 or w_hid.shape != (hid, 2 * c) \
+            or hc.shape != (b, height, width, 2 * c):
+        raise ValueError(
+            f"masked_conv_inverse shapes: y {tuple(y.shape)}, w_shift "
+            f"{tuple(w_shift.shape)}, w_hid {tuple(w_hid.shape)}, hc {tuple(hc.shape)}")
+    smem = _k5_smem_bytes(width, c, hid, kh, kw)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"masked_conv_inverse: scan-space latent {tuple(y.shape)} with "
+            f"kernel ({kh}, {kw}) and hid {hid} needs {smem} B of shared "
+            f"memory, over the {SMEM_LIMIT} B a block can have")
+    # contiguous copies are held here until the launch is queued
+    y, w_shift, w_hid, hc = (t.contiguous() for t in tensors)
+    x = torch.empty_like(y)
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.masked_conv_inverse(
+            y.data_ptr(), w_shift.data_ptr(), w_hid.data_ptr(), hc.data_ptr(),
+            x.data_ptr(), b, height, width, c, hid, kh, kw, float(alpha),
+            int(reverse), stream)
+    _build.check(err, "masked_conv_inverse")
+    LAUNCHES["masked_conv_inverse"] += 1
+    return x
+
+
+def scan_inverse(run, y, h_act, params, order, alpha):
+    """The inverse of one affine masked-conv flow of ``order`` by ``run``, a
+    recurrence in scan space with ``masked_conv_inverse_plain``'s arguments;
+    ``h_act`` is act(h) in fp32, or None.  fp32 result, as stored."""
+    if order not in ("A", "B", "C", "D"):
+        raise ValueError(f"masked-conv order {order!r}")
+    transposed = order in ("C", "D")
+    ys = (y.transpose(1, 2) if transposed else y).to(torch.float32)
+    b, height, width, _ = y.shape
+    packed = pack_mcf(h_act, params, transposed, b, height, width)
+    xs = run(ys, *packed, alpha, order in ("B", "D"))
+    return xs.transpose(1, 2) if transposed else xs
+
+
+def masked_conv_inverse(y, h, params, order, alpha=1.0):
+    """Inverse of one MaskedConvFlow (affine transform, ELU, orders A-D, any
+    latent), fp32 result.  K5 for CUDA tensors, its plain version for CPU
+    tensors."""
+    if y.is_cuda:
+        run = masked_conv_inverse_cuda
+    elif y.device.type == "cpu":
+        run = masked_conv_inverse_plain
+    else:
+        raise ValueError(f"masked_conv_inverse: unsupported device {y.device}")
+    h_act = None if h is None else F.elu(h.to(torch.float32))
+    return scan_inverse(run, y, h_act, params, order, alpha)
+
+
+# ---------------------------------------------------------------------------
+# K2: one whole MaCowUnit
+# ---------------------------------------------------------------------------
+
+def unit_fits(shape, hid, kernel_size):
+    """Whether K2 takes a unit on a latent of ``shape`` (B, H, W, C): the
+    latent is square and the kernel's shared memory (``smem_floats`` in its
+    source: weights of one flow, the whole padded latent, the recurrence's
+    input, one row of hiddens) is within ``SMEM_LIMIT``.  Every other unit
+    is inverted flow by flow through K5."""
+    _, height, width, c = shape
+    kh, kw = kernel_size
+    wp = width + 2 * ((kw - 1) // 2)
+    floats = (kh * kw * c * hid + hid * 2 * c + (height + kh) * wp * c
+              + height * width * c + width * hid)
+    return height == width and 4 * floats <= SMEM_LIMIT
+
+
 def macow_unit_inverse_plain(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
-    """Plain version of the kernel on the packed fp32 inputs: AN2^-1, MCF-D,
-    MCF-C (transposed space), AN1^-1, MCF-B, MCF-A."""
+    """Plain version of K2 on the packed fp32 inputs: AN2^-1, MCF-D, MCF-C
+    (transposed space), AN1^-1, MCF-B, MCF-A."""
+    scan = masked_conv_inverse_plain
     x = (y - an_bias[1]) * an_inv[1]
-    xt = _rowscan(x.transpose(1, 2), w_shift[3], w_hid[3], hc[3], alpha, True)
-    xt = _rowscan(xt, w_shift[2], w_hid[2], hc[2], alpha, False)
+    xt = scan(x.transpose(1, 2), w_shift[3], w_hid[3], hc[3], alpha, True)
+    xt = scan(xt, w_shift[2], w_hid[2], hc[2], alpha, False)
     x = (xt.transpose(1, 2) - an_bias[0]) * an_inv[0]
-    x = _rowscan(x, w_shift[1], w_hid[1], hc[1], alpha, True)
-    return _rowscan(x, w_shift[0], w_hid[0], hc[0], alpha, False)
+    x = scan(x, w_shift[1], w_hid[1], hc[1], alpha, True)
+    return scan(x, w_shift[0], w_hid[0], hc[0], alpha, False)
 
 
 def macow_unit_inverse_cuda(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
-    """Launch the kernel on the packed fp32 inputs (one CUDA device)."""
+    """Launch K2 on the packed fp32 inputs (one CUDA device)."""
     tensors = (y, w_shift, w_hid, hc, an_bias, an_inv)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("macow_unit_inverse kernel takes fp32 inputs only")
@@ -120,9 +231,9 @@ def macow_unit_inverse_cuda(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
 
 
 def macow_unit_inverse(y, h, mcf_params, an_params, kernel_size, alpha=1.0):
-    """Inverse of one MaCowUnit (affine transform, ELU, square latents),
-    fp32 result.  The kernel for CUDA tensors, the plain version for CPU
-    tensors.  ``kernel_size`` is the unit's (kh, kw) as configured."""
+    """Inverse of one MaCowUnit (affine transform, ELU, a latent that
+    ``unit_fits``), fp32 result.  K2 for CUDA tensors, the plain version for
+    CPU tensors.  ``kernel_size`` is the unit's (kh, kw) as configured."""
     b, height, width, _ = y.shape
     packed = pack_unit(h, mcf_params, an_params, b, height, width)
     if tuple(packed[0].shape[1:3]) != tuple(kernel_size):

@@ -11,8 +11,11 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ipoke_tpu_torch import entry, ops
+from ipoke_tpu_torch.flows.base import Chain
+from ipoke_tpu_torch.flows.macow import make_macow_unit
 from ipoke_tpu_torch.ops import masked_conv, nice_net, spade_gn
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +93,59 @@ def test_unit_inverse_kernel_matches_plain(dev, b, s, c, ch):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
+def _mcf_params(dev, c, hid, ch, ks, seed):
+    """One masked-conv flow with a non-trivial out conv (g/b set directly)."""
+    return {"w_shift": _randn(dev, *ks, c, hid, std=(ks[0] * ks[1] * c) ** -0.5,
+                              seed=seed),
+            "out": {"v": _randn(dev, 1, 1, hid + ch, 2 * c, std=0.05, seed=seed + 1),
+                    "g": _randn(dev, 2 * c, std=0.3, seed=seed + 2),
+                    "b": _randn(dev, 2 * c, std=0.1, seed=seed + 3)}}
+
+
+@pytest.mark.parametrize("b,hh,ww,c,ch,order", [
+    (3, 5, 7, 8, 6, "A"), (2, 8, 8, 4, 0, "B"), (2, 6, 13, 8, 0, "C"),
+    (3, 8, 16, 32, 128, "D"), (40, 32, 32, 32, 128, "A")])
+def test_masked_conv_inverse_kernel_matches_plain(dev, b, hh, ww, c, ch, order):
+    """K5 through its dispatcher against the plain row scan: W not a multiple
+    of the kernel's 4 columns per thread, C=4, non-square latents in both
+    orientations, with and without conditioning rows, and a 32x32x32
+    latent that K2 cannot hold."""
+    ks = (2, 3) if order in ("A", "B") else (3, 2)  # C/D store them swapped
+    params = _mcf_params(dev, c, 4 * c, ch, ks, 100)
+    y = _randn(dev, b, hh, ww, c, seed=110)
+    h = _randn(dev, b, hh, ww, ch, seed=111) if ch else None
+    got = masked_conv.masked_conv_inverse(y, h, params, order)
+    want = masked_conv.scan_inverse(
+        masked_conv.masked_conv_inverse_plain, y,
+        None if h is None else F.elu(h), params, order, 1.0)
+    assert ops.LAUNCHES["masked_conv_inverse"] == 1 and got.shape == y.shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_unit_inverse_k2_matches_per_flow_route(dev):
+    """The level-0 SHIPPED unit (C=32, hid 128, 128 conditioning channels,
+    8x8) with perturbed out convs and ActNorms: K2 in one launch against the
+    chain inverse, four K5 launches and two ActNorm inverses.  Two
+    independent kernels for the same four recurrences."""
+    unit = make_macow_unit(32, (2, 3), h_channels=128)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = unit.init(gen, dev)
+    for p in params:
+        if "out" in p:
+            p["out"]["g"] = 0.3 * torch.randn(64, generator=gen, device=dev)
+            p["out"]["b"] = 0.1 * torch.randn(64, generator=gen, device=dev)
+        else:
+            p["log_scale"] = 0.05 * torch.randn(32, generator=gen, device=dev)
+            p["bias"] = 0.05 * torch.randn(32, generator=gen, device=dev)
+    y = _randn(dev, 40, 8, 8, 32, seed=120)
+    h = _randn(dev, 40, 8, 8, 128, seed=121)
+    k2 = unit.inverse(params, y, h)
+    assert ops.LAUNCHES["macow_unit_inverse"] == 1
+    per_flow = Chain.inverse(unit, params, y, h)
+    assert ops.LAUNCHES["masked_conv_inverse"] == 4
+    torch.testing.assert_close(k2, per_flow, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("shape,clips", [((6, 8, 8, 32), 2), ((4, 5, 5, 48), 4),
                                          ((3, 16, 16, 64), 1)])
@@ -115,6 +171,21 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 8, 8, 32, device=dev)
     with pytest.raises(ValueError):  # 3 clips do not divide 4 frames
         spade_gn.spade_gn_modulate(x, x[:3], x[:3], 16)
+    # K5: fp32 only, one device, a footprint within the opt-in limit
+    y = torch.zeros(2, 8, 16, 32, device=dev)
+    packed = (torch.zeros(2, 3, 32, 128, device=dev),
+              torch.zeros(128, 64, device=dev), torch.zeros(2, 8, 16, 64, device=dev))
+    for dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            masked_conv.masked_conv_inverse_cuda(
+                y.to(dtype), *(t.to(dtype) for t in packed), 1.0, False)
+    with pytest.raises(ValueError, match="one device"):
+        masked_conv.masked_conv_inverse_cuda(y, packed[0].cpu(), *packed[1:], 1.0, False)
+    wide = torch.zeros(2, 2, 256, 32, device=dev)  # one ring row of 258 columns
+    with pytest.raises(ValueError, match=r"\(2, 2, 256, 32\).*shared"):
+        masked_conv.masked_conv_inverse_cuda(
+            wide, packed[0], packed[1], torch.zeros(2, 2, 256, 64, device=dev),
+            1.0, False)
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 

@@ -1,29 +1,35 @@
 """The port's flows (ipoke_tpu_torch/flows) against the JAX package's, inverse
 direction, with the same perturbed weights and the same inputs (numpy seeds).
-On CPU the unit inverse takes K2's plain version."""
+On CPU the unit inverse takes K2's plain version on square latents and K5's,
+flow by flow, on the others."""
+
+import collections
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ipoke_tpu.flows import macow as jm
 from ipoke_tpu_torch import entry
 from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
 from ipoke_tpu_torch.flows import macow as tm
 from ipoke_tpu_torch.flows import count_params, tree_leaves
+from ipoke_tpu_torch.ops import masked_conv
 
 from test_torch_ops import _jnp, _np, _perturb, _t
 
 B, H, W, C, HC = 2, 8, 8, 8, 6
 
 
-def _case(jflow, seed, channels=C, h_channels=HC, g_std=0.3, b_std=0.1):
+def _case(jflow, seed, channels=C, h_channels=HC, g_std=0.3, b_std=0.1,
+          hw=(H, W)):
     rng = np.random.default_rng(seed)
     params = _perturb(to_numpy_tree(jflow.init(jax.random.PRNGKey(seed), None)),
                       rng, g_std, b_std)
-    x = rng.standard_normal((B, H, W, channels)).astype(np.float32)
-    h = rng.standard_normal((B, H, W, h_channels)).astype(np.float32) \
+    x = rng.standard_normal((B, *hw, channels)).astype(np.float32)
+    h = rng.standard_normal((B, *hw, h_channels)).astype(np.float32) \
         if h_channels else None
     pj = _jnp(params)
     hj = None if h is None else jnp.asarray(h)
@@ -40,13 +46,24 @@ def _check(tflow, params, h, y, want, x, tol):
         np.testing.assert_allclose(got.numpy(), x, atol=1e-3)
 
 
+@pytest.mark.parametrize("hw", [(H, W), (4, 8)])
 @pytest.mark.parametrize("order,ks", [("A", (2, 3)), ("B", (2, 3)),
                                       ("C", (3, 2)), ("D", (3, 2))])
-def test_masked_conv_flow_inverse(order, ks):
+def test_masked_conv_flow_inverse(order, ks, hw):
     jflow = jm.MaskedConvFlow(C, ks, order=order, h_channels=HC)
-    params, x, h, y, want = _case(jflow, 1 + ord(order))
+    params, x, h, y, want = _case(jflow, 1 + ord(order), hw=hw)
     _check(tm.MaskedConvFlow(C, ks, order=order, h_channels=HC),
            params, h, y, want, x, 1e-4)
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu"])
+def test_masked_conv_flow_inverse_other_activation(activation):
+    """No kernel takes another activation (nor in the JAX package): the
+    plain row scan, with the activation also applied to the conditioning
+    rows."""
+    kw = dict(order="D", h_channels=HC, activation=activation)
+    params, x, h, y, want = _case(jm.MaskedConvFlow(C, (3, 2), **kw), 70, hw=(4, 8))
+    _check(tm.MaskedConvFlow(C, (3, 2), **kw), params, h, y, want, x, 1e-4)
 
 
 @pytest.mark.parametrize("split,order", [("continuous", "up"),
@@ -58,9 +75,34 @@ def test_nice2d_inverse(split, order):
     _check(tm.NICE2d(C, **kw), params, h, y, want, x, 1e-4)
 
 
-def test_macow_unit_inverse():
-    params, x, h, y, want = _case(jm.make_macow_unit(C, (2, 3), HC), 40)
+@pytest.mark.parametrize("hw", [(H, W), (4, 8)])
+def test_macow_unit_inverse(hw):
+    """Square: K2's route; 4x8: four K5 flows and two ActNorm inverses."""
+    params, x, h, y, want = _case(jm.make_macow_unit(C, (2, 3), HC), 40, hw=hw)
     _check(tm.make_macow_unit(C, (2, 3), HC), params, h, y, want, x, 1e-4)
+
+
+def test_unit_route_depends_on_shape_only(monkeypatch):
+    """K2 takes a unit only on a square latent whose footprint it can hold
+    (the SHIPPED level-0 8x8x32, hid 128); any other goes flow by flow
+    through K5's wrapper.  On CPU tensors the same routing runs, with the
+    plain versions."""
+    assert masked_conv.unit_fits((40, 8, 8, 32), 128, (2, 3))
+    assert not masked_conv.unit_fits((40, 8, 16, 32), 128, (2, 3))
+    assert not masked_conv.unit_fits((40, 32, 32, 32), 128, (2, 3))
+    calls = collections.Counter()
+    for name in ("masked_conv_inverse", "macow_unit_inverse_plain"):
+        def spy(*args, _fn=getattr(masked_conv, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(masked_conv, name, spy)
+    unit = tm.make_macow_unit(C, (2, 3), HC)
+    params = unit.init(torch.Generator().manual_seed(0), "cpu")
+    for hw, want in (((4, 8), {"masked_conv_inverse": 4}),
+                     ((8, 8), {"macow_unit_inverse_plain": 1})):
+        calls.clear()
+        unit.inverse(params, torch.randn(B, *hw, C), torch.randn(B, *hw, HC))
+        assert calls == want, (hw, calls)
 
 
 def test_macow_step_inverse():
@@ -69,17 +111,19 @@ def test_macow_step_inverse():
     _check(tm.make_macow_step(C, (2, 3), 128, HC), params, h, y, want, x, 1e-4)
 
 
-def test_multiscale_internal_inverse():
+@pytest.mark.parametrize("hw", [(H, W), (4, 8)])
+def test_multiscale_internal_inverse(hw):
     """The whole flow, from a z drawn like the sampler's (no JAX forward:
-    its compile would dominate the test)."""
+    its compile would dominate the test); at 4x8 every unit goes flow by
+    flow."""
     kw = dict(num_steps=(2, 1), in_channels=16, hidden_channels=128,
               h_channels=HC, factor=16)
     jflow = jm.MultiScaleInternal(**kw)
     rng = np.random.default_rng(60)
     params = _perturb(to_numpy_tree(jflow.init(jax.random.PRNGKey(60), None)),
                       rng, 0.1, 0.05)
-    z = rng.standard_normal((B, H, W, 16)).astype(np.float32)
-    h = rng.standard_normal((B, H, W, HC)).astype(np.float32)
+    z = rng.standard_normal((B, *hw, 16)).astype(np.float32)
+    h = rng.standard_normal((B, *hw, HC)).astype(np.float32)
     want = jax.jit(jflow.inverse)(_jnp(params), jnp.asarray(z), jnp.asarray(h))
     _check(tm.MultiScaleInternal(**kw), params, h, z, want, None, 1e-3)
 

@@ -4,6 +4,8 @@ wrappers run their plain PyTorch versions.  K4's backward is held against
 ``jax.grad`` of the JAX package's custom vjp.  Inputs come from numpy
 seeds."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,14 +13,17 @@ import pytest
 import torch
 
 from ipoke_tpu.flows.macow import NICE2d, make_macow_unit
-from ipoke_tpu.ops.masked_conv import macow_unit_inverse_pallas
+from ipoke_tpu.ops.masked_conv import (
+    macow_unit_inverse_pallas,
+    masked_conv_inverse_pallas,
+)
 from ipoke_tpu.ops import nice_net as jnice
 from ipoke_tpu.ops.nice_net import nice_net_raw_pallas
 from ipoke_tpu.ops.spade_gn import spade_gn_modulate_pallas
 from ipoke_tpu_torch import ops
 from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
 from ipoke_tpu_torch.ops import _build
-from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse
+from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse, masked_conv_inverse
 from ipoke_tpu_torch.ops.nice_net import (
     _train_forward,
     nice_net_fits,
@@ -220,6 +225,40 @@ def test_unit_inverse_plain_matches_pallas(h_channels):
                              (2, 3), 1.0)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
     np.testing.assert_allclose(got.numpy(), x, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K5: the inverse of one masked-conv flow
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hw", [(8, 8), (4, 8)])
+@pytest.mark.parametrize("h_channels", [0, 6])
+@pytest.mark.parametrize("order", ["A", "B", "C", "D"])
+def test_masked_conv_inverse_plain_matches_pallas(order, h_channels, hw):
+    """K5's plain version (the flow's route on CPU tensors) against
+    ``masked_conv_inverse_pallas`` in interpret mode, orders A-D, with and
+    without conditioning rows, on a square and a non-square latent.  g/b are
+    set directly: ``ddi`` would leave g = 0 and the recurrence trivial."""
+    c, hid = 8, 32
+    kh, kw = (2, 3) if order in ("A", "B") else (3, 2)  # C/D store them swapped
+    rng = np.random.default_rng(200 + ord(order) + h_channels + hw[0])
+    n = lambda *s, std=1.0: (std * rng.standard_normal(s)).astype(np.float32)
+    params = {"w_shift": n(kh, kw, c, hid, std=(kh * kw * c) ** -0.5),
+              "out": {"v": n(1, 1, hid + h_channels, 2 * c, std=0.05),
+                      "g": n(2 * c, std=0.3), "b": n(2 * c, std=0.1)}}
+    y = n(B, *hw, c)
+    h = n(B, *hw, h_channels) if h_channels else None
+    v = params["out"]["v"]
+    w_out = (v * (params["out"]["g"] / np.sqrt((v * v).sum((0, 1, 2)) + 1e-12)))[0, 0]
+    pallas = jax.jit(functools.partial(masked_conv_inverse_pallas, order=order,
+                                       interpret=True))
+    want = pallas(jnp.asarray(y), None if h is None else jnp.asarray(h),
+                  jnp.asarray(params["w_shift"]), jnp.asarray(w_out),
+                  jnp.asarray(params["out"]["b"]))
+    got = masked_conv_inverse(_t(y), None if h is None else _t(h),
+                              flow_params(params), order)
+    assert got.dtype == torch.float32 and got.shape == y.shape
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
