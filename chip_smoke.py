@@ -9,7 +9,9 @@ Phases, in order; any failure raises and exits non-zero:
   (a) device: the card's name and power limit (nvidia-smi); CUDA required.
   (b) build: the CUDA kernels from ipoke_tpu_torch/csrc (nvcc, sm_90a).
   (c) each kernel against its plain PyTorch version on the card, at the
-      shipped shapes, TF32 off for the plain side: max error and both times.
+      shipped shapes, TF32 off for the plain side: max error and both times;
+      K1 at the level-0 step coupling, a prior, the 8x16 latent's level 0
+      and SMALL's Hid = 256, each also bitwise equal over two calls.
   (c') K4 against its plain version (u, a, b), its u bitwise equal to K1's,
       and autograd gradients through K4 against autograd of the plain
       coupling net, in bf16.
@@ -32,7 +34,8 @@ Phases, in order; any failure raises and exits non-zero:
       then 3 steps timed with CUDA events: ms/step, clips/s, peak memory;
       then one step split into its parts on the host clock (each closed by
       a synchronize) and one under ``torch.profiler``: device launches,
-      device time by kernel, against the step's wall time.
+      device time by kernel, against the step's wall time, and K1/K4's
+      device time per call and per stage kernel.
   (h) the SHIPPED-width cINN at a non-square 8x16 latent, where no unit
       fits K2 and every masked-conv flow goes through K5: an fp32 round
       trip (forward, then inverse with the launch counts checked), then in
@@ -60,7 +63,10 @@ import time
 import torch
 import torch.nn.functional as F
 
-K1_CASES = ((16, 32), (30, 4))  # (C1, Cout): level-0 step coupling, prior
+# K1/K4 (M, C1, Hid, Cout): the level-0 step coupling, a prior, the level-0
+# coupling of the 8x16 latent (phase h), SMALL's level-0 coupling
+K1_CASES = ((2560, 16, 2048, 32), (2560, 30, 2048, 4), (5120, 16, 2048, 32),
+            (512, 16, 256, 32))
 K2_CASES = (32, 4)              # MCF channels C at the first and last level
 K3_CASES = ((128, 64), (64, 128), (32, 256), (16, 256))  # (S, Ch) of the decode
 # K5 (B, H, W, C, Ch, order): the level-0 flow in all four orders (A/B
@@ -164,24 +170,26 @@ def phase_kernels(dev):
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     out = {}
 
-    m, hid = 40 * 8 * 8, 2048
     errs, times = [], []
-    for c1, cout in K1_CASES:
+    for m, c1, hid, cout in K1_CASES:
         zcol = randn(m, 9 * c1).bfloat16()
         w1 = (randn(9 * c1, hid) * (9 * c1) ** -0.5).bfloat16()
         w2 = (randn(hid, hid) * hid ** -0.5).bfloat16()
         wp = (randn(hid, 9 * cout) * (9 * hid) ** -0.5).bfloat16()
         got = nice_net.nice_net_cuda(zcol, w1, w2, wp)
         want = nice_net.nice_net_plain(zcol, w1, w2, wp)
-        err = check_close(f"K1 C1={c1} Cout={cout}", got, want, K1_TOL, K1_TOL)
+        err = check_close(f"K1 M={m} C1={c1} Hid={hid} Cout={cout}", got, want,
+                          K1_TOL, K1_TOL)
+        if not torch.equal(got, nice_net.nice_net_cuda(zcol, w1, w2, wp)):
+            raise AssertionError(f"K1 M={m} C1={c1}: two calls differ")
         ms = cuda_ms(lambda: nice_net.nice_net_cuda(zcol, w1, w2, wp), 20)
         plain = cuda_ms(lambda: nice_net.nice_net_plain(zcol, w1, w2, wp), 20)
         print(f"K1 nice_net M={m} C1={c1} Hid={hid} Cout={cout}: max_abs_err "
-              f"{err:.3e} (tol {K1_TOL} abs+rel), kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms")
+              f"{err:.3e} (tol {K1_TOL} abs+rel), two calls bitwise equal, "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
         errs.append(err)
         times.append((ms, plain))
-    c1, cout = K1_CASES[0]
+    m, c1, hid, cout = K1_CASES[0]
     out["nice_net"] = row(max(errs), times[0],
                           nice_work(m, 9 * c1, hid, 9 * cout, False), BF16_FLOPS)
     # a yardstick, used nowhere in the port: the same chain as three bf16
@@ -263,20 +271,19 @@ def phase_k4(dev):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    m, hid = 40 * 8 * 8, 2048
     errs, times = [], []
-    for c1, cout in K1_CASES:
+    for m, c1, hid, cout in K1_CASES:
         zcol = randn(m, 9 * c1).bfloat16()
         w1 = (randn(9 * c1, hid) * (9 * c1) ** -0.5).bfloat16()
         w2 = (randn(hid, hid) * hid ** -0.5).bfloat16()
         wp = (randn(hid, 9 * cout) * (9 * hid) ** -0.5).bfloat16()
         u, a, b = nice_net.nice_net_train_cuda(zcol, w1, w2, wp)
         want = nice_net.nice_net_train_plain(zcol, w1, w2, wp)
-        err = max(check_close(f"K4 {name} C1={c1} Cout={cout}", got, ref,
-                              K1_TOL, K1_TOL)
+        err = max(check_close(f"K4 {name} M={m} C1={c1} Hid={hid} Cout={cout}",
+                              got, ref, K1_TOL, K1_TOL)
                   for name, got, ref in zip("uab", (u, a, b), want))
         if not torch.equal(u, nice_net.nice_net_cuda(zcol, w1, w2, wp)):
-            raise AssertionError(f"K4 u C1={c1} Cout={cout} is not bitwise K1's")
+            raise AssertionError(f"K4 u M={m} C1={c1} is not bitwise K1's")
         ms = cuda_ms(lambda: nice_net.nice_net_train_cuda(zcol, w1, w2, wp), 20)
         plain = cuda_ms(lambda: nice_net.nice_net_train_plain(zcol, w1, w2, wp), 20)
         print(f"K4 nice_net_train M={m} C1={c1} Hid={hid} Cout={cout}: u, a, b "
@@ -286,7 +293,7 @@ def phase_k4(dev):
         times.append((ms, plain))
 
     # gradients of sum(sin(raw)) at the level-0 step coupling, bf16
-    c1, cout = K1_CASES[0]
+    m, c1, hid, cout = K1_CASES[0]
     nice = NICE2d(2 * c1, hidden_channels=hid)
     params = nice.init(gen, dev)
     params["out"]["g"] = randn(*params["out"]["g"].shape) * 0.3
@@ -554,9 +561,9 @@ def phase_small_train(dev):
         raise AssertionError("SMALL train: card losses disagree with the CPU port")
 
 
-def profile_train_step(model, trainer, batch, gen):
+def profile_train_step(model, trainer, batch, gen, nice_calls):
     """One SHIPPED train step split into its parts, then one under
-    ``torch.profiler``."""
+    ``torch.profiler``; ``nice_calls`` K1 + K4 wrapper calls per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from ipoke_tpu_torch.core.optim import cast_floats
@@ -602,6 +609,15 @@ def profile_train_step(model, trainer, batch, gen):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
               f"{e.key[:90]}")
+    # K1 and K4 calls launch the same three stage kernels, so the profile
+    # gives one per-call time for both
+    stages = sorted((e for e in kernels if "nice_net_stage" in e.key),
+                    key=lambda e: e.key)
+    per_call = sum(e.self_device_time_total for e in stages) / 1e3 / nice_calls
+    print(f"  K1/K4 in situ ({nice_calls} calls, each the same 3 launches): "
+          f"{per_call:.4f} ms per call; " + ", ".join(
+              f"{e.key[e.key.find('nice_net_stage'):][:17]} {e.count} x "
+              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms" for e in stages))
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=lambda e: -e.count)[:12]
     print("  most launched aten ops: " + ", ".join(
@@ -654,7 +670,8 @@ def phase_shipped_train(dev, smi):
           f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}; "
           f"losses {losses}")
-    profile_train_step(model, trainer, batch, gen)
+    profile_train_step(model, trainer, batch, gen,
+                       launches["nice_net"] + launches["nice_net_train"])
     return launches
 
 

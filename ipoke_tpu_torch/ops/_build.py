@@ -27,8 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes), each returns the cudaError_t of its launch
 SIGNATURES = {
-    "nice_net_u": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "nice_net_train_u": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "nice_net_u": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "macow_unit_inverse": (_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "masked_conv_inverse": (_P, _P, _P, _P, _P,

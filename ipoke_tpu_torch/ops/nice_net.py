@@ -9,15 +9,16 @@ hidden x hidden) -> ELU -> out (3x3 weight-norm conv, skinny).  The kernel
     u = elu(elu(zcol @ w1) @ w2) @ wp        (bf16 operands, fp32 sums)
 
 with ``zcol`` the 3x3 im2col of the coupling input and ``wp`` the tap-packed
-out weight; the hidden activations never reach device memory.  The im2col,
+out weight, in three launches that write the post-ELU hiddens a and b
+to device memory (they stay in L2) and then u.  The im2col,
 the shifted-add epilogue of the tap-packed conv, the bias and the
 h-conditioning half of the out conv run here in torch, as the JAX package
 runs them outside its kernel.  ``nice_net_plain`` is the same chain in
 plain PyTorch.
 
-K4 is the same kernel with two extra stores, of the post-ELU hiddens a and b
-(``nice_net_train_plain`` beside it), inside ``_NiceNetTrain``, an autograd
-Function whose backward is the JAX package's hand-written one.
+K4 is the same launches, returning a and b as well (for K1 they are
+scratch; ``nice_net_train_plain`` beside it), inside ``_NiceNetTrain``, an
+autograd Function whose backward is the JAX package's hand-written one.
 """
 
 from __future__ import annotations
@@ -77,7 +78,9 @@ def _launch(zcol, w1, w2, wp, train: bool):
     """Launch K1 (``train=False``: returns u) or K4 (returns u, a, b):
     ``zcol`` (M, K1), ``w1`` (K1, Hid), ``w2`` (Hid, Hid), ``wp`` (Hid, N),
     all bf16 on one CUDA device; u is (M, N) fp32, a and b (M, Hid) bf16.
-    K1 and N are zero-padded to multiples of 16 here."""
+    K1 and N are zero-padded to multiples of 16 here.  Both are the same
+    three CUDA launches (a, b, then u; ``csrc/nice_net.cu``), so K4's u is
+    K1's bit for bit; ``LAUNCHES`` counts wrapper calls."""
     name = "nice_net_train" if train else "nice_net"
     tensors = (zcol, w1, w2, wp)
     if any(t.dtype != torch.bfloat16 for t in tensors):
@@ -97,18 +100,16 @@ def _launch(zcol, w1, w2, wp, train: bool):
     w2_c = w2.contiguous()
     wp_p = _pad_cols(wp, n_p).contiguous()
     u = torch.empty((m, n_p), dtype=torch.float32, device=zcol.device)
-    ptrs = [zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
-            wp_p.data_ptr(), u.data_ptr()]
-    if train:
-        a = torch.empty((m, hid), dtype=torch.bfloat16, device=zcol.device)
-        b = torch.empty_like(a)
-        ptrs += [a.data_ptr(), b.data_ptr()]
+    # the hiddens: K4's residuals, K1's scratch (the kernel writes both)
+    a = torch.empty((m, hid), dtype=torch.bfloat16, device=zcol.device)
+    b = torch.empty_like(a)
     lib = _build.load()
     with torch.cuda.device(zcol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = lib.nice_net_train_u if train else lib.nice_net_u
-        err = fn(*ptrs, m, k1p, hid, n_p, stream)
-    _build.check(err, f"{name}_u")
+        err = lib.nice_net_u(zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
+                             wp_p.data_ptr(), u.data_ptr(), a.data_ptr(),
+                             b.data_ptr(), m, k1p, hid, n_p, stream)
+    _build.check(err, name)
     LAUNCHES[name] += 1
     return (u[:, :n], a, b) if train else u[:, :n]
 

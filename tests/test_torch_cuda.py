@@ -39,10 +39,19 @@ def _randn(dev, *shape, std=1.0, seed=0):
     return std * torch.randn(shape, generator=g, device=dev)
 
 
-@pytest.mark.parametrize("m,c1,hid,cout", [(512, 16, 256, 32), (100, 5, 128, 3),
-                                           (2560, 30, 2048, 4)])
+# (M, C1, Hid, Cout): M not a multiple of the 128-row tile (100, 2577),
+# K1 = 9·C1 not a multiple of the 64-deep K slice (45, 144, 270), Hid = 128
+# and 384 (one and three 128-column tiles), N = 9·Cout (27, 36, 288: padded
+# to 16 by the wrapper; 288 is above one wgmma's 256 and leaves a ragged
+# last 64-column tile)
+NICE_CASES = [(512, 16, 256, 32), (100, 5, 128, 3), (2560, 30, 2048, 4),
+              (2577, 16, 384, 32), (100, 30, 128, 32)]
+
+
+@pytest.mark.parametrize("m,c1,hid,cout", NICE_CASES)
 def test_nice_net_kernel_matches_plain(dev, m, c1, hid, cout):
-    """K1 at a ragged row count and with K1 and N padded to 16."""
+    """K1 at ragged row counts, with K1 and N padded to 16, and two calls
+    bitwise equal (each u element is one dot product in a fixed order)."""
     zcol = _randn(dev, m, 9 * c1, seed=1).bfloat16()
     w1 = _randn(dev, 9 * c1, hid, std=(9 * c1) ** -0.5, seed=2).bfloat16()
     w2 = _randn(dev, hid, hid, std=hid ** -0.5, seed=3).bfloat16()
@@ -51,13 +60,13 @@ def test_nice_net_kernel_matches_plain(dev, m, c1, hid, cout):
     want = nice_net.nice_net_plain(zcol, w1, w2, wp)
     assert got.shape == (m, 9 * cout) and ops.LAUNCHES["nice_net"] == 1
     torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
+    assert torch.equal(got, nice_net.nice_net_cuda(zcol, w1, w2, wp))
 
 
-@pytest.mark.parametrize("m,c1,hid,cout", [(512, 16, 256, 32), (100, 5, 128, 3),
-                                           (2560, 30, 2048, 4)])
+@pytest.mark.parametrize("m,c1,hid,cout", NICE_CASES)
 def test_nice_net_train_kernel_matches_plain(dev, m, c1, hid, cout):
-    """K4 at a ragged row count (the last block stores 4 rows of a and b):
-    u, a and b against the plain version, u bitwise K1's."""
+    """K4 at ragged row counts (the last row block stores a part of a and
+    b): u, a and b against the plain version, u bitwise K1's."""
     zcol = _randn(dev, m, 9 * c1, seed=1).bfloat16()
     w1 = _randn(dev, 9 * c1, hid, std=(9 * c1) ** -0.5, seed=2).bfloat16()
     w2 = _randn(dev, hid, hid, std=hid ** -0.5, seed=3).bfloat16()
