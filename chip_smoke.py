@@ -11,7 +11,12 @@ Phases, in order; any failure raises and exits non-zero:
   (c) each kernel against its plain PyTorch version on the card, at the
       shipped shapes, TF32 off for the plain side: max error and both times;
       K1 at the level-0 step coupling, a prior, the 8x16 latent's level 0
-      and SMALL's Hid = 256, each also bitwise equal over two calls.
+      and SMALL's Hid = 256; K2 at the 8x8 units of the first, a middle and
+      the last level (C = 32, 18, 4) and a 16x16 latent, with its shared
+      memory (held against ``k2_smem_bytes``) and the clusters the card
+      holds at once; K3 at the four decode levels in bf16 and the 128 px
+      level in fp32, with its cluster plan; each case's bound and share of
+      it, and two calls bitwise equal.
   (c') K4 against its plain version (u, a, b), its u bitwise equal to K1's,
       and autograd gradients through K4 against autograd of the plain
       coupling net, in bf16.
@@ -24,7 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
       compared, and the kernel launch counts of the card's pass checked.
   (e) the SHIPPED config (128 px, B=40, T=10, the 1054.43M-param cINN) in
       bf16: one sampling pass with the launch counts zeroed before and read
-      after (the sampling path's run), then 3 timed passes.
+      after (the sampling path's run), then 3 timed passes, then one under
+      ``torch.profiler``: device time by kernel against the pass's wall
+      time, and K1's, K2's and K3's device time over the pass.
   (f) the SMALL config trained 3 steps in bf16 with fp32 masters at a
       constant lr, card against CPU from the same post-DDI weights: losses
       compared, launch counts of every card step checked.
@@ -67,15 +74,25 @@ import torch.nn.functional as F
 # coupling of the 8x16 latent (phase h), SMALL's level-0 coupling
 K1_CASES = ((2560, 16, 2048, 32), (2560, 30, 2048, 4), (5120, 16, 2048, 32),
             (512, 16, 256, 32))
-K2_CASES = (32, 4)              # MCF channels C at the first and last level
-K3_CASES = ((128, 64), (64, 128), (32, 256), (16, 256))  # (S, Ch) of the decode
+# K2 (H = W, C) at B = 40, hid = 4C, 128 conditioning channels: the first,
+# a middle and the last level's 8x8 unit, and a 16x16 latent
+K2_CASES = ((8, 32), (8, 18), (8, 4), (16, 32))
+# K3 (S, Ch, dtype) at N = 400 frames of 40 clips, 16 groups: the four decode
+# levels in bf16, and the 128 px level in fp32 (slices too large to keep)
+K3_CASES = ((128, 64, torch.bfloat16), (64, 128, torch.bfloat16),
+            (32, 256, torch.bfloat16), (16, 256, torch.bfloat16),
+            (128, 64, torch.float32))
 # K5 (B, H, W, C, Ch, order): the level-0 flow in all four orders (A/B
 # kernel (2, 3), C/D stored (3, 2)), a non-square 8x16 latent, the last
 # level's C=4, and a 32x32x32 latent that K2 cannot hold
 K5_CASES = (*((40, 8, 8, 32, 128, o) for o in "ABCD"),
             *((40, 8, 16, 32, 128, o) for o in "ABCD"),
             (40, 8, 8, 4, 128, "A"), (40, 32, 32, 32, 128, "A"))
-K1_TOL, K2_TOL, K3_TOL, K5_TOL = 5e-2, 1e-4, 3e-2, 1e-4
+K1_TOL, K2_TOL, K5_TOL = 5e-2, 1e-4, 1e-4
+# K3 against its plain version, abs + rel: bf16 rounds the normalised value
+# and each op of the modulation once; the statistics' sums run in another
+# order (one bf16 step where normed sits on a rounding edge)
+K3_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # K4's gradients vs autograd of the plain coupling net, both bf16: each
 # tensor's max error over its max magnitude.  The two sides round the hidden
 # activations and their cotangents to bf16 at different sums (kernel vs
@@ -156,6 +173,24 @@ def nice_work(m, k1, hid, n, train):
     return nbytes, 2 * m * (k1 * hid + hid * hid + hid * n)
 
 
+def unit_work(b, s, c, hid):
+    """(bytes, flops) of K2 in fp32: per MCF and pixel 6 tap dots C -> hid
+    and the hid -> 2C out dot (hc is precomputed); y and x, the 4 flows'
+    weights, hc and the ActNorms once each."""
+    pix = b * s * s
+    nbytes = 4 * (2 * pix * c + 4 * 6 * c * hid + 4 * hid * 2 * c
+                  + 4 * pix * 2 * c + 4 * c)
+    return nbytes, 4 * pix * 2 * (6 * c * hid + hid * 2 * c)
+
+
+def spade_work(s, ch, itemsize):
+    """(bytes, flops) of K3 at a decode level: x and out (400 frames), gamma
+    and beta (40 clips) once each; ~8 fp32 operations per element
+    (statistics, normalise, modulate)."""
+    n_x, n_m = 400 * s * s * ch, 40 * s * s * ch
+    return itemsize * (2 * n_x + 2 * n_m), 8 * n_x
+
+
 def row(err, times, work, peak):
     ms, plain = times
     bound_ms, bound_by = bound(*work, peak)
@@ -164,7 +199,7 @@ def row(err, times, work, peak):
 
 
 def phase_kernels(dev):
-    from ipoke_tpu_torch.ops import masked_conv, nice_net, spade_gn
+    from ipoke_tpu_torch.ops import _build, masked_conv, nice_net, spade_gn
 
     gen = torch.Generator(device=dev).manual_seed(1)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -204,8 +239,9 @@ def phase_kernels(dev):
     out["nice_net"]["bf16_matmul_chain_ms"] = chain
 
     errs, times = [], []
-    b, s, ch = 40, 8, 128
-    for c in K2_CASES:
+    b, ch = 40, 128
+    lib = _build.load()
+    for s, c in K2_CASES:
         hid = 4 * c
         mcf = []
         for _ in range(4):
@@ -221,45 +257,57 @@ def phase_kernels(dev):
         packed = masked_conv.pack_unit(h, mcf, an, b, s, s)
         got = masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0)
         want = masked_conv.macow_unit_inverse_plain(y, *packed, 1.0)
-        err = check_close(f"K2 C={c}", got, want, K2_TOL)
+        err = check_close(f"K2 {s}x{s} C={c}", got, want, K2_TOL)
+        if not torch.equal(got, masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0)):
+            raise AssertionError(f"K2 {s}x{s} C={c}: two calls differ")
         ms = cuda_ms(lambda: masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0), 20)
-        plain = cuda_ms(lambda: masked_conv.macow_unit_inverse_plain(y, *packed, 1.0), 3)
+        plain = cuda_ms(lambda: masked_conv.macow_unit_inverse_plain(y, *packed, 1.0), 2)
+        bound_ms, _ = bound(*unit_work(b, s, c, hid), FP32_FLOPS)
+        smem = masked_conv.k2_smem_bytes(s, s, c, hid, 2, 3)
+        if lib.macow_unit_inverse_smem_bytes(s, s, c, hid, 2, 3) != smem:
+            raise AssertionError(f"K2 {s}x{s} C={c}: kernel and k2_smem_bytes disagree")
         print(f"K2 macow_unit_inverse B={b} H=W={s} C={c} hid={hid} Ch={ch}: "
-              f"max_abs_err {err:.3e} (tol {K2_TOL}), kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms")
+              f"max_abs_err {err:.3e} (tol {K2_TOL}), two calls bitwise equal, "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {1e3 * bound_ms:.2f} "
+              f"us ({100 * bound_ms / ms:.1f}% of it); {smem} B of shared memory "
+              f"per CTA, {lib.macow_unit_inverse_max_clusters(s, s, c, hid, 2, 3)} "
+              f"clusters of {masked_conv.K2_CLUSTER} resident at once")
         errs.append(err)
         times.append((ms, plain))
-    # K2 at C = K2_CASES[0]: fp32; per MCF and pixel 6 tap dots C -> hid and
-    # the hid -> 2C out dot (the conditioning term hc is precomputed)
-    c, hid = K2_CASES[0], 4 * K2_CASES[0]
-    pix = b * s * s
-    k2_bytes = 4 * (2 * pix * c + 4 * 6 * c * hid + 4 * hid * 2 * c
-                    + 4 * pix * 2 * c + 4 * c)
-    k2_ops = 4 * pix * 2 * (6 * c * hid + hid * 2 * c)
-    out["macow_unit_inverse"] = row(max(errs), times[0], (k2_bytes, k2_ops),
+    s, c = K2_CASES[0]
+    out["macow_unit_inverse"] = row(max(errs), times[0], unit_work(b, s, c, 4 * c),
                                     FP32_FLOPS)
 
     errs, times = [], []
-    for s, ch in K3_CASES:
-        x = (randn(400, s, s, ch) * 2.0 + 0.5).bfloat16()
-        gamma, beta = (randn(40, s, s, ch) * 0.5).bfloat16(), (randn(40, s, s, ch) * 0.5).bfloat16()
+    for s, ch, dtype in K3_CASES:
+        x = (randn(400, s, s, ch) * 2.0 + 0.5).to(dtype)
+        gamma = (randn(40, s, s, ch) * 0.5).to(dtype)
+        beta = (randn(40, s, s, ch) * 0.5).to(dtype)
+        tol, name = K3_TOL[dtype], str(dtype).replace("torch.", "")
         got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
         want = spade_gn.spade_gn_plain(x, gamma, beta, 16)
-        err = check_close(f"K3 S={s} Ch={ch}", got, want, K3_TOL, K3_TOL)
+        err = check_close(f"K3 S={s} Ch={ch} {name}", got, want, tol, tol)
+        if not torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16)):
+            raise AssertionError(f"K3 S={s} Ch={ch} {name}: two calls differ")
+        del got, want
         ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 20)
-        plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 10)
-        print(f"K3 spade_gn N=400 S={s} Ch={ch} G=16 bf16: max_abs_err "
-              f"{err:.3e} (tol {K3_TOL} abs+rel), kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms")
+        plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 5)
+        work = spade_work(s, ch, x.element_size())
+        bound_ms, _ = bound(*work, FP32_FLOPS)
+        k, resident = spade_gn.spade_gn_plan(s * s, ch, x.element_size())
+        clusters = lib.spade_gn_max_clusters(s * s, ch, 16, int(dtype == torch.bfloat16),
+                                             k, int(resident))
+        print(f"K3 spade_gn N=400 S={s} Ch={ch} G=16 {name}: max_abs_err "
+              f"{err:.3e} (tol {tol} abs+rel), two calls bitwise equal, kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}% of it); clusters of {k}, slices "
+              f"{'kept in' if resident else 'streamed past'} shared memory, "
+              f"{clusters} clusters resident at once")
         errs.append(err)
         times.append((ms, plain))
-    # K3 at the 128 px level: bf16 x and out (400 frames), gamma and beta
-    # (40 clips); ~8 fp32 operations per element (statistics, normalise,
-    # modulate)
-    s, ch = K3_CASES[0]
-    n_x, n_m = 400 * s * s * ch, 40 * s * s * ch
-    out["spade_gn"] = row(max(errs), times[0],
-                          (2 * (2 * n_x + 2 * n_m), 8 * n_x), FP32_FLOPS)
+        del x, gamma, beta
+    s, ch, dtype = K3_CASES[0]
+    out["spade_gn"] = row(max(errs), times[0], spade_work(s, ch, 2), FP32_FLOPS)
     return out
 
 
@@ -518,6 +566,21 @@ def phase_shipped(dev, smi):
           f"({', '.join(f'{1e3 * t:.1f}' for t in times)}), "
           f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s on {smi}; frames "
           f"{tuple(frames.shape)} finite")
+    # one pass under the profiler: the card's busy share, and K1's, K2's and
+    # K3's device time over all their levels
+    _, kernels = profiled("SHIPPED sampling pass",
+                          lambda: model.forward_sample(batch, cfg["T"], gen))
+    for name, key, calls in (("K1", "nice_net_stage", launches["nice_net"]),
+                             ("K2", "macow_unit_inverse_kernel",
+                              launches["macow_unit_inverse"]),
+                             ("K3", "spade_gn_kernel", launches["spade_gn"])):
+        mine = [e for e in kernels if key in e.key]
+        total = sum(e.self_device_time_total for e in mine) / 1e3
+        print(f"  {name} in the pass: {sum(e.count for e in mine)} launches, "
+              f"{total:.3f} ms of device time ({total / calls:.4f} ms per call); "
+              + ", ".join(f"{e.key[e.key.find(key):][:40]} {e.count} x "
+                          f"{e.self_device_time_total / 1e3 / e.count:.4f} ms"
+                          for e in mine))
     return launches
 
 
@@ -561,11 +624,37 @@ def phase_small_train(dev):
         raise AssertionError("SMALL train: card losses disagree with the CPU port")
 
 
+def profiled(name, fn):
+    """Run ``fn`` once under ``torch.profiler``; print its device launches,
+    device time against its (profiled) wall time and the 20 kernels with the
+    most device time.  Returns (all events, device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    events = prof.key_averages()
+    # device-side events only (the kernels and memcpys/memsets themselves;
+    # the CPU ops that launched them carry the same time again)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"{name} under torch.profiler: {sum(e.count for e in kernels)} device "
+          f"launches, {dev_ms:.1f} ms of device time in {wall:.1f} ms of "
+          f"(profiled) wall ({100 * dev_ms / wall:.1f}% busy); events averaged "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
+              f"{e.key[:90]}")
+    return events, kernels
+
+
 def profile_train_step(model, trainer, batch, gen, nice_calls):
     """One SHIPPED train step split into its parts, then one under
     ``torch.profiler``; ``nice_calls`` K1 + K4 wrapper calls per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ipoke_tpu_torch.core.optim import cast_floats
     from ipoke_tpu_torch.flows import flow_loss
 
@@ -590,25 +679,7 @@ def profile_train_step(model, trainer, batch, gen, nice_calls):
         f"{name} {1e3 * (t - t_prev):.1f} ms"
         for (_, t_prev), (name, t) in zip(marks, marks[1:])))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    events = prof.key_averages()
-    # device-side events only (the kernels and memcpys/memsets themselves;
-    # the CPU ops that launched them carry the same time again)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"SHIPPED train step under torch.profiler: "
-          f"{sum(e.count for e in kernels)} device launches, {dev_ms:.1f} ms of "
-          f"device time in {wall:.1f} ms of (profiled) wall; events averaged "
-          f"in {time.perf_counter() - t0:.1f} s")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
-              f"{e.key[:90]}")
+    events, kernels = profiled("SHIPPED train step", lambda: trainer.train_step(batch, gen))
     # K1 and K4 calls launch the same three stage kernels, so the profile
     # gives one per-call time for both
     stages = sorted((e for e in kernels if "nice_net_stage" in e.key),
@@ -806,7 +877,7 @@ def main():
                                "ipoke_tpu/ops/masked_conv.py:215"),
         "masked_conv_inverse": ("cuda", "ipoke_tpu_torch/csrc/masked_conv_inverse.cu",
                                 "ipoke_tpu/ops/masked_conv.py:80"),
-        "spade_gn": ("triton", "ipoke_tpu_torch/ops/spade_gn.py",
+        "spade_gn": ("cuda", "ipoke_tpu_torch/csrc/spade_gn.cu",
                      "ipoke_tpu/ops/spade_gn.py:232"),
     }
     rows = []

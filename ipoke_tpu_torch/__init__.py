@@ -5,9 +5,8 @@ counterpart of ``ipoke_tpu/flows/macow.py``.  It covers the poke-conditioned
 sampling pass (``models.second_stage.SecondStageModel.forward_sample``) and
 the second-stage NLL train step (``train.SecondStageTrainer``).  The TPU
 kernels on those paths are hand-written Hopper kernels in ``ops/`` (CUDA C++
-sources in ``csrc/``, one Triton kernel), each beside a plain PyTorch
-version.  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+sources in ``csrc/``), each beside a plain PyTorch version.  A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,7 @@ same function.
 * ``masked_conv`` (K5, CUDA C++ ``csrc/masked_conv_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::masked_conv_inverse_pallas``, for the
   units whose latent K2 cannot hold (``unit_fits``);
-* ``spade_gn`` (K3, Triton) replaces
+* ``spade_gn`` (K3, CUDA C++ ``csrc/spade_gn.cu``) replaces
   ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``.
 
 Dispatch is by device: a wrapper given CPU tensors runs the plain version; on

@@ -30,8 +30,12 @@ SIGNATURES = {
     "nice_net_u": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "macow_unit_inverse": (_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "macow_unit_inverse_smem_bytes": (_I, _I, _I, _I, _I, _I),
+    "macow_unit_inverse_max_clusters": (_I, _I, _I, _I, _I, _I),
     "masked_conv_inverse": (_P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "spade_gn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    "spade_gn_max_clusters": (_I, _I, _I, _I, _I, _I),
 }
 
 _lib = None
@@ -107,6 +111,14 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def aligned(t):
+    """``t`` contiguous on a 16-byte boundary, as the kernels' vector and
+    bulk copies need: a view at another offset is copied.  The caller holds
+    the result until its launch is queued."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(err: int, name: str) -> None:

@@ -6,8 +6,9 @@ A MaskedConvFlow's inverse is a recurrence over H dependent rows in scan
 space: orders A/B as stored, C/D after an H<->W transpose and a swap of the
 kernel axes.  A MaCowUnit is MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D)
 -> ActNorm.  K2 (``csrc/macow_unit_inverse.cu``) runs the unit's four
-recurrences with the whole latent in shared memory, so it takes square
-latents up to what ``unit_fits`` allows (16x16 at C=32).  K5
+recurrences in a thread-block cluster per batch item, with the whole latent
+in each CTA's shared memory, so it takes square latents up to what
+``unit_fits`` allows (16x16 at C=32).  K5
 (``csrc/masked_conv_inverse.cu``) runs one flow and keeps only a ring of the
 last kh rows on chip, so it takes any latent: the flows route every unit
 that K2 cannot take through it, flow by flow.
@@ -175,18 +176,47 @@ def masked_conv_inverse(y, h, params, order, alpha=1.0):
 # K2: one whole MaCowUnit
 # ---------------------------------------------------------------------------
 
+# K2's launch (csrc/macow_unit_inverse.cu): a cluster of K2_CLUSTER CTAs of
+# K2_THREADS threads per batch item, 8 lanes per hidden unit's tap dot
+K2_CLUSTER, K2_THREADS = 4, 256
+
+
+def _r4(n):
+    return -(-n // 4) * 4
+
+
+def k2_smem_bytes(height, width, c, hid, kh, kw):
+    """K2's shared memory per CTA (``smem_bytes`` in its source): 16 bytes of
+    mbarriers, then two buffers of one flow's weight slice (the CTA's hk =
+    hid/4 hidden units, rounded up to 4), the padded latent (H + kh rows,
+    W rounded up to 8 plus kw - 1 columns, C rounded up to 4), the
+    recurrence's input, one row of the CTA's hiddens and two buffers of the
+    row's partial products, each region rounded up to 16 bytes."""
+    hk, cp = _r4(-(-hid // K2_CLUSTER)), _r4(c)
+    wpad = -(-width // 8) * 8 + kw - 1
+    floats = (2 * (kh * kw * c * hk + hk * 2 * c) + _r4((height + kh) * wpad * cp)
+              + _r4(height * width * c) + _r4(width * (hk + 4)) + _r4(4 * width * c))
+    return 16 + 4 * floats
+
+
 def unit_fits(shape, hid, kernel_size):
-    """Whether K2 takes a unit on a latent of ``shape`` (B, H, W, C): the
-    latent is square and the kernel's shared memory (``smem_floats`` in its
-    source: weights of one flow, the whole padded latent, the recurrence's
-    input, one row of hiddens) is within ``SMEM_LIMIT``.  Every other unit
-    is inverted flow by flow through K5."""
+    """Whether K2 takes a unit on a latent of ``shape`` (B, H, W, C), by shape
+    alone (``takes`` and the shared-memory check in its source): the latent
+    is square; hid is a multiple of 4 (16-byte bulk copies of the weight
+    slices) and at most 32 per CTA (8 lanes per hidden unit in 256
+    threads); kw is 3, as every config sets it, and kh * ceil(C/4) <= 16
+    (a lane's tap weights in registers); W * C <= 1024 (4 affine elements per thread); and
+    ``k2_smem_bytes`` is within ``SMEM_LIMIT``.  At the shipped widths
+    (C = 32, 30, ..., 4, hid = 4C, kernel (2, 3)) that is every square
+    latent up to 16x16.  Every other unit is inverted flow by flow through
+    K5."""
     _, height, width, c = shape
     kh, kw = kernel_size
-    wp = width + 2 * ((kw - 1) // 2)
-    floats = (kh * kw * c * hid + hid * 2 * c + (height + kh) * wp * c
-              + height * width * c + width * hid)
-    return height == width and 4 * floats <= SMEM_LIMIT
+    return (height == width and hid % 4 == 0
+            and _r4(-(-hid // K2_CLUSTER)) <= K2_THREADS // 8
+            and kw == 3 and kh * _r4(c) // 4 <= 16
+            and width * c <= 4 * K2_THREADS
+            and k2_smem_bytes(height, width, c, hid, kh, kw) <= SMEM_LIMIT)
 
 
 def macow_unit_inverse_plain(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
@@ -202,7 +232,8 @@ def macow_unit_inverse_plain(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
 
 
 def macow_unit_inverse_cuda(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
-    """Launch K2 on the packed fp32 inputs (one CUDA device)."""
+    """Launch K2 on the packed fp32 inputs (one CUDA device, a latent that
+    ``unit_fits``)."""
     tensors = (y, w_shift, w_hid, hc, an_bias, an_inv)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("macow_unit_inverse kernel takes fp32 inputs only")
@@ -210,21 +241,26 @@ def macow_unit_inverse_cuda(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
         raise ValueError("macow_unit_inverse inputs must lie on one device")
     b, height, width, c = y.shape
     _, kh, kw, _, hid = w_shift.shape
-    if height != width or w_hid.shape != (4, hid, 2 * c) \
-            or hc.shape != (4, b, height, width, 2 * c):
+    if w_shift.shape != (4, kh, kw, c, hid) or w_hid.shape != (4, hid, 2 * c) \
+            or hc.shape != (4, b, height, width, 2 * c) \
+            or an_bias.shape != (2, c) or an_inv.shape != (2, c):
         raise ValueError(
             f"macow_unit_inverse shapes: y {tuple(y.shape)}, w_shift "
             f"{tuple(w_shift.shape)}, w_hid {tuple(w_hid.shape)}, hc {tuple(hc.shape)}")
-    y = y.contiguous()
+    if not unit_fits(y.shape, hid, (kh, kw)):
+        raise ValueError(
+            f"macow_unit_inverse: latent {tuple(y.shape)} with hid {hid} and "
+            f"kernel ({kh}, {kw}) is not a shape K2 takes (unit_fits)")
+    # contiguous, aligned copies are held here until the launch is queued
+    y, w_shift, w_hid, hc, an_bias, an_inv = (_build.aligned(t) for t in tensors)
     x = torch.empty_like(y)
     lib = _build.load()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.macow_unit_inverse(
-            y.data_ptr(), w_shift.contiguous().data_ptr(),
-            w_hid.contiguous().data_ptr(), hc.contiguous().data_ptr(),
-            an_bias.contiguous().data_ptr(), an_inv.contiguous().data_ptr(),
-            x.data_ptr(), b, height, width, c, hid, kh, kw, float(alpha), stream)
+            y.data_ptr(), w_shift.data_ptr(), w_hid.data_ptr(), hc.data_ptr(),
+            an_bias.data_ptr(), an_inv.data_ptr(), x.data_ptr(),
+            b, height, width, c, hid, kh, kw, float(alpha), stream)
     _build.check(err, "macow_unit_inverse")
     LAUNCHES["macow_unit_inverse"] += 1
     return x

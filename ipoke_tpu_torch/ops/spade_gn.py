@@ -1,4 +1,5 @@
-"""K3: SPADE GroupNorm + modulation in one Triton kernel (replaces
+"""K3: SPADE GroupNorm + modulation in one CUDA kernel, a thread-block
+cluster per frame (``csrc/spade_gn.cu``; replaces
 ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``).
 
     out = GroupNorm(x) * (1 + gamma) + beta
@@ -8,85 +9,47 @@ with BM | N and are shared by the t = N / BM frames of a clip (frames are
 B-major: frame n belongs to clip n // t).  Statistics are fp32 with the fast
 variance max(E[x^2] - E[x]^2, 0); the normalised value is rounded to the IO
 dtype before the modulation, which then runs in the IO dtype, as in
-``ipoke_tpu/nn/blocks.py::_spade_gn_portable``.
+``ipoke_tpu/nn/blocks.py::_spade_gn_portable``.  ``spade_gn_plain`` is the
+same function in plain PyTorch.
 
-Bound on the H100: a per-(frame, group) reduction followed by an elementwise
-pass - no tensor-core work, memory bound.  Design: one program per (frame,
-group) reads its group's NHWC slice twice, first for the fp32 sums and then
-to normalise and modulate; the second read of at most 128 KB per program
-(128^2 pixels x 4 channels in bf16) comes from L2, so x crosses device
-memory about once, with gamma, beta and the output.  Its loads are narrow:
-a group is CPG channels (8 bytes at the 128 px level) out of every 128-byte
-pixel row, which keeps it far below the card's bandwidth; a program per
-frame with full-row tiles is the next step.  ``spade_gn_plain`` is the same
-function in plain PyTorch.
+Each frame gets a cluster of k CTAs, each owning a contiguous 1/k of its
+pixels (``spade_gn_plan``, by shape and dtype only): k is the smallest power
+of two, at most 16, that makes a slice at most 128 KB.  The grid is
+persistent: as many clusters as the card holds at once, each walking over
+frames.  A slice that fits stays in the CTA's shared memory between the
+statistics and the normalise pass, so x is read from device memory once,
+and the next frame's slice streams in by bulk copies while this frame is
+normalised; one that does not (k = 16 and still over 128 KB: fp32 frames
+over 2 MiB, such as 128 px x 64 ch; or pixel rows that are not a multiple
+of 16 bytes) is read twice, the second time mostly from L2.  At the decode
+levels in bf16:
+
+    level          frame     k    slice
+    128 px x 64    2 MiB     16   128 KiB, resident
+    64 px x 128    1 MiB      8   128 KiB, resident
+    32 px x 256    512 KiB    4   128 KiB, resident
+    16 px x 256    128 KiB    1   128 KiB, resident
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
 from . import LAUNCHES, _build
 
-tl = None  # triton.language, bound at the first launch (see _kernel)
-_KERNEL = None
+MAX_CLUSTER = 16             # CTAs per frame (non-portable beyond 8)
+RESIDENT_BYTES = 128 * 1024  # the largest slice kept in shared memory
 
 
-def _spade_gn_kernel(x_ptr, g_ptr, b_ptr, out_ptr, HW, C, CPG, G, T, eps,
-                     BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-    pid = tl.program_id(0)
-    frame = (pid // G).to(tl.int64)
-    grp = pid % G
-    clip = frame // T
-    x_base = frame * HW * C + grp * CPG
-    m_base = clip * HW * C + grp * CPG
-    offs_p = tl.arange(0, BLOCK_P)
-    offs_c = tl.arange(0, BLOCK_C)
-    cmask = offs_c < CPG
-
-    acc = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-    acc2 = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-    for p0 in range(0, HW, BLOCK_P):
-        p = p0 + offs_p
-        mask = (p < HW)[:, None] & cmask[None, :]
-        off = p[:, None] * C + offs_c[None, :]
-        xv = tl.load(x_ptr + x_base + off, mask=mask, other=0.0).to(tl.float32)
-        acc += xv
-        acc2 += xv * xv
-    cnt = HW * CPG * 1.0
-    mean = tl.sum(tl.sum(acc, axis=1), axis=0) / cnt
-    var = tl.maximum(tl.sum(tl.sum(acc2, axis=1), axis=0) / cnt - mean * mean, 0.0)
-    rstd = 1.0 / tl.sqrt(var + eps)
-
-    io = out_ptr.dtype.element_ty
-    for p0 in range(0, HW, BLOCK_P):
-        p = p0 + offs_p
-        mask = (p < HW)[:, None] & cmask[None, :]
-        off = p[:, None] * C + offs_c[None, :]
-        xv = tl.load(x_ptr + x_base + off, mask=mask, other=0.0).to(tl.float32)
-        gv = tl.load(g_ptr + m_base + off, mask=mask, other=0.0).to(tl.float32)
-        bv = tl.load(b_ptr + m_base + off, mask=mask, other=0.0).to(tl.float32)
-        # each op rounds to the IO dtype, as the plain version's ops do
-        normed = ((xv - mean) * rstd).to(io).to(tl.float32)
-        onep = (1.0 + gv).to(io).to(tl.float32)
-        prod = (normed * onep).to(io).to(tl.float32)
-        tl.store(out_ptr + x_base + off, (prod + bv).to(io), mask=mask)
-
-
-def _kernel():
-    """The jitted kernel; triton is imported here, at the first launch, so
-    that this module imports where triton is missing.  Triton's compile
-    cache goes beside the CUDA build, under ``build/`` in the checkout."""
-    global tl, _KERNEL
-    if _KERNEL is None:
-        os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
-        import triton
-        import triton.language as tl
-
-        _KERNEL = triton.jit(_spade_gn_kernel)
-    return _KERNEL
+def spade_gn_plan(hw: int, c: int, itemsize: int):
+    """(k, resident): K3's CTAs per frame of ``hw`` pixels of ``c`` channels
+    of ``itemsize`` bytes, and whether each CTA's slice stays on chip (bulk
+    copies move it, so its pixel rows must be a multiple of 16 bytes)."""
+    k = 1
+    while k < MAX_CLUSTER and k < hw and -(-hw // k) * c * itemsize > RESIDENT_BYTES:
+        k *= 2
+    return k, (-(-hw // k) * c * itemsize <= RESIDENT_BYTES
+               and c * itemsize % 16 == 0)
 
 
 def spade_gn_plain(x, gamma, beta, num_groups: int, eps: float = 1e-5):
@@ -113,38 +76,39 @@ def spade_gn_plain(x, gamma, beta, num_groups: int, eps: float = 1e-5):
 
 
 def spade_gn_cuda(x, gamma, beta, num_groups: int, eps: float = 1e-5):
-    """Launch the Triton kernel (one CUDA device, fp32 or bf16)."""
+    """Launch K3 (one CUDA device, fp32 or bf16, at most 256 channels)."""
     n, h, w, c = x.shape
     bm = gamma.shape[0]
     if gamma.shape != beta.shape or tuple(gamma.shape[1:]) != (h, w, c):
         raise ValueError(f"spade_gn shapes: x {tuple(x.shape)}, gamma "
                          f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    if n % bm or c % num_groups:
+    if n % bm or c % num_groups or c > 256:
         raise ValueError(f"spade_gn: {bm} clips must divide {n} frames and "
-                         f"{num_groups} groups {c} channels")
+                         f"{num_groups} groups {c} channels (at most 256)")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or gamma.dtype != x.dtype or beta.dtype != x.dtype:
         raise TypeError("spade_gn kernel takes fp32 or bf16, one dtype")
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError("spade_gn inputs must lie on one device")
-    x, gamma, beta = x.contiguous(), gamma.contiguous(), beta.contiguous()
+    # contiguous, aligned copies are held here until the launch is queued
+    x, gamma, beta = (_build.aligned(t) for t in (x, gamma, beta))
     out = torch.empty_like(x)
-    cpg = c // num_groups
-    block_c = 1 << (cpg - 1).bit_length()
-    block_p = max(16, 4096 // block_c)
-    kernel = _kernel()
+    k, resident = spade_gn_plan(h * w, c, x.element_size())
+    lib = _build.load()
     with torch.cuda.device(x.device):
-        kernel[(n * num_groups,)](x, gamma, beta, out, h * w, c, cpg,
-                                  num_groups, n // bm, float(eps),
-                                  BLOCK_P=block_p, BLOCK_C=block_c,
-                                  num_warps=4)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.spade_gn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                           out.data_ptr(), n, h * w, c, num_groups, n // bm,
+                           float(eps), int(x.dtype == torch.bfloat16), k,
+                           int(resident), stream)
+    _build.check(err, "spade_gn")
     LAUNCHES["spade_gn"] += 1
     return out
 
 
 def spade_gn_modulate(x, gamma, beta, num_groups: int, eps: float = 1e-5):
-    """GroupNorm(x) * (1 + gamma) + beta with per-clip gamma/beta: the
-    Triton kernel for CUDA tensors, the plain version for CPU tensors."""
+    """GroupNorm(x) * (1 + gamma) + beta with per-clip gamma/beta: K3 for
+    CUDA tensors, the plain version for CPU tensors."""
     if x.is_cuda:
         return spade_gn_cuda(x, gamma, beta, num_groups, eps)
     if x.device.type != "cpu":

@@ -80,26 +80,84 @@ def test_nice_net_train_kernel_matches_plain(dev, m, c1, hid, cout):
     assert torch.equal(got[0], nice_net.nice_net_cuda(zcol, w1, w2, wp))
 
 
-@pytest.mark.parametrize("b,s,c,ch", [(3, 8, 8, 6), (2, 4, 4, 0), (40, 8, 32, 128)])
-def test_unit_inverse_kernel_matches_plain(dev, b, s, c, ch):
-    """K2 with and without conditioning, at a 4x4 latent too."""
+def _unit_operands(dev, b, s, c, ch, g_std=0.3):
+    """A packed unit (hid = 4C, kernel (2, 3)) with perturbed out convs (gains
+    of std ``g_std``) and ActNorms, and its input y."""
     hid = 4 * c
     mcf = []
     for i in range(4):
         w_shift = _randn(dev, 2, 3, c, hid, std=(6 * c) ** -0.5, seed=10 + i)
         mcf.append({"w_shift": w_shift.transpose(0, 1) if i >= 2 else w_shift,
                     "out": {"v": _randn(dev, 1, 1, hid + ch, 2 * c, std=0.05, seed=20 + i),
-                            "g": _randn(dev, 2 * c, std=0.3, seed=30 + i),
+                            "g": _randn(dev, 2 * c, std=g_std, seed=30 + i),
                             "b": _randn(dev, 2 * c, std=0.1, seed=40 + i)}})
     an = [{"log_scale": _randn(dev, c, std=0.05, seed=50 + i),
            "bias": _randn(dev, c, std=0.05, seed=60 + i)} for i in range(2)]
     y = _randn(dev, b, s, s, c, seed=70)
     h = _randn(dev, b, s, s, ch, seed=71) if ch else None
-    packed = masked_conv.pack_unit(h, mcf, an, b, s, s)
+    return y, masked_conv.pack_unit(h, mcf, an, b, s, s)
+
+
+# (B, H = W, C, Ch): batch 1, 3 and 40; C = 4, 18 (channels not a multiple of
+# 4: padded float4 groups; hid 72: the last CTA of a cluster holds 12 hidden
+# units) and 32; 8x8 and 16x16 (two column passes); with and without
+# conditioning; and a 4x4 latent.  The first three draw the out convs'
+# gains at std 0.3, the others at 0.1: at 0.3 an unconditioned B = 40 unit
+# can diverge (the float64 plain inverse overflowed to 1e303 at 16x16, C =
+# 4, and at 8x8, C = 18 rows reached 66, where the fp32 plain version sat
+# 5.6e-4 from float64 and the kernel 2.0e-4, so no fp32 sum order meets
+# 1e-4 there; tools/torch_k2_f64.py on an NVIDIA H100 80GB HBM3 at 700 W)
+UNIT_CASES = [(3, 8, 8, 6), (2, 4, 4, 0), (40, 8, 32, 128),
+              (1, 8, 4, 0), (3, 8, 18, 128), (40, 8, 4, 6), (1, 8, 32, 0),
+              (40, 8, 18, 0), (3, 16, 32, 128), (1, 16, 18, 6), (40, 16, 4, 0),
+              (40, 16, 32, 0), (3, 16, 4, 128)]
+
+
+@pytest.mark.parametrize("b,s,c,ch", UNIT_CASES)
+def test_unit_inverse_kernel_matches_plain(dev, b, s, c, ch):
+    """K2 against its plain version, and two calls bitwise equal (every CTA
+    of a cluster adds the partials in rank order)."""
+    g_std = 0.3 if (b, s, c, ch) in UNIT_CASES[:3] else 0.1
+    y, packed = _unit_operands(dev, b, s, c, ch, g_std)
     got = masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0)
     want = masked_conv.macow_unit_inverse_plain(y, *packed, 1.0)
     assert ops.LAUNCHES["macow_unit_inverse"] == 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0))
+
+
+def test_unit_inverse_kernel_holds_noncontiguous_copies(dev):
+    """A transposed view of hc and of w_hid: the wrapper launches on
+    contiguous copies that it holds until the launch is queued, so the
+    result is the one from contiguous inputs, bit for bit."""
+    y, (w_shift, w_hid, hc, an_bias, an_inv) = _unit_operands(dev, 40, 8, 32, 128)
+    hc_view = hc.transpose(2, 3).contiguous().transpose(2, 3)
+    w_hid_view = w_hid.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not hc_view.is_contiguous() and not w_hid_view.is_contiguous()
+    got = masked_conv.macow_unit_inverse_cuda(y, w_shift, w_hid_view, hc_view,
+                                              an_bias, an_inv, 1.0)
+    want = masked_conv.macow_unit_inverse_plain(y, w_shift, w_hid, hc, an_bias,
+                                                an_inv, 1.0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, masked_conv.macow_unit_inverse_cuda(
+        y, w_shift, w_hid, hc, an_bias, an_inv, 1.0))
+
+
+def test_unit_inverse_footprint_matches_kernel(dev):
+    """``k2_smem_bytes`` (which ``unit_fits`` uses) against the kernel's own
+    count at every SHIPPED level, 8x8 and 16x16, and the kernel refuses
+    what ``unit_fits`` refuses for a reason other than the footprint."""
+    from ipoke_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for c in range(32, 2, -2):
+        for s in (8, 16):
+            assert lib.macow_unit_inverse_smem_bytes(s, s, c, 4 * c, 2, 3) == \
+                masked_conv.k2_smem_bytes(s, s, c, 4 * c, 2, 3), (s, c)
+    for shape, hid, ks in (((1, 8, 16, 8), 32, (2, 3)), ((1, 8, 8, 8), 30, (2, 3)),
+                           ((1, 8, 8, 8), 32, (2, 5)), ((1, 8, 8, 34), 136, (2, 3))):
+        assert not masked_conv.unit_fits(shape, hid, ks)
+        assert lib.macow_unit_inverse_smem_bytes(*shape[1:], hid, *ks) == -1
 
 
 def _mcf_params(dev, c, hid, ch, ks, seed):
@@ -168,6 +226,34 @@ def test_spade_gn_kernel_matches_plain(dev, shape, clips, dtype, tol):
     want = spade_gn.spade_gn_plain(x, gamma, beta, 16)
     assert got.dtype == dtype and ops.LAUNCHES["spade_gn"] == 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16))
+
+
+# (shape, clips, groups): the four decode levels at a few frames (k = 16, 8,
+# 4 and 1 in bf16; fp32 at 128 px streams its slices), one clip and one clip
+# per frame; 45x45 and 33x33 frames, whose pixels do not split evenly over
+# the cluster; 3, 4, 8 and 16 channels per group; and 20 channels, whose
+# pixel rows are not a multiple of 16 bytes (element by element, streamed)
+SPADE_LEVELS = [((4, 128, 128, 64), 1, 16), ((4, 64, 64, 128), 4, 16),
+                ((2, 32, 32, 256), 1, 16), ((4, 16, 16, 256), 2, 16),
+                ((2, 45, 45, 64), 2, 16), ((3, 33, 33, 48), 3, 16),
+                ((4, 9, 9, 20), 2, 4)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape,clips,groups", SPADE_LEVELS)
+def test_spade_gn_kernel_levels_match_plain(dev, shape, clips, groups, dtype, tol):
+    """K3 at the decode levels and ragged shapes, in fp32 and bf16, and two
+    calls bitwise equal (each CTA adds its cluster's partials in rank
+    order)."""
+    x = (2.0 * _randn(dev, *shape, seed=83) + 0.5).to(dtype)
+    gamma = _randn(dev, clips, *shape[1:], std=0.5, seed=84).to(dtype)
+    beta = _randn(dev, clips, *shape[1:], std=0.5, seed=85).to(dtype)
+    got = spade_gn.spade_gn_cuda(x, gamma, beta, groups)
+    want = spade_gn.spade_gn_plain(x, gamma, beta, groups)
+    assert got.dtype == dtype and ops.LAUNCHES["spade_gn"] == 1
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, groups))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -180,6 +266,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 8, 8, 32, device=dev)
     with pytest.raises(ValueError):  # 3 clips do not divide 4 frames
         spade_gn.spade_gn_modulate(x, x[:3], x[:3], 16)
+    wide = torch.zeros(2, 4, 4, 272, device=dev)  # over K3's 256 channels
+    with pytest.raises(ValueError, match="at most 256"):
+        spade_gn.spade_gn_modulate(wide, wide[:1], wide[:1], 16)
+    # K2: a latent it does not take (not square) raises, naming the shape
+    y, packed = _unit_operands(dev, 2, 8, 8, 0)
+    y816 = torch.zeros(2, 8, 16, 8, device=dev)
+    hc816 = torch.zeros(4, 2, 8, 16, 16, device=dev)
+    with pytest.raises(ValueError, match=r"\(2, 8, 16, 8\).*unit_fits"):
+        masked_conv.macow_unit_inverse_cuda(y816, packed[0], packed[1], hc816,
+                                            *packed[3:], 1.0)
     # K5: fp32 only, one device, a footprint within the opt-in limit
     y = torch.zeros(2, 8, 16, 32, device=dev)
     packed = (torch.zeros(2, 3, 32, 128, device=dev),

@@ -105,6 +105,33 @@ def test_unit_route_depends_on_shape_only(monkeypatch):
         assert calls == want, (hw, calls)
 
 
+# MCF channels C of the SHIPPED levels: 32, 30, ..., 4 (factor 16, one step
+# of 2 channels per level), each with hid = 4C and 128 conditioning channels
+SHIPPED_C = tuple(range(32, 2, -2))
+
+
+@pytest.mark.parametrize("c", SHIPPED_C)
+def test_unit_route_at_shipped_level(c, monkeypatch):
+    """At each SHIPPED level the 8x8 unit goes to K2 and the 8x16 unit (the
+    latent of 128x256 frames) to K5, flow by flow.  The footprint
+    ``unit_fits`` checks is ``k2_smem_bytes``, K2's shared memory written in
+    Python beside it (the card test holds it against the kernel's own
+    count): with the limit set just at it the unit fits, one byte below it
+    does not.  Two CTAs of it fit one SM's 228 KB (1 KB reserved each), so
+    the 160 CTAs of a B = 40 launch run in one wave."""
+    shape, hid, ks = (40, 8, 8, c), 4 * c, (2, 3)
+    assert masked_conv.unit_fits(shape, hid, ks)
+    assert not masked_conv.unit_fits((40, 8, 16, c), hid, ks)
+    smem = masked_conv.k2_smem_bytes(8, 8, c, hid, *ks)
+    monkeypatch.setattr(masked_conv, "SMEM_LIMIT", smem)
+    assert masked_conv.unit_fits(shape, hid, ks)
+    monkeypatch.setattr(masked_conv, "SMEM_LIMIT", smem - 1)
+    assert not masked_conv.unit_fits(shape, hid, ks)
+    assert 2 * (smem + 1024) <= 228 * 1024
+    if c == 32:  # the level-0 footprint, as the kernel itself counts it
+        assert smem == 91792
+
+
 def test_macow_step_inverse():
     params, x, h, y, want = _case(
         jm.make_macow_step(C, (2, 3), 128, HC), 50, g_std=0.1, b_std=0.05)

@@ -30,7 +30,7 @@ from ipoke_tpu_torch.ops.nice_net import (
     nice_net_raw,
     nice_net_raw_train,
 )
-from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate
+from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate, spade_gn_plan
 
 B, H, W = 2, 8, 8
 
@@ -284,6 +284,32 @@ def test_spade_gn_plain_matches_pallas(shape, clips, dtype, tol):
     got = spade_gn_modulate(_t(x, tdt), _t(gamma, tdt), _t(beta, tdt), 16, 1e-5)
     assert got.dtype == tdt
     np.testing.assert_allclose(got.float().numpy(), _np(want), rtol=tol, atol=tol)
+
+
+# K3's cluster per frame at each decode level (S, Ch) of the SHIPPED config:
+# (k, slice kept in shared memory) in bf16 and in fp32
+@pytest.mark.parametrize("s,ch,bf16,fp32", [
+    (128, 64, (16, True), (16, False)),
+    (64, 128, (8, True), (16, True)),
+    (32, 256, (4, True), (8, True)),
+    (16, 256, (1, True), (2, True)),
+])
+def test_spade_gn_plan_by_level(s, ch, bf16, fp32):
+    """k is the smallest power of two up to 16 that makes a CTA's slice at
+    most 128 KB; only an fp32 128 px frame (4 MiB) stays over it and streams
+    its slices.  The plan reads the shape and the dtype only."""
+    assert spade_gn_plan(s * s, ch, 2) == bf16
+    assert spade_gn_plan(s * s, ch, 4) == fp32
+
+
+def test_spade_gn_plan_ragged_and_narrow():
+    """A frame whose pixels do not split evenly (45x45 in bf16 over 2 CTAs
+    keeps ceil(2025 / 2) = 1013 pixels, 129,664 bytes, a CTA), a tiny frame
+    (one CTA per frame), and pixel rows that are not a multiple of 16 bytes
+    (streamed)."""
+    assert spade_gn_plan(45 * 45, 64, 2) == (2, True)
+    assert spade_gn_plan(25, 48, 4) == (1, True)
+    assert spade_gn_plan(81, 20, 2) == (1, False)
 
 
 # ---------------------------------------------------------------------------
