@@ -35,9 +35,9 @@
 // chunk starts, so the next frame's reads overlap this frame's writes.
 // Otherwise (fp32 at 128 px, 256 KB slices, or narrow rows) the normalise
 // pass reads x again, from L2 where it is still there, at two CTAs per SM.
-// gamma and beta come from the frame's clip: the cluster on a clip's first
-// frame prefetches the clip's slices into L2, and the output is stored with
-// the streaming hint to leave them there.  Pixel rows that are not a
+// gamma and beta come from the frame's clip: where a clip's frames run at
+// once, the cluster on its first frame prefetches the clip's slices into L2,
+// and the output is stored with the streaming hint to leave them there.  Pixel rows that are not a
 // multiple of 16 bytes go element by element (VEC = 1).
 
 #include <cooperative_groups.h>
@@ -214,10 +214,12 @@ spade_gn_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
     const T* bf = beta + ((size_t)(f / s.T) * s.HW + p0) * C;
     T* of = out + ((size_t)f * s.HW + p0) * C;
     float* part = parts + (it & 1) * 2 * G;
-    // the cluster on a clip's first frame brings the clip's gamma and beta
-    // into L2 for it and the clip's other frames
+    // where a clip's frames run at once (as many clusters as frames a clip),
+    // the cluster on its first frame brings the clip's gamma and beta into
+    // L2 for all of them; with fewer clusters the clip's frames run in turn
+    // and find them in L2 from the frames before
     if constexpr (VEC * sizeof(T) == 16)
-      if (tid == 0 && npix > 0 && f % s.T == 0) {
+      if (tid == 0 && npix > 0 && f % s.T == 0 && n_clusters >= s.T) {
         const uint32_t bytes = (uint32_t)(npix * C * sizeof(T));
         asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
                      :: "l"(gf), "r"(bytes) : "memory");

@@ -14,7 +14,7 @@ decode levels) and must repeat bitwise; an ablation (a name starting with
 ``ablate``) drops a piece of the work to show its cost, and only its error
 is printed.  Then each kernel's time per call (CUDA events over 50 calls,
 the variants of one kernel in turns, three rounds): K2 at the 8x8 units
-with C = 32, 18 and 4, K3 at the 128 and 32 px levels (N = 400, bf16).
+with C = 32, 18 and 4, K3 at the four decode levels (N = 400, bf16).
 """
 
 import ctypes
@@ -79,10 +79,8 @@ AFF_NEW = """            (cur[(row * W + w) * C + c] - mu) / (scale + 1e-12f);
     __syncthreads();
   }
 }"""
-PF_OLD = """    // the cluster on a clip's first frame brings the clip's gamma and beta
-    // into L2 for it and the clip's other frames
-    if constexpr (VEC * sizeof(T) == 16)
-      if (tid == 0 && npix > 0 && f % s.T == 0) {"""
+PF_OLD = """    if constexpr (VEC * sizeof(T) == 16)
+      if (tid == 0 && npix > 0 && f % s.T == 0 && n_clusters >= s.T) {"""
 VARIANTS = {
     "k2": (K2_SRC, []),
     # two CTAs of 512 threads per item: 64 hidden units each, one CTA per SM
@@ -115,9 +113,13 @@ VARIANTS = {
         ("        hmu[a] = __ldg(p);\n        hls[a] = __ldg(p + C);\n", "")]),
     "k3": (K3_SRC, []),
     # no L2 prefetch of gamma and beta
-    "k3_no_prefetch": (K3_SRC, [(PF_OLD, PF_OLD.replace("f % s.T == 0", "false"))]),
-    # the prefetch in every frame, not only a clip's first
-    "k3_prefetch_every_frame": (K3_SRC, [(PF_OLD, PF_OLD.replace(" && f % s.T == 0", ""))]),
+    "k3_no_prefetch": (K3_SRC, [(PF_OLD, PF_OLD.replace(
+        "f % s.T == 0 && n_clusters >= s.T", "false"))]),
+    # the prefetch at a clip's first frame with any number of clusters
+    "k3_prefetch_clip_start": (K3_SRC, [(PF_OLD, PF_OLD.replace(" && n_clusters >= s.T", ""))]),
+    # the prefetch in every frame
+    "k3_prefetch_every_frame": (K3_SRC, [(PF_OLD, PF_OLD.replace(
+        " && f % s.T == 0 && n_clusters >= s.T", ""))]),
     # 8 and 2 chunks a slice
     "k3_nch8": (K3_SRC, [("constexpr int NCH = 4;", "constexpr int NCH = 8;")]),
     "k3_nch2": (K3_SRC, [("constexpr int NCH = 4;", "constexpr int NCH = 2;")]),
@@ -125,7 +127,7 @@ VARIANTS = {
 K2_CASES = ((8, 32), (8, 18), (8, 4), (16, 32))  # (H = W, C)
 K2_TIMED = ((8, 32), (8, 18), (8, 4))
 K3_CASES = ((128, 64), (64, 128), (32, 256), (16, 256))  # (S, Ch), bf16
-K3_TIMED = ((128, 64), (32, 256))
+K3_TIMED = K3_CASES
 OUT = ROOT / "build" / "k2_k3_variants"
 
 
