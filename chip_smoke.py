@@ -16,12 +16,17 @@ Phases, in order; any failure raises and exits non-zero:
       memory (held against ``k2_smem_bytes``) and the clusters the card
       holds at once; K3 at the four decode levels in bf16 and the 128 px
       level in fp32, with its cluster plan; each case's bound and share of
-      it, and two calls bitwise equal.
+      it, and two calls bitwise equal; then K3's backward at the 32 px
+      level in bf16 and fp32: gradients through K3 and the portable VJP
+      against autograd of the plain version.
   (c') K4 against its plain version (u, a, b), its u bitwise equal to K1's,
       and autograd gradients through K4 against autograd of the plain
       coupling net, in bf16.
-  (c) K5 against its plain version: the level-0 flow in orders A-D, a
-      non-square 8x16 latent, the last level's C=4 and a 32x32x32 latent.
+  (c) K5 against its plain version: the level-0 flow and the 8x16 latent
+      in orders A-D, C=4 at 8x8 and 8x16, C=16 at 8x16 and a 32x32x32
+      latent; each with two calls bitwise equal, its shared memory (held
+      against ``k5_smem_bytes``), its cluster size and the clusters the
+      card holds at once, its time, bound and share of it.
   (c'') K2 against the per-flow route (4 K5 + 2 ActNorm inverses) on one
       level-0 unit with perturbed out convs and ActNorms; both timed.
   (d) the SMALL config sampling end to end in bf16: the same weights and z
@@ -47,16 +52,19 @@ Phases, in order; any failure raises and exits non-zero:
       fits K2 and every masked-conv flow goes through K5: an fp32 round
       trip (forward, then inverse with the launch counts checked), then in
       bf16 one inverse with the launch counts zeroed before and read after
-      (this path's run) and 3 timed inverses; then the SMALL-width flow
-      inverse at 8x16 in bf16, card against CPU.
+      (this path's run), 3 timed inverses and one under ``torch.profiler``:
+      device launches, device time against the inverse's wall time, and
+      K1's and K5's device time per call; then the SMALL-width flow inverse
+      at 8x16 in bf16, card against CPU.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the two main-path runs
 (their sum, and per path), its largest error over the phase (c)/(c') cases,
 ``ms``/``plain_ms`` per call at the first case (the level-0 shapes; K3: the
-128 px decode level; K5: the level-0 flow in order A), and its bound there: the larger of the bytes it must
-move over 3.35 TB/s and its operations over the peak rate of their type
-(989 TFLOP/s bf16, 67 TFLOP/s fp32).  The last line is
+128 px decode level; K5: the level-0 flow in order A; device times, see
+``cuda_ms``), and its bound there: the larger of the bytes it must move
+over 3.35 TB/s and its operations over the peak rate of their type (989
+TFLOP/s bf16, 67 TFLOP/s fp32).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -83,11 +91,17 @@ K3_CASES = ((128, 64, torch.bfloat16), (64, 128, torch.bfloat16),
             (32, 256, torch.bfloat16), (16, 256, torch.bfloat16),
             (128, 64, torch.float32))
 # K5 (B, H, W, C, Ch, order): the level-0 flow in all four orders (A/B
-# kernel (2, 3), C/D stored (3, 2)), a non-square 8x16 latent, the last
-# level's C=4, and a 32x32x32 latent that K2 cannot hold
+# kernel (2, 3), C/D stored (3, 2)), the 8x16 latent of phase (h) in all
+# four orders, the last level's C=4 (clusters of 1) at 8x8 and 8x16, C=16
+# at 8x16 (clusters of 2), and a 32x32x32 latent that K2 cannot hold
 K5_CASES = (*((40, 8, 8, 32, 128, o) for o in "ABCD"),
             *((40, 8, 16, 32, 128, o) for o in "ABCD"),
-            (40, 8, 8, 4, 128, "A"), (40, 32, 32, 32, 128, "A"))
+            (40, 8, 8, 4, 128, "A"), (40, 8, 16, 4, 128, "C"),
+            (40, 8, 16, 16, 128, "A"), (40, 32, 32, 32, 128, "A"))
+# K3's backward at the 32 px decode level (S, Ch, frames, clips): autograd
+# through spade_gn_modulate (K3 forward, the portable VJP) against autograd
+# of spade_gn_plain, in bf16 and fp32
+K3_GRAD_CASE = (32, 256, 400, 40)
 K1_TOL, K2_TOL, K5_TOL = 5e-2, 1e-4, 1e-4
 # K3 against its plain version, abs + rel: bf16 rounds the normalised value
 # and each op of the modulation once; the statistics' sums run in another
@@ -99,6 +113,9 @@ K3_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # cuDNN/cuBLAS order), ~2^-8 relative each; a wrong backward is off by O(1).
 K4_GRAD_TOL = 5e-2
 HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# ~25 ms at the H100's 1.98 GHz boost clock: longer than the host takes to
+# queue one timing's calls of a kernel wrapper
+SLEEP_CYCLES = 50_000_000
 # SMALL train, card vs CPU, both bf16 from the same post-DDI weights, 3 steps
 # at lr 1e-3: relative loss difference.  One step moves the loss by ~60%;
 # on the CPU, bf16 against fp32 differs by 5-8% over these steps; card and
@@ -131,11 +148,16 @@ SMALL_FLOW_MAX_TOL, SMALL_FLOW_MEAN_TOL = 1.0, 5e-2
 
 
 def cuda_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm call."""
+    """Mean device time of ``fn`` over ``iters`` calls, after one warm call.
+    The calls are queued behind a sleep kernel of ``SLEEP_CYCLES``, so that
+    the host's work in each call (checks, copies, the launch) leaves no gap
+    between them on the card, as long as the host queues them within the
+    sleep: the events time the device alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -189,6 +211,15 @@ def spade_work(s, ch, itemsize):
     (statistics, normalise, modulate)."""
     n_x, n_m = 400 * s * s * ch, 40 * s * s * ch
     return itemsize * (2 * n_x + 2 * n_m), 8 * n_x
+
+
+def k5_work(b, hh, ww, c, hid):
+    """(bytes, flops) of K5 in fp32: per pixel 6 tap dots C -> hid and the
+    hid -> 2C out dot (hc is precomputed); y, x, hc and the flow's weights
+    once each."""
+    pix = b * hh * ww
+    return (4 * (2 * pix * c + 6 * c * hid + hid * 2 * c + pix * 2 * c),
+            pix * 2 * (6 * c * hid + hid * 2 * c))
 
 
 def row(err, times, work, peak):
@@ -308,6 +339,35 @@ def phase_kernels(dev):
         del x, gamma, beta
     s, ch, dtype = K3_CASES[0]
     out["spade_gn"] = row(max(errs), times[0], spade_work(s, ch, 2), FP32_FLOPS)
+
+    # K3's backward: the gradients of sum(out * r) through K3 and the
+    # portable VJP against autograd of the plain version
+    s, ch, n, clips = K3_GRAD_CASE
+    for dtype in (torch.bfloat16, torch.float32):
+        tol, name = K3_TOL[dtype], str(dtype).replace("torch.", "")
+        x = (randn(n, s, s, ch) * 2.0 + 0.5).to(dtype)
+        gamma = (randn(clips, s, s, ch) * 0.5).to(dtype)
+        beta = (randn(clips, s, s, ch) * 0.5).to(dtype)
+        r = randn(n, s, s, ch)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+            loss = (fn(*leaves, 16).float() * r).sum()
+            return torch.autograd.grad(loss, leaves)
+
+        got = grads(spade_gn.spade_gn_modulate)
+        want = grads(spade_gn.spade_gn_plain)
+        err = max(check_close(f"K3 grad {g} S={s} Ch={ch} {name}", a, b, tol, tol)
+                  for g, a, b in zip(("x", "gamma", "beta"), got, want))
+        del got, want
+        ms = cuda_ms(lambda: grads(spade_gn.spade_gn_modulate), 5)
+        plain = cuda_ms(lambda: grads(spade_gn.spade_gn_plain), 5)
+        print(f"K3 spade_gn backward N={n} S={s} Ch={ch} G=16 {name}: gradients "
+              f"of x, gamma, beta through K3 + the portable VJP vs autograd of "
+              f"the plain version, max_abs_err {err:.3e} (tol {tol} abs+rel); "
+              f"forward + backward {ms:.4f} ms, plain {plain:.4f} ms")
+        out["spade_gn"]["grad_max_abs_err_" + name] = err
+        del x, gamma, beta, r
     return out
 
 
@@ -382,10 +442,11 @@ def phase_k5(dev):
     from ipoke_tpu_torch import ops
     from ipoke_tpu_torch.flows.base import Chain
     from ipoke_tpu_torch.flows.macow import make_macow_unit
-    from ipoke_tpu_torch.ops import masked_conv
+    from ipoke_tpu_torch.ops import _build, masked_conv
 
     gen = torch.Generator(device=dev).manual_seed(3)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    lib = _build.load()
     errs, times = [], []
     for b, hh, ww, c, ch, order in K5_CASES:
         hid, transposed, reverse = 4 * c, order in "CD", order in "BD"
@@ -398,25 +459,33 @@ def phase_k5(dev):
         packed = [t.contiguous() for t in masked_conv.pack_mcf(
             F.elu(h), params, transposed, b, hh, ww)]
         args = (ys, *packed, 1.0, reverse)
+        name = f"K5 {order} B={b} {hh}x{ww} C={c}"
         got = masked_conv.masked_conv_inverse_cuda(*args)
         want = masked_conv.masked_conv_inverse_plain(*args)
-        err = check_close(f"K5 {order} B={b} {hh}x{ww} C={c}", got, want, K5_TOL)
+        err = check_close(name, got, want, K5_TOL)
+        if not torch.equal(got, masked_conv.masked_conv_inverse_cuda(*args)):
+            raise AssertionError(f"{name}: two calls differ")
+        sw = ys.shape[2]  # the row width in scan space
+        k = masked_conv.k5_cluster(hid)
+        smem = masked_conv.k5_smem_bytes(sw, c, hid, 2, 3, k)
+        if lib.masked_conv_inverse_smem_bytes(sw, c, hid, 2, 3, k) != smem:
+            raise AssertionError(f"{name}: kernel and k5_smem_bytes disagree")
         errs.append(err)
         ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_cuda(*args), 20)
+        bound_ms, bound_by = bound(*k5_work(b, hh, ww, c, hid), FP32_FLOPS)
         line = (f"K5 masked_conv_inverse order {order} B={b} H={hh} W={ww} C={c} "
-                f"hid={hid} Ch={ch}: max_abs_err {err:.3e} (tol {K5_TOL}), "
-                f"kernel {ms:.4f} ms")
+                f"hid={hid} Ch={ch}: max_abs_err {err:.3e} (tol {K5_TOL}), two "
+                f"calls bitwise equal, kernel {ms:.4f} ms, bound "
+                f"{1e3 * bound_ms:.2f} us ({bound_by}; {100 * bound_ms / ms:.1f}% "
+                f"of it); clusters of {k}, {smem} B of shared memory per CTA, "
+                f"{lib.masked_conv_inverse_max_clusters(sw, c, hid, 2, 3, k)} "
+                f"clusters resident at once")
         if not times:  # the level-0 flow, order A
             times = (ms, cuda_ms(lambda: masked_conv.masked_conv_inverse_plain(*args), 3))
-            line += f", plain {times[1]:.4f} ms"
+            line += f"; plain {times[1]:.4f} ms"
         print(line)
-    # K5 at the level-0 flow: fp32; per pixel 6 tap dots C -> hid and the
-    # hid -> 2C out dot (hc is precomputed); y, x, hc, the weights once each
     b, hh, ww, c, ch, _ = K5_CASES[0]
-    hid, pix = 4 * c, b * hh * ww
-    k5_bytes = 4 * (2 * pix * c + 6 * c * hid + hid * 2 * c + pix * 2 * c)
-    k5_ops = pix * 2 * (6 * c * hid + hid * 2 * c)
-    out = row(max(errs), times, (k5_bytes, k5_ops), FP32_FLOPS)
+    out = row(max(errs), times, k5_work(b, hh, ww, c, 4 * c), FP32_FLOPS)
 
     # (c'') the level-0 unit (C=32, kernel (2, 3), 128 conditioning
     # channels, hid 128, 8x8, B=40), out convs and ActNorms perturbed: K2
@@ -792,6 +861,19 @@ def phase_nonsquare(dev, smi):
         print(f"SHIPPED bf16 flow inverse B={b} at {NONSQUARE[0]}x{NONSQUARE[1]}: "
               f"{sum(times) / 3:.1f} ms/pass ({', '.join(f'{t:.1f}' for t in times)}) "
               f"on {smi}; max |x - z| {max_err(x16, z):.3e} (bf16)")
+        # one inverse under the profiler: the card's busy share, and K1's
+        # and K5's device time per call in situ
+        _, kernels = profiled("SHIPPED bf16 flow inverse at 8x16", inverse)
+        for name, key, calls in (("K1", "nice_net_stage", launches["nice_net"]),
+                                 ("K5", "masked_conv_inverse_kernel",
+                                  launches["masked_conv_inverse"])):
+            mine = [e for e in kernels if key in e.key]
+            total = sum(e.self_device_time_total for e in mine) / 1e3
+            print(f"  {name} in the inverse: {sum(e.count for e in mine)} launches, "
+                  f"{total:.3f} ms of device time ({total / calls:.4f} ms per call); "
+                  + ", ".join(f"{e.key[e.key.find(key):][:40]} {e.count} x "
+                              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms"
+                              for e in mine))
         del model, x, y, x16
 
         cfg = entry.SMALL

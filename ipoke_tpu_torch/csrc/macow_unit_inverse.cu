@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_copy.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -103,35 +105,6 @@ size_t smem_bytes(const Dims& d) {
   const int floats = 2 * slice_floats(d) + buf_floats(d) + round4(d.H * d.W * d.C) +
                      round4(d.W * (d.hk + 4)) + round4(2 * d.W * 2 * d.C);
   return 16 + 4 * (size_t)floats;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // Warp 0 copies this CTA's slice of flow m's weights into dst: for each of

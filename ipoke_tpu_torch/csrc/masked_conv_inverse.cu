@@ -1,4 +1,5 @@
-// K5: the inverse of one affine masked-conv flow in one launch.
+// K5: the inverse of one affine masked-conv flow in one launch, a
+// thread-block cluster per batch item.
 //
 // Replaces ipoke_tpu/ops/masked_conv.py::masked_conv_inverse_pallas (body
 // _inverse_kernel).  The inverse is a recurrence over H dependent rows in
@@ -8,153 +9,396 @@
 //   raw[w][k] = sum_j hid[w][j] * w_hid[j][k] + hc[r][w][k]        (k < 2C)
 //   x[r][w][c] = (y[r][w][c] - raw[w][c]) / (tanh(raw[w][C+c]/2)*alpha + 1 + 1e-12)
 // where xp[dy] is the rebuilt row r-kh+dy (order A, rows above) or r+1+dy
-// (order B, rows below), zero outside the image, padded by cw = (kw-1)/2
-// zero columns on each side.  hc = elu(h)·w_h + b (the conditioning half of
-// the 1x1 out conv and its bias) is computed by the wrapper, as for K2: ELU
-// is elementwise over the [conv, h] concat, so the h half separates
-// exactly.  Everything is fp32, like the TPU kernel.
+// (order B, rows below), zero outside the image, padded by one zero column
+// on each side (kw = 3).  hc = elu(h)·w_h + b (the conditioning half of the
+// 1x1 out conv and its bias) is computed by the wrapper, as for K2: ELU is
+// elementwise over the [conv, h] concat, so the h half separates exactly.
+// Everything is fp32, like the TPU kernel.
 //
 // Bound on the H100: latency.  The rows form a chain of H dependent steps,
-// each only ~0.4 MFLOP per batch item at C=32, hid=128, W=8, so the cost is
-// the chain, not FLOPs or bytes.
+// each only ~0.4 MFLOP per batch item at C = 32, hid = 128, W = 8, so the
+// cost is the chain, not FLOPs (5.0 us of fp32 work for a whole 8x16 flow at
+// B = 40) or bytes.
 //
-// Design: batch items are independent, so one CTA per item runs all H rows
-// with only __syncthreads between them.  Unlike K2 (csrc/macow_unit_inverse.cu),
-// which holds the whole latent on chip, shared memory holds the flow's
-// weights (w_shift <= 2*3*32*128 floats = 98 KB, w_hid <= 128*64 floats), a
-// ring of the last kh rebuilt rows, kh x (W+2cw) x C, and one row of
-// hiddens, W x hid: it grows with W and not with H (~141 KB at W=16, ~152 KB
-// at W=32 for C=32, hid=128), so tall and large latents fit.  Row r is kept
-// in ring slot r mod kh and written straight to x in device memory.  The tap
-// sums give each thread one hidden unit j and WPT columns, so a weight read
-// from shared memory is reused WPT times.  A first, simple kernel: no
-// tensor cores (the dots are kh*kw*C <= 192 deep), no TMA.
+// Design: K2's row design (csrc/macow_unit_inverse.cu) for one flow and any
+// number of rows.
+// - A cluster of k CTAs per batch item (k from the shape:
+//   ops/masked_conv.py::k5_cluster, the fewest that hold the hidden units
+//   at most 32 a CTA; 4 at hid = 128, so 160 CTAs at B = 40, two per SM,
+//   one wave; wider clusters measured slower).  The cluster splits the
+//   hidden units: a CTA computes hk = hid/k (rounded up to 4) of them for
+//   every column of the row, and the partial (W, 2C) product of its
+//   hiddens with its rows of w_hid.  The partials go through distributed
+//   shared memory with one cluster barrier per row (a CTA barrier at
+//   k = 1; two buffers, by row parity, so a CTA never overwrites a partial
+//   a peer may still read).  Every CTA adds the k partials in rank order
+//   and computes the whole row's affine inverse itself, so all k hold the
+//   same rows, bit for bit, with no second exchange, and the result is
+//   reproducible.
+// - Weights: the CTA's slice of w_shift and w_hid arrives by cp.async.bulk
+//   (one copy per tap row, issued by all threads), completing on an
+//   mbarrier, while the CTA zeroes its ring; each lane then holds its tap
+//   weights in registers for all H rows.
+// - The tap dot: 8 lanes share one hidden unit, each owning NQ groups of
+//   (dy, 4 channels) and all kw taps; a lane reads one float4 of 4 channels
+//   per column of the window, and the 8 lanes' sums for 8 columns are
+//   reduce-scattered with 7 shuffles, leaving each lane one column.
+// - Shared memory grows with W and not with H: the weight slice, a ring of
+//   the last kh rebuilt rows, kh x (W rounded up to 8, plus 2) x C, one row
+//   of the CTA's hiddens and the two partial buffers (~48 KB a CTA at
+//   W = 16, ~62 KB at W = 32 for C = 32, hid = 128, k = 4).  Row r lives in
+//   ring slot r mod kh and is written straight to x (each CTA of the
+//   cluster writes every k-th group of 32 elements), so tall latents fit.
+// - The row's y and hc are loaded into registers at the row's start and
+//   consumed by its affine, so their latency hides under the dot.
+// - ELU as the TPU kernel computes it, exp(min(a, 0)) - 1, with __expf
+//   (~2e-7 absolute); tanhf stays accurate (tanh.approx errs by ~5e-4, above
+//   the 1e-4 parity).  No tensor cores: a row's product is only W columns
+//   deep per item, and TF32 misses the fp32 parity.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cluster_copy.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WPT = 4;  // columns per thread in the tap sums
+constexpr int SPLIT = 8;                 // lanes sharing one hidden unit's tap dot
+constexpr int JSLOTS = THREADS / SPLIT;  // hidden units a CTA can hold: 32
+constexpr int COLS = 8;                  // columns per pass of the tap dot
+constexpr int AMAX = 4;                  // affine elements per thread: W*C <= AMAX*THREADS
+constexpr int NQ_MAX = 2;                // tap groups per lane: kh*ceil(C/4) <= NQ_MAX*SPLIT
+constexpr int KW = 3;                    // kernel width in scan space, as configured: (2, 3)
+constexpr int MAX_CLUSTER = 8;           // the portable cluster size
 
-__device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
-
-struct Dims {
-  int H, W, C, hid, kh, kw, cw, Wp;
-};
-
-size_t smem_floats(const Dims& d) {
-  return (size_t)d.kh * d.kw * d.C * d.hid  // w_shift
-         + (size_t)d.hid * 2 * d.C          // w_hid
-         + (size_t)d.kh * d.Wp * d.C        // ring of the last kh rows
-         + (size_t)d.W * d.hid;             // hidden activations of a row
+__device__ __forceinline__ float elu(float v) {
+  return v > 0.f ? v : __expf(fminf(v, 0.f)) - 1.f;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+struct Dims {
+  int H, W, C, hid, kh, kw;
+  int k;     // CTAs per batch item
+  int Cp;    // C rounded up to 4: the ring holds float4 groups of channels
+  int Wpad;  // ring columns: W rounded up to COLS, plus kw - 1
+  int hk;    // hidden units per CTA, a multiple of 4 (16-byte bulk copies)
+  int Q;     // tap groups (dy, 4 channels): kh * Cp / 4
+};
+
+Dims make_dims(int H, int W, int C, int hid, int kh, int kw, int k) {
+  Dims d;
+  d.H = H; d.W = W; d.C = C; d.hid = hid; d.kh = kh; d.kw = kw; d.k = k;
+  d.Cp = round4(C);
+  d.Wpad = (W + COLS - 1) / COLS * COLS + kw - 1;
+  d.hk = k > 0 ? round4((hid + k - 1) / k) : 0;
+  d.Q = kh * d.Cp / 4;
+  return d;
+}
+
+// Shared memory, in floats after 16 bytes of mbarrier, each region on a
+// 16-byte boundary: the weight slice (w_shift [kh*kw*C][hk], then w_hid
+// [hk][2C]), the ring (kh, Wpad, Cp), one row of the CTA's hiddens
+// (W, hk+4) and the row's partial products, two of (W, 2C).
+// ipoke_tpu_torch/ops/masked_conv.py::k5_smem_bytes mirrors this.
+__host__ __device__ __forceinline__ int slice_floats(const Dims& d) {
+  return d.kh * KW * d.C * d.hk + d.hk * 2 * d.C;
+}
+__host__ __device__ __forceinline__ int ring_floats(const Dims& d) {
+  return round4(d.kh * d.Wpad * d.Cp);
+}
+size_t smem_bytes(const Dims& d) {
+  const int floats = slice_floats(d) + ring_floats(d) + round4(d.W * (d.hk + 4)) +
+                     round4(2 * d.W * 2 * d.C);
+  return 16 + 4 * (size_t)floats;
+}
+
+template <int NQ>
+__global__ void __launch_bounds__(THREADS, 2)
 masked_conv_inverse_kernel(const float* __restrict__ y,
                            const float* __restrict__ w_shift,
                            const float* __restrict__ w_hid,
                            const float* __restrict__ hc,
                            float* __restrict__ x, Dims d, float alpha,
                            int reverse) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int H = d.H, W = d.W, C = d.C, hid = d.hid, kh = d.kh, kw = d.kw;
-  const int Wp = d.Wp;
-  const int n_ws = kh * kw * C * hid, n_wh = hid * 2 * C, n_ring = kh * Wp * C;
-  float* ws = smem;
-  float* wh = ws + n_ws;
-  float* ring = wh + n_wh;
-  float* hid_s = ring + n_ring;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / d.k;
+  const int tid = threadIdx.x;
+  const int s = tid & (SPLIT - 1);  // this lane's tap split
+  const int jl = tid / SPLIT;       // its hidden unit in the CTA's slice
+  const int H = d.H, W = d.W, C = d.C, Cp = d.Cp, Wpad = d.Wpad, hk = d.hk;
+  const int kh = d.kh, C4 = Cp / 4, twoC = 2 * C, hs = hk + 4;
+  const int taps = kh * KW * C;  // rows of w_shift
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* ws = reinterpret_cast<float*>(smem_raw + 16);  // [(dy*kw + dx)*C + c][hk]
+  float* wh = ws + taps * hk;                           // [j][2C]
+  float* ring = wh + hk * twoC;
+  float* hid_s = ring + ring_floats(d);
+  float* xpart = hid_s + round4(W * hs);
+  const int j0 = rank * hk;
+  const int nj = max(0, min(hk, d.hid - j0));  // this CTA's hidden units
   const size_t img = (size_t)H * W * C;
   const float* yb = y + (size_t)b * img;
   const float* hcb = hc + (size_t)b * img * 2;
   float* xb = x + (size_t)b * img;
 
-  for (int i = tid; i < n_ws; i += blockDim.x) ws[i] = w_shift[i];
-  for (int i = tid; i < n_wh; i += blockDim.x) wh[i] = w_hid[i];
-  for (int i = tid; i < n_ring; i += blockDim.x) ring[i] = 0.f;
+  const uint32_t bb = smem_u32(bar);
+  if (tid == 0) {
+    mbar_init(bb, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bb, (uint32_t)(taps + twoC) * nj * 4);
+  }
   __syncthreads();
+  // the CTA's weight slice: for each of the kh*kw*C tap rows of w_shift its
+  // nj hidden units (nj*4 bytes), one bulk copy a thread (from all warps:
+  // ~4 us faster a launch than warp 0 alone), then its nj rows of w_hid.
+  // Every address and size is a multiple of 16 bytes since hid and hk are
+  // multiples of 4.
+  if (nj > 0) {
+    for (int r = tid; r < taps; r += THREADS)
+      bulk_load(ws + r * hk, w_shift + (size_t)r * d.hid + j0, nj * 4, bb);
+    if (tid == THREADS - 1)
+      bulk_load(wh, w_hid + (size_t)j0 * twoC, nj * twoC * 4, bb);
+  }
+  // the ring starts as the zero rows outside the image; its pad columns
+  // stay zero throughout
+  for (int i = tid; i < ring_floats(d); i += THREADS) ring[i] = 0.f;
+  mbar_wait(bb, 0);
 
-  const int n_wg = (W + WPT - 1) / WPT;
+  // the lane's tap weights for all H rows: wr[q][cc][dx] of hidden unit jl
+  // at tap group qq = s + q*SPLIT, i.e. row dy and channel 4*c4 + cc; zero
+  // past C, past the CTA's hidden units and past the last group
+  float wr[NQ][4][KW];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int qq = s + q * SPLIT, dy = qq / C4, c4 = qq % C4;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int c = 4 * c4 + cc;
+#pragma unroll
+      for (int dx = 0; dx < KW; ++dx)
+        wr[q][cc][dx] = (qq < d.Q && c < C && jl < nj)
+                            ? ws[((dy * KW + dx) * C + c) * hk + jl] : 0.f;
+    }
+  }
+  __syncthreads();  // the ring is zeroed
+
+  const int n_aff = W * C;
+  const int wstep = THREADS / twoC;  // columns apart in the out product
+  const int k_out = tid % twoC, w_out = tid / twoC;
   for (int i = 0; i < H; ++i) {
     const int row = reverse ? H - 1 - i : i;
-    // hidden units: thread -> (j, group of WPT columns).  Tap row dy reads
-    // rebuilt row row+1+dy (reverse) or row-kh+dy, kept in slot (that) mod kh.
-    for (int idx = tid; idx < hid * n_wg; idx += blockDim.x) {
-      const int j = idx % hid, w0 = (idx / hid) * WPT;
-      float acc[WPT];
+    // this row's y and conditioning term, in flight during the dot
+    float yv[AMAX], hmu[AMAX], hls[AMAX];
 #pragma unroll
-      for (int q = 0; q < WPT; ++q) acc[q] = 0.f;
-      for (int dy = 0; dy < kh; ++dy) {
-        const int slot = (reverse ? row + 1 + dy : row + dy) % kh;
-        for (int dx = 0; dx < kw; ++dx) {
-          const float* src = ring + (slot * Wp + w0 + dx) * C;
-          const float* wt = ws + (dy * kw + dx) * C * hid + j;
-          for (int c = 0; c < C; ++c) {
-            const float wv = wt[c * hid];
+    for (int a = 0; a < AMAX; ++a) {
+      const int idx = tid + a * THREADS;
+      yv[a] = hmu[a] = hls[a] = 0.f;
+      if (idx < n_aff) {
+        const float* p = hcb + ((size_t)row * W + idx / C) * twoC + idx % C;
+        yv[a] = __ldg(yb + (size_t)row * n_aff + idx);
+        hmu[a] = __ldg(p);
+        hls[a] = __ldg(p + C);
+      }
+    }
+
+    // hidden units: lane s of each group of 8 sums its tap groups for 8
+    // columns, then the group reduce-scatters so that lane s holds column
+    // s.  Tap row dy reads rebuilt row row+1+dy (reverse) or row-kh+dy,
+    // kept in ring slot (row+1+dy) mod kh or (row+dy) mod kh.
+    for (int w0 = 0; w0 < W; w0 += COLS) {
+      float acc[COLS];
 #pragma unroll
-            for (int q = 0; q < WPT; ++q)
-              if (w0 + q < W) acc[q] += src[q * C + c] * wv;
+      for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int qq = s + q * SPLIT;
+        if (qq < d.Q) {
+          const int dy = qq / C4;
+          const int slot = (reverse ? row + 1 + dy : row + dy) % kh;
+          const float* src = ring + (slot * Wpad + w0) * Cp + 4 * (qq % C4);
+#pragma unroll
+          for (int col = 0; col < COLS + KW - 1; ++col) {
+            const float4 v = *reinterpret_cast<const float4*>(src + col * Cp);
+#pragma unroll
+            for (int dx = 0; dx < KW; ++dx) {
+              const int c = col - dx;
+              if (c >= 0 && c < COLS) {
+                acc[c] = fmaf(v.x, wr[q][0][dx], acc[c]);
+                acc[c] = fmaf(v.y, wr[q][1][dx], acc[c]);
+                acc[c] = fmaf(v.z, wr[q][2][dx], acc[c]);
+                acc[c] = fmaf(v.w, wr[q][3][dx], acc[c]);
+              }
+            }
           }
         }
       }
+      const bool b4 = s & 4, b2 = s & 2, b1 = s & 1;
+      float r4[4], r2[2];
 #pragma unroll
-      for (int q = 0; q < WPT; ++q)
-        if (w0 + q < W) hid_s[(w0 + q) * hid + j] = elu(acc[q]);
+      for (int c = 0; c < 4; ++c)
+        r4[c] = (b4 ? acc[c + 4] : acc[c]) +
+                __shfl_xor_sync(0xffffffffu, b4 ? acc[c] : acc[c + 4], 4);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        r2[c] = (b2 ? r4[c + 2] : r4[c]) +
+                __shfl_xor_sync(0xffffffffu, b2 ? r4[c] : r4[c + 2], 2);
+      const float sum = (b1 ? r2[1] : r2[0]) +
+                        __shfl_xor_sync(0xffffffffu, b1 ? r2[0] : r2[1], 1);
+      const int w = w0 + s;
+      if (w < W && jl < nj) hid_s[w * hs + jl] = elu(sum);
     }
     __syncthreads();
-    // affine inverse of the row: thread -> (w, c); the row replaces the
-    // oldest one in the ring, which no later row reads
-    float* dst = ring + ((row % kh) * Wp + d.cw) * C;
-    for (int idx = tid; idx < W * C; idx += blockDim.x) {
-      const int w = idx / C, c = idx % C;
-      const float* hrow = hid_s + w * hid;
-      float mu = 0.f, ls = 0.f;
-      for (int j = 0; j < hid; ++j) {
-        const float a = hrow[j];
-        mu += a * wh[j * 2 * C + c];
-        ls += a * wh[j * 2 * C + C + c];
+
+    // the CTA's partial of the 1x1 out product: thread (k, columns w_out,
+    // w_out + wstep, ...), the w_hid element shared by its columns
+    float* xp = xpart + (i & 1) * W * twoC;
+    if (w_out < wstep) {
+      for (int wb = w_out; wb < W; wb += 4 * wstep) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int j = 0; j < nj; j += 4) {
+          float wv[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) wv[t] = wh[(j + t) * twoC + k_out];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int w = wb + u * wstep;
+            if (w < W) {
+              const float4 hv = *reinterpret_cast<const float4*>(hid_s + w * hs + j);
+              acc[u] = fmaf(hv.x, wv[0], acc[u]);
+              acc[u] = fmaf(hv.y, wv[1], acc[u]);
+              acc[u] = fmaf(hv.z, wv[2], acc[u]);
+              acc[u] = fmaf(hv.w, wv[3], acc[u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (wb + u * wstep < W) xp[(wb + u * wstep) * twoC + k_out] = acc[u];
       }
-      const float* hcp = hcb + ((size_t)row * W + w) * 2 * C;
-      mu += hcp[c];
-      ls += hcp[C + c];
-      const float scale = tanhf(ls * 0.5f) * alpha + 1.0f;
-      const size_t at = (size_t)row * W * C + idx;
-      const float v = (yb[at] - mu) / (scale + 1e-12f);
-      dst[idx] = v;
-      xb[at] = v;
+    }
+    // every CTA's partial of this row is written (a cluster barrier costs
+    // ~0.45 us a row even for one CTA, a CTA barrier far less)
+    if (d.k > 1) cluster.sync(); else __syncthreads();
+
+    // affine inverse of the row, the partials added in rank order; the row
+    // replaces the oldest one in the ring, which no later row reads
+    float* dst = ring + ((row % kh) * Wpad + 1) * Cp;
+    float* xr = xb + (size_t)row * n_aff;
+#pragma unroll
+    for (int a = 0; a < AMAX; ++a) {
+      const int idx = tid + a * THREADS;
+      if (idx < n_aff) {
+        const int w = idx / C, c = idx % C;
+        float mu = 0.f, ls = 0.f;
+        for (int r = 0; r < d.k; ++r) {
+          const float* pr = (r == rank ? xp : cluster.map_shared_rank(xp, r)) + w * twoC;
+          mu += pr[c];
+          ls += pr[C + c];
+        }
+        mu += hmu[a];
+        ls += hls[a];
+        const float scale = tanhf(ls * 0.5f) * alpha + 1.0f;
+        const float v = (yv[a] - mu) / (scale + 1e-12f);
+        dst[w * Cp + c] = v;
+        if ((idx >> 5) % d.k == rank) xr[idx] = v;
+      }
     }
     __syncthreads();
   }
+  if (d.k > 1) cluster.sync();  // no CTA leaves while a peer may read its partials
+}
+
+// The shapes the kernel takes (ops/masked_conv.py::k5_fits mirrors it).
+bool takes(const Dims& d) {
+  return d.H > 0 && d.W > 0 && d.C > 0 && d.hid > 0 && d.hid % 4 == 0 &&
+         d.kh > 0 && d.kw == KW && d.k >= 1 && d.k <= MAX_CLUSTER &&
+         d.hk <= JSLOTS && d.Q <= NQ_MAX * SPLIT && d.W * d.C <= AMAX * THREADS;
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, const float*,
+                        float*, Dims, float, int);
+
+// A launch of the kernel for B items at d: the instance for its tap groups,
+// its shared memory opted into, a cluster of d.k CTAs per item.
+cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Kernel* kernel,
+                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (B <= 0 || !takes(d)) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(d);
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  *kernel = d.Q <= SPLIT ? masked_conv_inverse_kernel<1> : masked_conv_inverse_kernel<2>;
+  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = d.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(B * d.k);
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // y, x (B, H, W, C) in scan space; w_shift (kh, kw, C, hid) in scan space;
-// w_hid (hid, 2C); hc (B, H, W, 2C) in scan space.  All fp32, contiguous.
-// reverse: order B (rows depend on the rows below), else order A.
+// w_hid (hid, 2C); hc (B, H, W, 2C) in scan space.  All fp32, contiguous,
+// 16-byte aligned; hid a multiple of 4, kw 3.  reverse: order B (rows
+// depend on the rows below), else order A.  cluster: CTAs per batch item.
+// A refused launch returns its error; there is no other kernel to fall
+// back on.
 extern "C" int masked_conv_inverse(const void* y, const void* w_shift,
                                    const void* w_hid, const void* hc, void* x,
                                    int B, int H, int W, int C, int hid, int kh,
-                                   int kw, float alpha, int reverse,
+                                   int kw, float alpha, int reverse, int cluster,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || hid <= 0 || kh <= 0 || kw <= 0
-      || kw % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  const Dims d{H, W, C, hid, kh, kw, (kw - 1) / 2, W + 2 * ((kw - 1) / 2)};
-  const size_t smem = smem_floats(d) * sizeof(float);
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const Dims d = make_dims(H, W, C, hid, kh, kw, cluster);
+  Kernel kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = prepare(d, B, (cudaStream_t)stream, &kernel, &cfg, attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(masked_conv_inverse_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  masked_conv_inverse_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)y, (const float*)w_shift, (const float*)w_hid,
-      (const float*)hc, (float*)x, d, alpha, reverse);
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, kernel, (const float*)y, (const float*)w_shift,
+                           (const float*)w_hid, (const float*)hc, (float*)x, d,
+                           alpha, reverse);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The kernel's shared memory per CTA in bytes at a shape it takes (any
+// number of rows), else -1.
+extern "C" int masked_conv_inverse_smem_bytes(int W, int C, int hid, int kh, int kw,
+                                              int cluster) {
+  const Dims d = make_dims(1, W, C, hid, kh, kw, cluster);
+  return takes(d) ? (int)smem_bytes(d) : -1;
+}
+
+// How many of the kernel's clusters the card holds at once at a shape
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int masked_conv_inverse_max_clusters(int W, int C, int hid, int kh, int kw,
+                                                int cluster) {
+  const Dims d = make_dims(1, W, C, hid, kh, kw, cluster);
+  Kernel kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = prepare(d, 1, nullptr, &kernel, &cfg, attr);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
 }

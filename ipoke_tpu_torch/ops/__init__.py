@@ -12,11 +12,15 @@ same function.
 * ``masked_conv`` (K5, CUDA C++ ``csrc/masked_conv_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::masked_conv_inverse_pallas``, for the
   units whose latent K2 cannot hold (``unit_fits``);
-* ``spade_gn`` (K3, CUDA C++ ``csrc/spade_gn.cu``) replaces
+* ``spade_gn`` (K3, CUDA C++ ``csrc/spade_gn.cu``, with the portable
+  backward of ``spade_gn_fused`` on the card) replaces
   ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``.
 
 Dispatch is by device: a wrapper given CPU tensors runs the plain version; on
-CUDA tensors it launches its kernel or raises - there is no fallback.
+CUDA tensors it launches its kernel or raises - there is no fallback.  As in
+the JAX package, K1, K2 and K5 have no backward: on the card they raise
+while autograd records through an input that requires grad
+(``_build.refuse_grad``) rather than return an output without a gradient.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are not
 counted), so a run can show that its main path went through the kernels.
 """

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ipoke_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +35,9 @@ SIGNATURES = {
     "macow_unit_inverse_smem_bytes": (_I, _I, _I, _I, _I, _I),
     "macow_unit_inverse_max_clusters": (_I, _I, _I, _I, _I, _I),
     "masked_conv_inverse": (_P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "masked_conv_inverse_smem_bytes": (_I, _I, _I, _I, _I, _I),
+    "masked_conv_inverse_max_clusters": (_I, _I, _I, _I, _I, _I),
     "spade_gn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "spade_gn_max_clusters": (_I, _I, _I, _I, _I, _I),
 }
@@ -126,3 +130,14 @@ def check(err: int, name: str) -> None:
     and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise while autograd records through a kernel that has no backward.
+    A kernel's output comes through ctypes and carries no ``grad_fn``, so a
+    gradient would be lost silently; the JAX package's counterparts have no
+    autodiff and fail when traced."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")

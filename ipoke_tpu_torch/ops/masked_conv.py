@@ -9,9 +9,11 @@ kernel axes.  A MaCowUnit is MCF(A) -> MCF(B) -> ActNorm -> MCF(C) -> MCF(D)
 recurrences in a thread-block cluster per batch item, with the whole latent
 in each CTA's shared memory, so it takes square latents up to what
 ``unit_fits`` allows (16x16 at C=32).  K5
-(``csrc/masked_conv_inverse.cu``) runs one flow and keeps only a ring of the
-last kh rows on chip, so it takes any latent: the flows route every unit
-that K2 cannot take through it, flow by flow.
+(``csrc/masked_conv_inverse.cu``) runs one flow in a thread-block cluster
+per batch item and keeps only a ring of the last kh rows on chip, so it
+takes any number of rows (and rows up to what ``k5_fits`` allows, W*C <=
+1024): the flows route every unit that K2 cannot take through it, flow by
+flow.
 
 ``pack_mcf`` does the precompute that the JAX package also runs outside its
 kernels: the kernel in scan space, the weight-norm 1x1 out conv split into
@@ -32,6 +34,10 @@ from ..flows.primitives import _v_norm
 
 # shared memory one block may opt into on an H100: 227 KB
 SMEM_LIMIT = 232448
+
+
+def _r4(n):
+    return -(-n // 4) * 4
 
 
 def pack_mcf(h_act, params, transposed, batch, height, width):
@@ -102,35 +108,81 @@ def masked_conv_inverse_plain(y, w_shift, w_hid, hc, alpha, reverse, act=F.elu):
     return buf[:, kh:, cw:cw + width]
 
 
-def _k5_smem_bytes(width, c, hid, kh, kw):
-    """K5's shared memory (``smem_floats`` in the source): the flow's
-    weights, a ring of kh padded rows and one row of hiddens."""
-    wp = width + 2 * ((kw - 1) // 2)
-    return 4 * (kh * kw * c * hid + hid * 2 * c + kh * wp * c + width * hid)
+# K5's launch (csrc/masked_conv_inverse.cu): a cluster of ``k5_cluster``
+# CTAs of K5_THREADS threads per batch item, 8 lanes per hidden unit's tap
+# dot, so at most K5_THREADS // 8 hidden units a CTA
+K5_THREADS, K5_MAX_CLUSTER = 256, 8
+
+
+def k5_cluster(hid):
+    """K5's CTAs per batch item, by shape alone: the fewest (1, 2, 4 or 8)
+    that hold ``hid`` hidden units at most 32 a CTA (rounded up to 4).  At
+    the shipped widths (hid = 4C): 1 at C <= 8, 2 at C <= 16, 4 above."""
+    k = 1
+    while k < K5_MAX_CLUSTER and _r4(-(-hid // k)) > K5_THREADS // 8:
+        k *= 2
+    return k
+
+
+def k5_smem_bytes(width, c, hid, kh, kw, cluster):
+    """K5's shared memory per CTA (``smem_bytes`` in its source): 16 bytes
+    of mbarrier, then the CTA's weight slice (hk = hid/cluster hidden
+    units, rounded up to 4), a ring of kh padded rows (W rounded up to 8
+    plus kw - 1 columns, C rounded up to 4), one row of the CTA's hiddens
+    and two buffers of the row's partial products, each region rounded up
+    to 16 bytes.  Independent of the number of rows."""
+    hk, cp = _r4(-(-hid // cluster)), _r4(c)
+    wpad = -(-width // 8) * 8 + kw - 1
+    floats = (kh * kw * c * hk + hk * 2 * c + _r4(kh * wpad * cp)
+              + _r4(width * (hk + 4)) + _r4(4 * width * c))
+    return 16 + 4 * floats
+
+
+def k5_fits(shape, hid, kernel_size):
+    """Whether K5 takes one flow on a scan-space latent of ``shape`` (B, H,
+    W, C), by shape alone (``takes`` and the shared-memory check in its
+    source): hid is a multiple of 4 (16-byte bulk copies of the weight
+    slices) and at most 32 a CTA in a cluster of ``k5_cluster(hid)``; kw is
+    3, as every config sets it, and kh * ceil(C/4) <= 16 (a lane's tap
+    weights in registers); W * C <= 1024 (4 affine elements per thread);
+    and ``k5_smem_bytes`` is within ``SMEM_LIMIT``.  Any number of rows."""
+    _, _, width, c = shape
+    kh, kw = kernel_size
+    k = k5_cluster(hid)
+    return (hid % 4 == 0 and _r4(-(-hid // k)) <= K5_THREADS // 8
+            and kw == 3 and kh * _r4(c) // 4 <= 16
+            and width * c <= 4 * K5_THREADS
+            and k5_smem_bytes(width, c, hid, kh, kw, k) <= SMEM_LIMIT)
 
 
 def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
-    """Launch K5 on fp32 inputs in scan space (one CUDA device)."""
+    """Launch K5 on fp32 inputs in scan space (one CUDA device, a shape that
+    ``k5_fits``).  K5 has no backward, as in the JAX package: it raises
+    while autograd records through an input that requires grad."""
     tensors = (y, w_shift, w_hid, hc)
+    _build.refuse_grad("masked_conv_inverse", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("masked_conv_inverse kernel takes fp32 inputs only")
     if any(t.device != y.device for t in tensors):
         raise ValueError("masked_conv_inverse inputs must lie on one device")
     b, height, width, c = y.shape
     kh, kw, _, hid = w_shift.shape
-    if w_shift.shape[2] != c or kw % 2 == 0 or w_hid.shape != (hid, 2 * c) \
+    if w_shift.shape[2] != c or w_hid.shape != (hid, 2 * c) \
             or hc.shape != (b, height, width, 2 * c):
         raise ValueError(
             f"masked_conv_inverse shapes: y {tuple(y.shape)}, w_shift "
             f"{tuple(w_shift.shape)}, w_hid {tuple(w_hid.shape)}, hc {tuple(hc.shape)}")
-    smem = _k5_smem_bytes(width, c, hid, kh, kw)
-    if smem > SMEM_LIMIT:
+    k = k5_cluster(hid)
+    if not k5_fits(y.shape, hid, (kh, kw)):
         raise ValueError(
             f"masked_conv_inverse: scan-space latent {tuple(y.shape)} with "
-            f"kernel ({kh}, {kw}) and hid {hid} needs {smem} B of shared "
-            f"memory, over the {SMEM_LIMIT} B a block can have")
-    # contiguous copies are held here until the launch is queued
-    y, w_shift, w_hid, hc = (t.contiguous() for t in tensors)
+            f"kernel ({kh}, {kw}) and hid {hid} is not a shape K5 takes "
+            f"(k5_fits: hid a multiple of 4, at most 32 a CTA; kw 3; "
+            f"kh*ceil(C/4) <= 16; W*C <= 1024; "
+            f"{k5_smem_bytes(width, c, hid, kh, kw, k)} B of shared memory "
+            f"per CTA within {SMEM_LIMIT})")
+    # contiguous, aligned copies are held here until the launch is queued
+    y, w_shift, w_hid, hc = (_build.aligned(t) for t in tensors)
     x = torch.empty_like(y)
     lib = _build.load()
     with torch.cuda.device(y.device):
@@ -138,7 +190,7 @@ def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
         err = lib.masked_conv_inverse(
             y.data_ptr(), w_shift.data_ptr(), w_hid.data_ptr(), hc.data_ptr(),
             x.data_ptr(), b, height, width, c, hid, kh, kw, float(alpha),
-            int(reverse), stream)
+            int(reverse), k, stream)
     _build.check(err, "masked_conv_inverse")
     LAUNCHES["masked_conv_inverse"] += 1
     return x
@@ -179,10 +231,6 @@ def masked_conv_inverse(y, h, params, order, alpha=1.0):
 # K2's launch (csrc/macow_unit_inverse.cu): a cluster of K2_CLUSTER CTAs of
 # K2_THREADS threads per batch item, 8 lanes per hidden unit's tap dot
 K2_CLUSTER, K2_THREADS = 4, 256
-
-
-def _r4(n):
-    return -(-n // 4) * 4
 
 
 def k2_smem_bytes(height, width, c, hid, kh, kw):
@@ -233,8 +281,10 @@ def macow_unit_inverse_plain(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
 
 def macow_unit_inverse_cuda(y, w_shift, w_hid, hc, an_bias, an_inv, alpha):
     """Launch K2 on the packed fp32 inputs (one CUDA device, a latent that
-    ``unit_fits``)."""
+    ``unit_fits``).  K2 has no backward, as in the JAX package: it raises
+    while autograd records through an input that requires grad."""
     tensors = (y, w_shift, w_hid, hc, an_bias, an_inv)
+    _build.refuse_grad("macow_unit_inverse", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("macow_unit_inverse kernel takes fp32 inputs only")
     if any(t.device != y.device for t in tensors):

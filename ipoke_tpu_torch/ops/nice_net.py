@@ -115,7 +115,10 @@ def _launch(zcol, w1, w2, wp, train: bool):
 
 
 def nice_net_cuda(zcol, w1, w2, wp):
-    """Launch K1; see ``_launch``."""
+    """Launch K1; see ``_launch``.  K1 has no backward, as in the JAX
+    package (K4 is the differentiable form): it raises while autograd
+    records through an input that requires grad."""
+    _build.refuse_grad("nice_net", zcol, w1, w2, wp)
     return _launch(zcol, w1, w2, wp, train=False)
 
 

@@ -76,7 +76,11 @@ def spade_gn_plain(x, gamma, beta, num_groups: int, eps: float = 1e-5):
 
 
 def spade_gn_cuda(x, gamma, beta, num_groups: int, eps: float = 1e-5):
-    """Launch K3 (one CUDA device, fp32 or bf16, at most 256 channels)."""
+    """Launch K3 (one CUDA device, fp32 or bf16, at most 256 channels).
+    The kernel alone has no backward: it raises while autograd records
+    through an input that requires grad (``spade_gn_modulate`` gives it
+    one)."""
+    _build.refuse_grad("spade_gn", x, gamma, beta)
     n, h, w, c = x.shape
     bm = gamma.shape[0]
     if gamma.shape != beta.shape or tuple(gamma.shape[1:]) != (h, w, c):
@@ -106,11 +110,33 @@ def spade_gn_cuda(x, gamma, beta, num_groups: int, eps: float = 1e-5):
     return out
 
 
+class SpadeGN(torch.autograd.Function):
+    """``forward_fn`` (K3, ``spade_gn_cuda``, on the card) with the portable
+    VJP as its backward, as the JAX package's ``spade_gn_fused``
+    (``_fused_bwd``): autograd of ``spade_gn_plain`` recomputed from the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, x, gamma, beta, num_groups, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return forward_fn(x, gamma, beta, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = spade_gn_plain(*inputs, ctx.num_groups, ctx.eps)
+            dx, dgamma, dbeta = torch.autograd.grad(out, inputs, grad)
+        return None, dx, dgamma, dbeta, None, None
+
+
 def spade_gn_modulate(x, gamma, beta, num_groups: int, eps: float = 1e-5):
-    """GroupNorm(x) * (1 + gamma) + beta with per-clip gamma/beta: K3 for
-    CUDA tensors, the plain version for CPU tensors."""
+    """GroupNorm(x) * (1 + gamma) + beta with per-clip gamma/beta: K3 with
+    the portable backward for CUDA tensors, the plain version for CPU
+    tensors."""
     if x.is_cuda:
-        return spade_gn_cuda(x, gamma, beta, num_groups, eps)
+        return SpadeGN.apply(spade_gn_cuda, x, gamma, beta, num_groups, eps)
     if x.device.type != "cpu":
         raise ValueError(f"spade_gn: unsupported device {x.device}")
     return spade_gn_plain(x, gamma, beta, num_groups, eps)

@@ -169,14 +169,22 @@ def _mcf_params(dev, c, hid, ch, ks, seed):
                     "b": _randn(dev, 2 * c, std=0.1, seed=seed + 3)}}
 
 
-@pytest.mark.parametrize("b,hh,ww,c,ch,order", [
-    (3, 5, 7, 8, 6, "A"), (2, 8, 8, 4, 0, "B"), (2, 6, 13, 8, 0, "C"),
-    (3, 8, 16, 32, 128, "D"), (40, 32, 32, 32, 128, "A")])
+# K5 cases: W = 7 and 13 (not a multiple of the 8 columns of a tap-dot
+# pass), C = 4 and 8 (clusters of 1), C = 16 (clusters of 2), C = 18
+# (clusters of 4 whose last CTA holds 12 of the 72 hidden units; channels
+# padded to float4 groups) and 32 (clusters of 4), non-square latents in
+# both orientations, with and without conditioning rows, and a 32x32x32
+# latent that K2 cannot hold
+K5_CASES = [(3, 5, 7, 8, 6, "A"), (2, 8, 8, 4, 0, "B"), (2, 6, 13, 8, 0, "C"),
+            (3, 8, 16, 32, 128, "D"), (40, 32, 32, 32, 128, "A"),
+            (3, 8, 16, 16, 6, "B"), (2, 16, 8, 18, 128, "C")]
+
+
+@pytest.mark.parametrize("b,hh,ww,c,ch,order", K5_CASES)
 def test_masked_conv_inverse_kernel_matches_plain(dev, b, hh, ww, c, ch, order):
-    """K5 through its dispatcher against the plain row scan: W not a multiple
-    of the kernel's 4 columns per thread, C=4, non-square latents in both
-    orientations, with and without conditioning rows, and a 32x32x32
-    latent that K2 cannot hold."""
+    """K5 through its dispatcher against the plain row scan, and two calls
+    bitwise equal (every CTA of a cluster adds the partials in rank
+    order)."""
     ks = (2, 3) if order in ("A", "B") else (3, 2)  # C/D store them swapped
     params = _mcf_params(dev, c, 4 * c, ch, ks, 100)
     y = _randn(dev, b, hh, ww, c, seed=110)
@@ -187,6 +195,27 @@ def test_masked_conv_inverse_kernel_matches_plain(dev, b, hh, ww, c, ch, order):
         None if h is None else F.elu(h), params, order, 1.0)
     assert ops.LAUNCHES["masked_conv_inverse"] == 1 and got.shape == y.shape
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, masked_conv.masked_conv_inverse(y, h, params, order))
+
+
+def test_masked_conv_inverse_footprint_matches_kernel(dev):
+    """``k5_smem_bytes`` (which ``k5_fits`` uses) against the kernel's own
+    count at every SHIPPED level's width and cluster, rows of 8, 16 and 32
+    columns, and the kernel refuses what ``k5_fits`` refuses for a reason
+    other than the footprint."""
+    from ipoke_tpu_torch.ops import _build
+
+    lib = _build.load()
+    for c in range(32, 2, -2):
+        k = masked_conv.k5_cluster(4 * c)
+        for w in (8, 16, 32):
+            assert lib.masked_conv_inverse_smem_bytes(w, c, 4 * c, 2, 3, k) == \
+                masked_conv.k5_smem_bytes(w, c, 4 * c, 2, 3, k), (w, c)
+    for shape, hid, ks in (((1, 8, 33, 32), 128, (2, 3)), ((1, 8, 8, 8), 30, (2, 3)),
+                           ((1, 8, 8, 8), 32, (2, 5)), ((1, 8, 8, 36), 144, (2, 3))):
+        assert not masked_conv.k5_fits(shape, hid, ks)
+        assert lib.masked_conv_inverse_smem_bytes(
+            shape[2], shape[3], hid, *ks, masked_conv.k5_cluster(hid)) == -1
 
 
 def test_unit_inverse_k2_matches_per_flow_route(dev):
@@ -227,6 +256,59 @@ def test_spade_gn_kernel_matches_plain(dev, shape, clips, dtype, tol):
     assert got.dtype == dtype and ops.LAUNCHES["spade_gn"] == 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+def test_spade_gn_kernel_gradients_match_plain(dev, dtype, tol):
+    """Autograd through K3 (``spade_gn_modulate`` on the card: the kernel
+    forward, the portable VJP backward) against autograd of the plain
+    version: the gradients of x, gamma and beta, in fp32 and bf16."""
+    x = (2.0 * _randn(dev, 6, 8, 8, 32, seed=86) + 0.5).to(dtype)
+    gamma = _randn(dev, 2, 8, 8, 32, std=0.5, seed=87).to(dtype)
+    beta = _randn(dev, 2, 8, 8, 32, std=0.5, seed=88).to(dtype)
+    r = _randn(dev, 6, 8, 8, 32, seed=89)
+    grads = []
+    for fn in (spade_gn.spade_gn_modulate, spade_gn.spade_gn_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        loss = (fn(*leaves, 16).float() * r).sum()
+        grads.append(torch.autograd.grad(loss, leaves))
+    assert ops.LAUNCHES["spade_gn"] == 1
+    for got, want in zip(*grads):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_kernels_without_backward_refuse_grad(dev):
+    """K1 (inference), K2 and K5 have no backward, as in the JAX package:
+    each raises while autograd records through an input that requires
+    grad, launches nothing, and runs under ``no_grad``."""
+    zcol = _randn(dev, 64, 36, seed=1).bfloat16()
+    w1 = _randn(dev, 36, 128, std=36 ** -0.5, seed=2).bfloat16()
+    w2 = _randn(dev, 128, 128, std=128 ** -0.5, seed=3).bfloat16()
+    wp = _randn(dev, 128, 18, std=128 ** -0.5, seed=4).bfloat16()
+    y, packed = _unit_operands(dev, 2, 8, 8, 0)
+    ys = _randn(dev, 2, 8, 16, 8, seed=5)
+    w_shift = _randn(dev, 2, 3, 8, 32, std=48 ** -0.5, seed=6)
+    w_hid = _randn(dev, 32, 16, std=0.05, seed=7)
+    hc = _randn(dev, 2, 8, 16, 16, std=0.1, seed=8)
+    calls = {
+        "nice_net": (nice_net.nice_net_cuda, (zcol, w1, w2, wp)),
+        "macow_unit_inverse": (masked_conv.macow_unit_inverse_cuda, (y, *packed, 1.0)),
+        "masked_conv_inverse": (masked_conv.masked_conv_inverse_cuda,
+                                (ys, w_shift, w_hid, hc, 1.0, False)),
+    }
+    for name, (fn, args) in calls.items():
+        for i, t in enumerate(args):
+            if not isinstance(t, torch.Tensor):
+                continue
+            leaf = list(args)
+            leaf[i] = t.clone().requires_grad_()
+            with pytest.raises(RuntimeError, match=f"{name}: the kernel has no backward"):
+                fn(*leaf)
+        assert ops.LAUNCHES[name] == 0
+        with torch.no_grad():
+            fn(*leaf)
+        assert ops.LAUNCHES[name] == 1
 
 
 # (shape, clips, groups): the four decode levels at a few frames (k = 16, 8,

@@ -19,18 +19,30 @@ from ipoke_tpu.ops.masked_conv import (
 )
 from ipoke_tpu.ops import nice_net as jnice
 from ipoke_tpu.ops.nice_net import nice_net_raw_pallas
+from ipoke_tpu.ops.spade_gn import _portable as jax_spade_gn_portable
 from ipoke_tpu.ops.spade_gn import spade_gn_modulate_pallas
 from ipoke_tpu_torch import ops
 from ipoke_tpu_torch.convert import flow_params, to_numpy_tree
 from ipoke_tpu_torch.ops import _build
-from ipoke_tpu_torch.ops.masked_conv import macow_unit_inverse, masked_conv_inverse
+from ipoke_tpu_torch.ops.masked_conv import (
+    k5_cluster,
+    k5_fits,
+    k5_smem_bytes,
+    macow_unit_inverse,
+    masked_conv_inverse,
+)
 from ipoke_tpu_torch.ops.nice_net import (
     _train_forward,
     nice_net_fits,
     nice_net_raw,
     nice_net_raw_train,
 )
-from ipoke_tpu_torch.ops.spade_gn import spade_gn_modulate, spade_gn_plan
+from ipoke_tpu_torch.ops.spade_gn import (
+    SpadeGN,
+    spade_gn_modulate,
+    spade_gn_plain,
+    spade_gn_plan,
+)
 
 B, H, W = 2, 8, 8
 
@@ -261,9 +273,71 @@ def test_masked_conv_inverse_plain_matches_pallas(order, h_channels, hw):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4)
 
 
+# K5's cluster per batch item at each SHIPPED level's hid = 4C (C = 32, 30,
+# ..., 4): the fewest CTAs that hold the hidden units at most 32 a CTA
+@pytest.mark.parametrize("c,k", [(32, 4), (18, 4), (16, 2), (10, 2), (8, 1), (4, 1)])
+def test_k5_cluster_by_level(c, k):
+    assert k5_cluster(4 * c) == k
+
+
+def test_k5_fits_by_shape():
+    """K5 takes every latent of the 8x16 path (A/B rows of 16 columns, C/D
+    rows of 8, at every shipped level), its card-test shapes (W = 7 and 13,
+    C = 4 and 8) and a 32x32x32 latent, at any number of rows; it refuses
+    rows over 1024 elements, hid not a multiple of 4, kw other than 3 and
+    more than 16 tap groups.  Its footprint grows with W, not H."""
+    for c in range(32, 2, -2):
+        for width in (16, 8):
+            assert k5_fits((40, 24 - width, width, c), 4 * c, (2, 3)), (c, width)
+    for shape, hid in (((3, 5, 7, 8), 32), ((2, 13, 6, 8), 32), ((2, 8, 8, 4), 16),
+                       ((40, 32, 32, 32), 128), ((1, 4096, 8, 32), 128)):
+        assert k5_fits(shape, hid, (2, 3)), shape
+    for shape, hid, ks in (((2, 2, 256, 32), 128, (2, 3)), ((1, 8, 33, 32), 128, (2, 3)),
+                           ((1, 8, 8, 8), 30, (2, 3)), ((1, 8, 8, 8), 32, (2, 5)),
+                           ((1, 8, 8, 36), 144, (2, 3)), ((1, 8, 8, 32), 512, (2, 3))):
+        assert not k5_fits(shape, hid, ks), shape
+    # C = 32, hid 128, clusters of 4: 32 hidden units a CTA
+    assert k5_smem_bytes(16, 32, 128, 2, 3, 4) == 4 * (
+        16 // 4 + 6 * 32 * 32 + 32 * 64 + 2 * 18 * 32 + 16 * 36 + 4 * 16 * 32)
+
+
 # ---------------------------------------------------------------------------
 # K3: SPADE GroupNorm + modulation
 # ---------------------------------------------------------------------------
+
+def test_spade_gn_backward_matches_plain_and_jax_vjp():
+    """K3's autograd Function, driven here with the plain version as its
+    forward, gives the gradients of x, gamma and beta that autograd of the
+    plain version gives, and those of ``jax.vjp`` of the JAX package's
+    portable form (the backward of its ``spade_gn_fused``; run eagerly),
+    in fp32 with 2 clips of 2 frames."""
+    rng = np.random.default_rng(7)
+    x = (2.0 * rng.standard_normal((4, 4, 4, 32)) + 0.5).astype(np.float32)
+    gamma, beta, ct = ((0.5 * rng.standard_normal(shape)).astype(np.float32)
+                       for shape in ((2, 4, 4, 32), (2, 4, 4, 32), (4, 4, 4, 32)))
+    leaves = [_t(a).requires_grad_() for a in (x, gamma, beta)]
+    out = SpadeGN.apply(spade_gn_plain, *leaves, 16, 1e-5)
+    got = torch.autograd.grad(out, leaves, _t(ct))
+    ref = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(spade_gn_plain(*ref, 16, 1e-5), ref, _t(ct))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, vjp = jax.vjp(lambda a, g_, b_: jax_spade_gn_portable(a, g_, b_, 16, 1e-5),
+                     jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    for g, w in zip(got, vjp(jnp.asarray(ct))):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=2e-5, rtol=2e-5)
+
+
+def test_refuse_grad():
+    """A kernel without a backward refuses a tensor that requires grad while
+    autograd records, and takes it under ``no_grad``."""
+    x, w = torch.ones(2, requires_grad=True), torch.ones(2)
+    with pytest.raises(RuntimeError, match="k5: the kernel has no backward"):
+        _build.refuse_grad("k5", w, x)
+    _build.refuse_grad("k5", w, x.detach())
+    with torch.no_grad():
+        _build.refuse_grad("k5", w, x)
+
 
 @pytest.mark.parametrize("shape,clips,dtype,tol", [
     ((6, 8, 8, 32), 2, "float32", 2e-5),

@@ -140,8 +140,8 @@ def build(name):
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     (d / source).write_text(src)
-    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                          str(d / "lib.so"), str(d / source)],
+    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                          "-shared", "-o", str(d / "lib.so"), str(d / source)],
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
