@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sampling pass and second-stage train step
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's sampling pass, second-stage train step and
+first-stage VAE-GAN train step on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -56,6 +56,15 @@ Phases, in order; any failure raises and exits non-zero:
       device launches, device time against the inverse's wall time, and
       K1's and K5's device time per call; then the SMALL-width flow inverse
       at 8x16 in bf16, card against CPU.
+  (i) the first-stage VAE-GAN train step (config/first_stage.yaml: 64 px,
+      B=20, T=10, fp32): (i1) K3 at the decoder's training shapes (fp32,
+      20 frames, one modulation per frame, 16/32/64 px) against its plain
+      version, bitwise repeated, with its bound, and its backward; (i2) the
+      TINY config 3 steps card against CPU; (i3) the yaml config: one step
+      with the launch counts zeroed before and read after (this path's run),
+      every net checked to move, 3 steps timed with CUDA events (ms/step,
+      clips/s, peak memory), a host split of one step and a
+      ``torch.profiler`` table of one step with K3's in-situ time.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the two main-path runs
@@ -98,6 +107,11 @@ K5_CASES = (*((40, 8, 8, 32, 128, o) for o in "ABCD"),
             *((40, 8, 16, 32, 128, o) for o in "ABCD"),
             (40, 8, 8, 4, 128, "A"), (40, 8, 16, 4, 128, "C"),
             (40, 8, 16, 16, 128, "A"), (40, 32, 32, 32, 128, "A"))
+# K3 at the first-stage decoder's training shapes (S, Ch): fp32, the frame
+# batch B = 20 rendered one frame at a time, so one modulation per frame
+# (t = 1), 16 groups
+K3_TRAIN_CASES = ((16, 256), (32, 128), (64, 64))
+K3_TRAIN_FRAMES = 20
 # K3's backward at the 32 px decode level (S, Ch, frames, clips): autograd
 # through spade_gn_modulate (K3 forward, the portable VJP) against autograd
 # of spade_gn_plain, in bf16 and fp32
@@ -145,6 +159,25 @@ ROUNDTRIP_TOL = 1e-4
 # opposite sides of the fp32 result, so the bound is twice that with margin.
 # A wrong kernel moves the output by O(1) everywhere and the mean far past it.
 SMALL_FLOW_MAX_TOL, SMALL_FLOW_MEAN_TOL = 1.0, 5e-2
+# (i2) first-stage TINY, card vs CPU, fp32, TF32 off, lr 1e-3: 3 steps, each
+# from the same state (the CPU's params, u and Adam moments are loaded into
+# the card's nets before the next step), so each step compares fp32 rounding
+# only.  Per step:
+# * metrics: |card - CPU| <= FS_TINY_TOL * (1 + |CPU|);
+# * gradients, as Adam's first moments, leaf by leaf: |card - CPU| <= 3e-4
+#   |CPU| + 1e-4 RMS(net's moments) sqrt(numel), the rule of the CPU test
+#   against the jitted JAX step (1.3e-4 seen there; the floor covers biases
+#   that a one-channel-per-group norm cancels, whose gradient is rounding);
+# * params: every entry within 2 lr, at most 1% of a net's entries more than
+#   lr / 10 apart.  Adam moves each entry by ~lr whatever its gradient's
+#   size, so a gradient of the wrong sign reads only 2 lr: the moments are
+#   what hold the backward (cuDNN dgrad, the R1 double backward, GroupNorm).
+# On the CPU, fp32 against float64 holds the same rule at the same weights,
+# batch and draws (tests/test_torch_first_stage.py).  The batch is the plain
+# synthetic one: with N(0, 0.01^2) added per pixel (as the JAX parity test
+# adds, against XLA's tie routing in max-pool) fp32 parts from float64 by
+# more than the rule on the CPU too, in the generator's first moments.
+FS_TINY_LR, FS_TINY_TOL = 1e-3, 1e-3
 
 
 def cuda_ms(fn, iters):
@@ -205,11 +238,11 @@ def unit_work(b, s, c, hid):
     return nbytes, 4 * pix * 2 * (6 * c * hid + hid * 2 * c)
 
 
-def spade_work(s, ch, itemsize):
-    """(bytes, flops) of K3 at a decode level: x and out (400 frames), gamma
-    and beta (40 clips) once each; ~8 fp32 operations per element
-    (statistics, normalise, modulate)."""
-    n_x, n_m = 400 * s * s * ch, 40 * s * s * ch
+def spade_work(frames, clips, s, ch, itemsize):
+    """(bytes, flops) of K3 at one level: x and out (``frames``), gamma and
+    beta (``clips``) once each; ~8 fp32 operations per element (statistics,
+    normalise, modulate)."""
+    n_x, n_m = frames * s * s * ch, clips * s * s * ch
     return itemsize * (2 * n_x + 2 * n_m), 8 * n_x
 
 
@@ -323,7 +356,7 @@ def phase_kernels(dev):
         del got, want
         ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 20)
         plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 5)
-        work = spade_work(s, ch, x.element_size())
+        work = spade_work(400, 40, s, ch, x.element_size())
         bound_ms, _ = bound(*work, FP32_FLOPS)
         k, resident = spade_gn.spade_gn_plan(s * s, ch, x.element_size())
         clusters = lib.spade_gn_max_clusters(s * s, ch, 16, int(dtype == torch.bfloat16),
@@ -338,7 +371,8 @@ def phase_kernels(dev):
         times.append((ms, plain))
         del x, gamma, beta
     s, ch, dtype = K3_CASES[0]
-    out["spade_gn"] = row(max(errs), times[0], spade_work(s, ch, 2), FP32_FLOPS)
+    out["spade_gn"] = row(max(errs), times[0], spade_work(400, 40, s, ch, 2),
+                          FP32_FLOPS)
 
     # K3's backward: the gradients of sum(out * r) through K3 and the
     # portable VJP against autograd of the plain version
@@ -906,6 +940,238 @@ def phase_nonsquare(dev, smi):
     return launches
 
 
+def phase_k3_train(dev):
+    """(i1) K3 at the decoder's training shapes: forward against the plain
+    version, two calls bitwise equal, device times, bound and share; the
+    backward (K3 + the portable VJP) against autograd of the plain version."""
+    from ipoke_tpu_torch.ops import _build, spade_gn
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    lib, n, tol, rows = _build.load(), K3_TRAIN_FRAMES, K3_TOL[torch.float32], []
+    for s, ch in K3_TRAIN_CASES:
+        x = randn(n, s, s, ch) * 2.0 + 0.5
+        gamma, beta = randn(n, s, s, ch) * 0.5, randn(n, s, s, ch) * 0.5
+        got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
+        want = spade_gn.spade_gn_plain(x, gamma, beta, 16)
+        err = check_close(f"K3 train S={s} Ch={ch}", got, want, tol, tol)
+        if not torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16)):
+            raise AssertionError(f"K3 train S={s} Ch={ch}: two calls differ")
+        ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 50)
+        plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 20)
+        bound_ms, bound_by = bound(*spade_work(n, n, s, ch, 4), FP32_FLOPS)
+        k, resident = spade_gn.spade_gn_plan(s * s, ch, 4)
+        clusters = lib.spade_gn_max_clusters(s * s, ch, 16, 0, k, int(resident))
+        r = randn(n, s, s, ch)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+            return torch.autograd.grad((fn(*leaves, 16) * r).sum(), leaves)
+
+        g_err = max(check_close(f"K3 train grad {g} S={s} Ch={ch}", a, b, tol, tol)
+                    for g, a, b in zip(("x", "gamma", "beta"),
+                                       grads(spade_gn.spade_gn_modulate),
+                                       grads(spade_gn.spade_gn_plain)))
+        g_ms = cuda_ms(lambda: grads(spade_gn.spade_gn_modulate), 10)
+        g_plain = cuda_ms(lambda: grads(spade_gn.spade_gn_plain), 10)
+        print(f"K3 spade_gn train N={n} t=1 S={s} Ch={ch} G=16 fp32: max_abs_err "
+              f"{err:.3e} (tol {tol} abs+rel), two calls bitwise equal, kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {100 * bound_ms / ms:.1f}% of it); clusters of {k}, "
+              f"slices {'kept in' if resident else 'streamed past'} shared memory, "
+              f"{clusters} clusters resident at once; backward: gradients max_abs_err "
+              f"{g_err:.3e}, forward + backward {g_ms:.4f} ms, plain {g_plain:.4f} ms")
+        rows.append({"S": s, "Ch": ch, "frames": n, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "cluster": k, "resident": resident, "grad_max_abs_err": g_err,
+                     "fwd_bwd_ms": g_ms, "plain_fwd_bwd_ms": g_plain})
+    return rows
+
+
+def expected_first_stage_launches(cfg):
+    """Per first-stage train step: K3 at each SPADE level of each frame of
+    both generator forwards."""
+    levels = len(cfg["architecture"]["dec_channels"]) - 1
+    return {"nice_net": 0, "nice_net_train": 0, "macow_unit_inverse": 0,
+            "masked_conv_inverse": 0,
+            "spade_gn": 2 * cfg["data"]["max_frames"] * levels}
+
+
+def _first_stage_step(cfg, nets):
+    from ipoke_tpu_torch.core.optim import gan_adam
+    from ipoke_tpu_torch.models import first_stage as fs
+
+    txs = fs.create_first_stage_state(*nets[:3], lambda p: gan_adam(p, FS_TINY_LR))
+    return fs.FirstStageStep(cfg, *nets, *txs)
+
+
+def check_first_stage_update(name, card, cpu, lr):
+    """Hold the card's ``FirstStageStep`` after an update against the CPU's
+    by the (i2) rule; returns, per net, the worst moment error over its
+    limit and the share of params more than lr / 10 apart."""
+    worst = {}
+    for net_name, a, b, ta, tb in zip(
+            ("generator", "d_s", "d_t"), (card.model, card.disc_s, card.disc_t),
+            (cpu.model, cpu.disc_s, cpu.disc_t), (card.tx_g, card.tx_ds, card.tx_dt),
+            (cpu.tx_g, cpu.tx_ds, cpu.tx_dt)):
+        off = total = 0
+        for p, q in zip(a.parameters(), b.parameters()):
+            d = (p.detach().cpu() - q.detach()).abs()
+            if d.max() > 2 * lr:
+                raise AssertionError(f"{name} {net_name}: a param {d.max():.2e} apart")
+            off, total = off + int((d > 0.1 * lr).sum()), total + d.numel()
+        if off > 0.01 * total:
+            raise AssertionError(f"{name} {net_name}: {off} of {total} params "
+                                 "more than lr / 10 apart")
+        mus = [tb.adam.state[q]["exp_avg"] for q in tb.params]
+        floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
+        ratios = []
+        for q, m in zip(ta.params, mus):
+            err = (ta.adam.state[q]["exp_avg"].cpu() - m).norm()
+            ratios.append(float(err / (3e-4 * m.norm() + floor * m.numel() ** 0.5)))
+        if max(ratios) > 1:
+            raise AssertionError(f"{name} {net_name}: first moments apart "
+                                 f"({max(ratios):.2f} of the limit)")
+        worst[net_name] = (max(ratios), off / total)
+    return worst
+
+
+def sync_first_stage(card, cpu):
+    """Load the CPU step's params, spectral-norm state and Adam moments into
+    the card's."""
+    for a, b in zip((card.model, card.disc_s, card.disc_t),
+                    (cpu.model, cpu.disc_s, cpu.disc_t)):
+        a.load_state_dict(b.state_dict())
+    for ta, tb in zip((card.tx_g, card.tx_ds, card.tx_dt),
+                      (cpu.tx_g, cpu.tx_ds, cpu.tx_dt)):
+        for qa, qb in zip(ta.params, tb.params):
+            for k, v in tb.adam.state[qb].items():
+                ta.adam.state[qa][k].copy_(v)
+
+
+def phase_first_stage_tiny(dev):
+    """(i2) TINY, 3 steps card against CPU, each from the same state."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.models.first_stage import sample_draws
+
+    cfg = entry.FIRST_STAGE_TINY
+    nets = entry.build_first_stage(cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = entry.make_first_stage_batch(cfg, "cpu")
+    draw_gen = torch.Generator().manual_seed(1)
+    draws = [sample_draws(draw_gen, cfg, cfg["data"]["batch_size"]) for _ in range(3)]
+    to = lambda d, dv: {k: v.to(dv) if torch.is_tensor(v) else v for k, v in d.items()}
+    card = _first_stage_step(cfg, [copy.deepcopy(n).to(dev) for n in nets])
+    cpu = _first_stage_step(cfg, nets)
+    want = expected_first_stage_launches(cfg)
+    for i, d in enumerate(draws):
+        ops.reset_launches()
+        got = card(to(batch, dev), to(d, dev), 1.0)
+        torch.cuda.synchronize()
+        check_launches(f"first-stage TINY step {i}", want)
+        ref = cpu(batch, d, 1.0)
+        diffs = {k: abs(got[k].item() - ref[k].item()) / (1.0 + abs(ref[k].item()))
+                 for k in ref}
+        print(f"first-stage TINY step {i}, card vs CPU fp32 from the same state, "
+              f"|diff| / (1 + |CPU|) (tol {FS_TINY_TOL}): "
+              + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items()))
+        if not all(math.isfinite(got[k].item()) for k in got) \
+                or max(diffs.values()) > FS_TINY_TOL:
+            raise AssertionError(f"first-stage TINY step {i}: card disagrees with CPU")
+        worst = check_first_stage_update(f"first-stage TINY step {i}", card, cpu,
+                                         FS_TINY_LR)
+        print(f"first-stage TINY step {i}: params within 2 lr; first moments' worst "
+              "leaf error over its limit, share of params past lr / 10 (limit 1%): "
+              + ", ".join(f"{k} {r:.3f} {100 * o:.3f}%" for k, (r, o) in worst.items()))
+        sync_first_stage(card, cpu)
+
+
+def phase_first_stage(dev, smi):
+    """(i3) config/first_stage.yaml on the card: the path's run with launch
+    counts, every net moved, 3 timed steps, a host split and a profile."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.models.first_stage import sample_draws
+    from ipoke_tpu_torch.train import FirstStageTrainer
+
+    cfg = entry.FIRST_STAGE
+    B = cfg["data"]["batch_size"]
+    t0 = time.perf_counter()
+    nets = entry.build_first_stage(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    batch = entry.make_first_stage_batch(cfg, dev)
+    trainer = FirstStageTrainer(cfg, *nets)
+    draw_gen = torch.Generator(device=dev).manual_seed(1)
+    before = [[p.detach().clone() for p in net.parameters()] for net in nets[:3]]
+    torch.cuda.synchronize()
+    print(f"FIRST_STAGE built in {time.perf_counter() - t0:.1f} s: params "
+          + ", ".join(f"{name} {sum(p.numel() for p in net.parameters()) / 1e6:.2f}M"
+                      for name, net in zip(("generator", "d_s", "d_t", "vgg"), nets)))
+
+    ops.reset_launches()  # the first-stage path's run
+    metrics = trainer.train_step(batch, 0, draw_gen)
+    torch.cuda.synchronize()
+    launches = check_launches("FIRST_STAGE train step", expected_first_stage_launches(cfg))
+    metrics = {k: v.item() for k, v in metrics.items()}
+    if not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"FIRST_STAGE metrics {metrics}")
+    for name, net, p0 in zip(("generator", "d_s", "d_t"), nets[:3], before):
+        still = sum(torch.equal(a, b) for a, b in zip(p0, net.parameters()))
+        if still:
+            raise AssertionError(f"FIRST_STAGE: {still} {name} params did not move")
+    print("FIRST_STAGE step 1: every param of generator, d_s and d_t moved; "
+          + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()))
+    del before
+
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        trainer.train_step(batch, 0, draw_gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sum(times) / len(times)
+    print(f"FIRST_STAGE train fp32 B={B} T={cfg['data']['max_frames']} "
+          f"{cfg['data']['spatial_size'][0]}px: {ms:.1f} ms/step "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {B / (ms / 1e3):.2f} clips/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+
+    # one step split into its phases on the host clock, each closed by a
+    # synchronize
+    step, X = trainer.step, batch["images"]
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    mark("start")
+    draws = sample_draws(draw_gen, cfg, B)
+    mark("draws")
+    X_hat = step.fake(X, draws)
+    mark("generator forward (no grad)")
+    step.update_dt(X, X_hat, draws, 1.0)
+    mark("d_t update (hinge, R1 double backward, Adam)")
+    step.update_ds(X, X_hat, draws, 1.0)
+    mark("d_s update")
+    step.update_g(X, draws, 1.0)
+    mark("generator update (forward, discs, VGG, backward, Adam)")
+    print("FIRST_STAGE step parts, host clock: " + "; ".join(
+        f"{name} {1e3 * (t - t_prev):.1f} ms"
+        for (_, t_prev), (name, t) in zip(marks, marks[1:])))
+
+    _, kernels = profiled("FIRST_STAGE train step",
+                          lambda: trainer.train_step(batch, 0, draw_gen))
+    mine = [e for e in kernels if "spade_gn_kernel" in e.key]
+    total = sum(e.self_device_time_total for e in mine) / 1e3
+    calls = launches["spade_gn"]
+    print(f"  K3 in the step: {sum(e.count for e in mine)} launches, {total:.3f} ms "
+          f"of device time ({total / calls:.4f} ms per call); " + ", ".join(
+              f"{e.key[e.key.find('spade_gn_kernel'):][:40]} {e.count} x "
+              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms" for e in mine))
+    return launches, {"ms_per_step": ms, "in_situ_ms_per_call": total / calls}
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -949,6 +1215,11 @@ def main():
     paths["train"] = phase_shipped_train(dev, smi)
     # (h) the non-square inverse: K5 in every masked-conv flow
     paths["inverse_8x16"] = phase_nonsquare(dev, smi)
+    # (i) the first-stage VAE-GAN train step
+    kernels["spade_gn"]["train_shapes"] = phase_k3_train(dev)
+    phase_first_stage_tiny(dev)
+    paths["first_stage_train"], fs_times = phase_first_stage(dev, smi)
+    kernels["spade_gn"]["first_stage_in_situ_ms"] = fs_times["in_situ_ms_per_call"]
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

@@ -6,10 +6,12 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
 * The flow tree maps 1:1 onto the port's (``flow_params``): same nesting,
   same leaf shapes.  Stacked ``ScannedSteps`` leaves keep their leading
   n axis; the port walks them like the JAX scan does.
-* The frozen flax nets map path by path onto the port's modules, whose
-  names repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW
-  (the motion encoder's 3D kernels from DHWIO to OIDHW), transpose-conv
-  kernels are flipped, and spectral norm is collapsed here with flax's eval
+* The flax nets map path by path onto the port's modules, whose names
+  repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW (3D
+  kernels from DHWIO to OIDHW), transpose-conv kernels are flipped.  A
+  flax spectral norm keeps its ``u`` and ``sigma`` in ``batch_stats``: a
+  port conv built with ``snorm`` (training) takes them as they are; one
+  without it (a frozen net) takes the kernel collapsed with flax's eval
   rule (``collapse_spectral_norm``).
 """
 
@@ -76,6 +78,24 @@ def _copy(param, value, where):
         param.copy_(value)
 
 
+def spectral_norm_stats(stats, path):
+    """(u, sigma) of the flax spectral norm around the layer at ``path``, or
+    None.  flax keeps them under the parent, at
+    ``SpectralNorm_<i>/"<layer>/kernel/u"`` (and ``.../sigma``), the i-th
+    spectral norm of the parent, whichever layer it wraps."""
+    if not path:
+        return None
+    try:
+        parent = _get(stats, path[:-1])
+    except KeyError:
+        return None
+    key = f"{path[-1]}/kernel/"
+    for name, node in parent.items():
+        if name.startswith("SpectralNorm_") and key + "u" in node:
+            return node[key + "u"], node[key + "sigma"]
+    return None
+
+
 def load_flax(module: torch.nn.Module, params, stats=None) -> None:
     """Copy a flax variable tree (``params`` and its ``batch_stats``) into
     ``module``, whose submodule names repeat the flax names.  Every port
@@ -86,28 +106,26 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
     for name, sub in module.named_modules():
         path = name.split(".") if name else []
         where = "/".join(path) or "<root>"
-        if isinstance(sub, (Conv, ConvTranspose)):
+        if isinstance(sub, (Conv, ConvTranspose, Conv3d)):
             node = _get(params, path)
             kernel = np.asarray(node["kernel"], np.float32)
-            u = None
-            if path:  # flax keeps u at <block>/SpectralNorm_0/"<layer>/kernel/u"
-                try:
-                    u = _get(stats, path[:-1] + ["SpectralNorm_0",
-                                                  f"{path[-1]}/kernel/u"])
-                except KeyError:
-                    pass
-            if u is not None:
-                kernel = collapse_spectral_norm(kernel, u)
+            sn = spectral_norm_stats(stats, path)
+            if sub.snorm:
+                if sn is None:
+                    raise KeyError(f"{where}: no spectral norm stats")
+                _copy(sub.u, sn[0], f"{where}/u")
+                _copy(sub.sigma, sn[1], f"{where}/sigma")
+            elif sn is not None:
+                kernel = collapse_spectral_norm(kernel, sn[0])
             if isinstance(sub, Conv):
                 w = kernel.transpose(3, 2, 0, 1)
-            else:
+            elif isinstance(sub, ConvTranspose):
                 w = np.flip(kernel, (0, 1)).transpose(2, 3, 0, 1)
+            else:  # DHWIO -> OIDHW, no bias
+                w = kernel.transpose(4, 3, 0, 1, 2)
             _copy(sub.weight, w, where)
-            if sub.bias is not None:
+            if getattr(sub, "bias", None) is not None:
                 _copy(sub.bias, node["bias"], where)
-        elif isinstance(sub, Conv3d):  # DHWIO -> OIDHW, no bias
-            kernel = np.asarray(_get(params, path)["kernel"], np.float32)
-            _copy(sub.weight, kernel.transpose(4, 3, 0, 1, 2), where)
         elif isinstance(sub, GroupNorm):
             if sub.scale is not None:
                 node = _get(params, path)

@@ -1,4 +1,10 @@
-"""Optimizers of the cINN (counterpart of ``ipoke_tpu/core/optim.py``).
+"""Optimizers (counterpart of ``ipoke_tpu/core/optim.py``).
+
+``gan_adam`` is the first stage's: ``torch.optim.Adam`` with betas (0.5,
+0.9) and coupled L2 weight decay, which is optax's ``add_decayed_weights``
+before ``scale_by_adam``; ``exp_decay_per_epoch`` its staircase schedule.
+A gated step (``disc_gate`` 0) is skipped, so neither params nor moments
+move, as the JAX package's ``gated_update`` keeps them.
 
 ``flow_adam`` is the JAX package's default flow optimizer: coupled L2 weight
 decay, then torch's exact AMSGrad, then the learning-rate schedule, which is
@@ -36,6 +42,14 @@ def warmup_linear_decay(lr: float, warmup_steps: int,
     return schedule
 
 
+def exp_decay_per_epoch(lr: float, gamma: float,
+                        steps_per_epoch: int) -> Callable[[int], float]:
+    """torch ``ExponentialLR`` stepped once per epoch: lr * gamma ** (count
+    // steps_per_epoch) (optax's staircase ``exponential_decay``)."""
+    steps = max(1, steps_per_epoch)
+    return lambda count: lr * gamma ** (count // steps)
+
+
 def cast_floats(tree, dtype):
     """Cast every float tensor of a dict/list tree to ``dtype``; others pass
     through."""
@@ -49,20 +63,22 @@ def cast_floats(tree, dtype):
 WEIGHT_DECAY = 1e-5  # the JAX package's flow_adam default, which the trainer uses
 
 
-class _FlowAdam:
-    """``flow_adam``'s update over a list of tensors: ``torch.optim.Adam``
-    with AMSGrad and coupled weight decay at lr = ``schedule(count)``.
-    ``step`` reads each tensor's ``.grad`` (a missing one counts as zero, as
-    in optax, so decay and moments still move) and clears it."""
+class _Adam:
+    """An optax Adam chain over a list of tensors: ``torch.optim.Adam`` with
+    coupled weight decay at lr = ``schedule(count)``, ``count`` the updates
+    made so far.  ``step`` reads each tensor's ``.grad`` (a missing one
+    counts as zero, as in optax, so decay and moments still move) and clears
+    it."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr_schedule: Schedule):
+    def __init__(self, params: Iterable[torch.Tensor], lr_schedule: Schedule,
+                 betas, weight_decay: float, amsgrad: bool):
         self.params = list(params)
         self.schedule = lr_schedule if callable(lr_schedule) \
             else (lambda _: lr_schedule)
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=0.0, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=WEIGHT_DECAY,
-                                     amsgrad=True)
+        self.adam = torch.optim.Adam(self.params, lr=0.0, betas=betas,
+                                     eps=1e-8, weight_decay=weight_decay,
+                                     amsgrad=amsgrad)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -76,9 +92,14 @@ class _FlowAdam:
         self.count += 1
 
 
-def flow_adam(params, lr_schedule: Schedule) -> _FlowAdam:
-    """The flow optimizer over ``params`` (the trainable leaves)."""
-    return _FlowAdam(params, lr_schedule)
+def flow_adam(params, lr_schedule: Schedule) -> _Adam:
+    """The flow optimizer over ``params`` (the trainable leaves): AMSGrad."""
+    return _Adam(params, lr_schedule, (0.9, 0.999), WEIGHT_DECAY, True)
+
+
+def gan_adam(params, lr_schedule: Schedule, weight_decay: float = 1e-5) -> _Adam:
+    """The first stage's optimizer over ``params``: Adam, betas (0.5, 0.9)."""
+    return _Adam(params, lr_schedule, (0.5, 0.9), weight_decay, False)
 
 
 class _MasterWeights:
@@ -88,7 +109,7 @@ class _MasterWeights:
     ``bf16(master) - p`` leaves p within 1 ulp of that; here it is exact)."""
 
     def __init__(self, params: Iterable[torch.Tensor],
-                 make_inner: Callable[[list], _FlowAdam]):
+                 make_inner: Callable[[list], _Adam]):
         self.params = list(params)
         self.master = [p.detach().float().clone() for p in self.params]
         self.inner = make_inner(self.master)
@@ -103,7 +124,7 @@ class _MasterWeights:
             p.copy_(m)
 
 
-def master_weights(params, make_inner: Callable[[list], _FlowAdam]) -> _MasterWeights:
+def master_weights(params, make_inner: Callable[[list], _Adam]) -> _MasterWeights:
     """``make_inner(masters)`` builds the inner optimizer over fp32 copies
     of ``params``, taken now (after any bf16 cast, as the JAX trainer
     builds its optimizer after DDI and the cast)."""

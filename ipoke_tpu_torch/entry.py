@@ -1,5 +1,6 @@
-"""Build the second-stage model (counterpart of
-``__graft_entry__._make_models`` / ``_build``).
+"""Build the models (second stage: counterpart of
+``__graft_entry__._make_models`` / ``_build``; first stage: of
+``FirstStageExperiment.build``).
 
 ``SHIPPED`` is the shipped configuration (128 px, B=40, T=10, the 1054M-param
 15-level cINN with NICE hidden 2048, motion encoder channels
@@ -11,6 +12,12 @@ encoder (sampling does not run it).
 Every coupling's out conv starts at g = 0, which makes every NICE and masked
 conv flow an identity; ``perturb`` sets them (and the ActNorms) to
 non-trivial values for runs whose outputs are compared.
+
+``FIRST_STAGE`` is ``config/first_stage.yaml`` (64 px, B=20, T=10, fp32),
+copied as the reference-style tree the first stage is built from;
+``FIRST_STAGE_TINY`` is the TINY config of the JAX package's first-stage
+tests.  ``build_first_stage`` makes the generator, both discriminators and
+VGG on a device from a generator (or on ``meta``).
 """
 
 from __future__ import annotations
@@ -22,11 +29,14 @@ import torch
 
 from .data.synthetic import make_batch as _make_batch_np
 from .flows.base import ParamTree
+from .models import first_stage as _fs
 from .models.first_stage import FirstStageModel
 from .models.second_stage import SecondStageModel
 from .nn.blocks import Conv, ConvTranspose, GroupNorm
+from .nn.discriminators import Dense
 from .nn.encoders import FirstStageWrapper
 from .nn.motion import Conv3d
+from .nn.vgg import VGG19Features
 
 SHIPPED = dict(spatial=128, min_spatial=8, T=10, z_dim=32,
                enc_ch=(64, 128, 256, 256, 256),
@@ -36,6 +46,40 @@ SHIPPED = dict(spatial=128, min_spatial=8, T=10, z_dim=32,
 SMALL = dict(spatial=64, min_spatial=8, T=10, z_dim=32,
              enc_ch=(32, 64, 128, 128), dec_ch=(128, 128, 64, 32), nf_cond=32,
              num_steps=(2, 2, 1), mid_factor=8, batch_size=8)
+
+
+# config/first_stage.yaml, the parts the train step reads
+FIRST_STAGE = {
+    "data": {"spatial_size": (64, 64), "max_frames": 10, "batch_size": 20},
+    "architecture": {
+        "ENC_M_channels": [64, 128, 256, 256], "z_dim": 32, "norm": "group",
+        "spectral_norm": True, "n_gru_layers": 4,
+        "dec_channels": [256, 256, 128, 64], "min_spatial_size": 8,
+        "motion_bias": True},
+    "training": {"lr": 2e-4, "weight_decay": 1e-5,
+                 "max_batches_per_epoch": 2000, "w_kl": 1e-7, "w_l1": 10.0,
+                 "w_vgg": 10.0, "gamma": 0.98, "full_sequence": True},
+    "d_t": {"use": True, "pretrain": 0, "max_frames": 8, "gp_weight": 1.0,
+            "gen_weight": 1.0, "fmap_weight": 1.0, "layers": [1, 1, 1, 1],
+            "patch_temp_disc": False},
+    "d_s": {"use": True, "pretrain": 0, "n_examples": 16, "ndf": 64,
+            "n_layers": 3},
+}
+# the TINY config of the JAX package's first-stage tests
+FIRST_STAGE_TINY = {
+    "data": {"spatial_size": (32, 32), "max_frames": 3, "batch_size": 2},
+    "architecture": {
+        "z_dim": 8, "ENC_M_channels": [16, 16, 32, 32],
+        "dec_channels": [32, 32, 16, 16], "n_gru_layers": 2,
+        "min_spatial_size": 4, "norm": "group", "spectral_norm": True,
+        "motion_bias": True},
+    "training": {"lr": 1e-3, "w_kl": 1e-6, "w_l1": 10.0, "w_vgg": 1.0,
+                 "full_sequence": True},
+    "d_t": {"use": True, "pretrain": 0, "max_frames": 3, "gp_weight": 1.0,
+            "gen_weight": 1.0, "fmap_weight": 1.0, "layers": [1, 1, 1, 1]},
+    "d_s": {"use": True, "pretrain": 0, "n_examples": 4, "ndf": 16,
+            "n_layers": 2},
+}
 
 
 def second_stage_config(cfg) -> dict:
@@ -65,9 +109,9 @@ def make_model(cfg, flow_params=None) -> SecondStageModel:
                             flow_params)
 
 
-def _init_frozen(module: torch.nn.Module, generator) -> None:
-    """Fan-in-scaled normal conv weights, zero biases, unit GroupNorm scales,
-    N(0, 1) motion bias."""
+def _init_random(module: torch.nn.Module, generator) -> None:
+    """Fan-in-scaled normal conv and dense weights, zero biases, unit
+    GroupNorm scales, N(0, 1) motion bias and spectral-norm u, sigma 1."""
     with torch.no_grad():
         for sub in module.modules():
             if isinstance(sub, Conv3d):
@@ -78,10 +122,17 @@ def _init_frozen(module: torch.nn.Module, generator) -> None:
                 fan_in = (w.shape[1] if isinstance(sub, Conv) else w.shape[0]) \
                     * w.shape[2] * w.shape[3]
                 w.normal_(0.0, fan_in ** -0.5, generator=generator)
-                sub.bias.zero_()
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, Dense):
+                sub.kernel.normal_(0.0, sub.kernel.shape[0] ** -0.5,
+                                   generator=generator)
             elif isinstance(sub, GroupNorm) and sub.scale is not None:
                 sub.scale.fill_(1.0)
                 sub.bias.zero_()
+            if getattr(sub, "snorm", False):
+                sub.u.normal_(0.0, 1.0, generator=generator)
+                sub.sigma.fill_(1.0)
         for name, p in module.named_parameters():
             if name.endswith("motion_bias"):
                 p.normal_(0.0, 1.0, generator=generator)
@@ -98,7 +149,7 @@ def build(cfg, device,
     flow_tree = model.flow.init(generator, device)
     if device.type != "meta":
         model = model.to_empty(device=device)
-        _init_frozen(model, generator)
+        _init_random(model, generator)
     model.flow_params = ParamTree(flow_tree)
     return model.eval()
 
@@ -137,3 +188,32 @@ def make_batch(cfg, device, dtype=torch.float32, seed: int = 0) -> dict:
     return {k: torch.as_tensor(np_batch[k], device=device, dtype=dtype)
             for k in ("images", "poke", "flow")}
 
+
+def build_first_stage(cfg, device, generator: Optional[torch.Generator] = None):
+    """(model, disc_s, disc_t, vgg) of the reference-style config ``cfg``
+    (``FIRST_STAGE``), fp32, with random weights made on ``device`` from
+    ``generator`` (``meta``: shapes only); VGG from its own CPU generator
+    seeded 0, so that it has the same weights on every device (fixed-seed,
+    as the JAX package's VGG; the values are not JAX's)."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        nets = (*_fs.build_first_stage(cfg), VGG19Features())
+    if device.type == "meta":
+        return nets
+    *nets, vgg = nets
+    nets = [net.to_empty(device=device) for net in nets]
+    for net in nets:
+        _init_random(net, generator)
+    vgg = vgg.to_empty(device="cpu")
+    _init_random(vgg, torch.Generator().manual_seed(0))
+    return (*nets, vgg.to(device))
+
+
+def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:
+    """A synthetic batch of clips (B, T+1, H, W, 3) in [-1, 1] at ``cfg``'s
+    data sizes, as a dict with ``images``."""
+    d = cfg["data"]
+    np_batch = _make_batch_np(np.random.default_rng(seed),
+                              batch_size=d["batch_size"], n_frames=d["max_frames"],
+                              spatial_size=d["spatial_size"][0])
+    return {"images": torch.as_tensor(np_batch["images"], device=device)}

@@ -1,7 +1,15 @@
-"""First-stage video autoencoder, frozen (counterpart of
-``ipoke_tpu/models/first_stage.py``): the motion encoder (``encode``, used by
-second-stage training) and the decode of sampling.  The GRU's input is the
-learned motion bias, as at the shipped config (``motion_bias: True``)."""
+"""First-stage video VAE-GAN (counterpart of ``ipoke_tpu/models/first_stage.py``).
+
+The model: 3D-ResNet motion encoder -> z_m (B, s, s, z_dim) -> ConvGRU
+rollout from the learned motion bias -> SPADE-conditioned conv decoder per
+frame.  Sampling and second-stage training run it frozen (``encode``, the
+batched eval ``decode``); the first stage trains it (``forward`` with
+``train``, frame by frame) in ``FirstStageStep``: the
+generator forward, then the temporal discriminator's update (hinge + R1
+penalty on a random window), the spatial discriminator's (random frames),
+and the generator's (hinge, feature matching, VGG, L1, KL), in the JAX
+package's order, with the discriminators gated by ``disc_gate``.
+"""
 
 from __future__ import annotations
 
@@ -10,9 +18,24 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..nn.discriminators import (
+    PatchDiscriminator2D,
+    ResNet3DDiscriminator,
+    fmap_loss,
+    gen_loss,
+    gradient_penalty,
+    hinge_d_loss,
+)
 from ..nn.encoders import SpadeCondConvDecoder
 from ..nn.gru import ConvGRU
 from ..nn.motion import ResNetMotionEncoder
+from ..nn.vgg import vgg_loss
+
+
+def kl_loss(mu, logvar):
+    """Channel-sum, mean elsewhere."""
+    return -0.5 * torch.mean(
+        torch.sum(1.0 + logvar - mu ** 2 - torch.exp(logvar), dim=-1))
 
 
 class FirstStageModel(nn.Module):
@@ -21,11 +44,14 @@ class FirstStageModel(nn.Module):
                  n_gru_layers: int = 4, min_spatial_size: int = 8,
                  norm: str = "group",
                  enc_channels: Optional[Sequence[int]] = None,
-                 max_frames: int = 10, deterministic: bool = False):
+                 max_frames: int = 10, deterministic: bool = False,
+                 spectral_norm: bool = False):
         """``enc_channels`` None leaves the motion encoder out (sampling
-        does not run it)."""
+        does not run it).  ``spectral_norm`` keeps the decoder's spectral
+        norm live (training); frozen models take it collapsed."""
         super().__init__()
         self.spatial_size, self.z_dim = spatial_size, z_dim
+        self.deterministic = deterministic
         if enc_channels is not None:
             self.enc_motion = ResNetMotionEncoder(
                 enc_channels, z_dim, spatial_size, max_frames,
@@ -34,7 +60,16 @@ class FirstStageModel(nn.Module):
         self.rnn = ConvGRU(z_dim, z_dim, n_gru_layers)
         self.motion_bias = nn.Parameter(
             torch.empty(1, min_spatial_size, min_spatial_size, z_dim))
-        self.gen = SpadeCondConvDecoder(z_dim, dec_channels, 3, norm)
+        self.gen = SpadeCondConvDecoder(z_dim, dec_channels, 3, norm,
+                                        snorm=spectral_norm)
+
+    def forward(self, X, train: bool = False, noise=None):
+        """(X_hat (B, T, H, W, 3), mu, logvar) of the clip ``X`` (B, T+1, H,
+        W, 3): the whole clip encoded, z = noise * exp(logvar / 2) + mu (mu
+        without ``noise`` or when deterministic), decoded from the start
+        frame over T frames."""
+        motion, mu, logvar = self.enc_motion(X, noise=noise)
+        return self.decode(motion, X[:, 0], X.shape[1] - 1, train), mu, logvar
 
     def encode(self, X, generator: Optional[torch.Generator] = None):
         """(z, mu, logvar) of the whole clip ``X`` (B, T+1, H, W, 3), as
@@ -42,18 +77,198 @@ class FirstStageModel(nn.Module):
         when deterministic."""
         return self.enc_motion(X, generator)
 
-    def decode(self, motion, start_frame, length: int):
-        """ConvGRU rollout over ``length`` frames from ``motion`` (B, s, s, z),
-        then one batched SPADE decode of all B*T frames (B-major), with the
-        per-clip SPADE modulations computed once from the start frame.
-        Returns (B, T, H, W, 3)."""
+    def decode(self, motion, start_frame, length: int, train: bool = False):
+        """ConvGRU rollout over ``length`` frames from ``motion`` (B, s, s,
+        z), with the per-clip SPADE modulations computed once from the start
+        frame.  Eval: one batched SPADE decode of all B*T frames (B-major).
+        Train: the decoder renders frame by frame, each call advancing every
+        spectral norm's ``u``, so frame t runs on the u of t updates (the
+        JAX package's ``nn.scan`` carrying ``batch_stats``).  Returns (B, T,
+        H, W, 3)."""
         hidden = tuple(motion for _ in range(self.n_gru_layers))
         in_rnn = self.motion_bias.expand(motion.shape[0], -1, -1, -1)
         mods = self.gen.spade_modulations(start_frame, motion.shape[1])
-        hs = []
+        hs, frames = [], []
         for _ in range(length):
             hidden = self.rnn(in_rnn, hidden)
-            hs.append(hidden[-1])
+            if train:
+                frames.append(self.gen(hidden[-1], mods, train=True))
+            else:
+                hs.append(hidden[-1])
+        if train:
+            return torch.stack(frames, dim=1)
         flat = torch.stack(hs, dim=1).flatten(0, 1)  # frame index b*T + t
         frames = self.gen(flat, mods)
         return frames.reshape(motion.shape[0], length, *frames.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def _dt_frames(config) -> int:
+    return min(config["d_t"].get("max_frames", 8), config["data"]["max_frames"] + 1)
+
+
+def sample_draws(generator: torch.Generator, config, batch_size: int) -> dict:
+    """One step's random numbers, on ``generator``'s device: the encoder
+    noise (B, s, s, z_dim), shared by both generator forwards; the d_t
+    window's start in [0, max(1, T+1 - window)); and ``n_examples`` real and
+    fake frame indices for d_s, drawn with replacement."""
+    arch, T = config["architecture"], config["data"]["max_frames"]
+    s, n_ex = arch.get("min_spatial_size", 8), config["d_s"].get("n_examples", 16)
+    kw = dict(generator=generator, device=generator.device)
+    return {
+        "noise": torch.randn((batch_size, s, s, arch["z_dim"]), **kw),
+        "offset": int(torch.randint(0, max(1, T + 1 - _dt_frames(config)), (),
+                                    **kw)),
+        "idx_t": torch.randint(0, batch_size * (T + 1), (n_ex,), **kw),
+        "idx_f": torch.randint(0, batch_size * T, (n_ex,), **kw),
+    }
+
+
+def create_first_stage_state(model, disc_s, disc_t, make_tx):
+    """The three optimizers (generator, d_s, d_t), each ``make_tx(params)``
+    over one net's parameters."""
+    return tuple(make_tx(list(net.parameters())) for net in (model, disc_s, disc_t))
+
+
+class FirstStageStep:
+    """The JAX package's ``make_first_stage_train_step``: ``step(batch,
+    draws, disc_gate, kl_gate=1.0) -> metrics``, in its order; the phases
+    are methods so that a caller can time them.
+
+    * ``fake``: the generator forward without grad (its spectral-norm stats
+      are discarded, as in JAX);
+    * ``update_dt``: d_t's loss on the window; the real and gradient-penalty
+      passes run in eval on the old u, the fake pass in train mode (run last,
+      it stores the new u);
+    * ``update_ds``: the same on the sampled frames;
+    * ``update_g``: the generator forward again from the old u, with grad
+      (its stats are the step's new ones), against both discriminators with
+      their new params and u in eval.
+
+    With ``disc_gate`` 0 the discriminators' optimizer steps are skipped
+    (params and moments stay; their u still advances, as in JAX)."""
+
+    def __init__(self, config, model, disc_s, disc_t, vgg, tx_g, tx_ds, tx_dt):
+        tcfg, dtc = config["training"], config["d_t"]
+        self.model, self.disc_s, self.disc_t, self.vgg = model, disc_s, disc_t, vgg
+        self.tx_g, self.tx_ds, self.tx_dt = tx_g, tx_ds, tx_dt
+        self.mf_dt = _dt_frames(config)
+        self.gp_weight = dtc.get("gp_weight", 0.0)
+        self.w_kl, self.w_l1, self.w_vgg = tcfg["w_kl"], tcfg["w_l1"], tcfg["w_vgg"]
+        self.gen_w, self.fmap_w = dtc.get("gen_weight", 1.0), dtc.get("fmap_weight", 1.0)
+        for p in vgg.parameters():
+            p.requires_grad_(False)
+
+    def window(self, V, draws):
+        return V[:, draws["offset"]:draws["offset"] + self.mf_dt]
+
+    @staticmethod
+    def frames(V, idx):
+        return V.reshape(-1, *V.shape[2:])[idx]
+
+    @staticmethod
+    def _apply(tx, loss, disc_gate) -> None:
+        if disc_gate > 0:
+            grads = torch.autograd.grad(loss, tx.params, allow_unused=True)
+            for p, g in zip(tx.params, grads):
+                p.grad = g
+            tx.step()
+
+    def fake(self, X, draws):
+        with torch.no_grad():
+            saved = [(m, m.u, m.sigma) for m in self.model.modules()
+                     if getattr(m, "snorm", False)]
+            X_hat = self.model(X, train=True, noise=draws["noise"])[0]
+            for m, u, sigma in saved:  # discarded, as the JAX step does
+                m.u, m.sigma = u, sigma
+        return X_hat
+
+    def update_dt(self, X, X_hat, draws, disc_gate):
+        d = self.disc_t
+        X_true_w = self.window(X, draws)
+        X_fake_w = self.window(torch.cat([X[:, :1], X_hat], dim=1), draws)
+        pred_true = d(X_true_w, train=False)[0]
+        gp = X.new_zeros(())
+        if self.gp_weight > 0:
+            gp = gradient_penalty(lambda v: d(v, train=False)[0], X_true_w).mean()
+        pred_fake = d(X_fake_w, train=True)[0]
+        loss = 0.5 * (hinge_d_loss(pred_fake, False) + hinge_d_loss(pred_true, True))
+        self._apply(self.tx_dt, disc_gate * (loss + self.gp_weight * gp), disc_gate)
+        return loss.detach(), gp.detach()
+
+    def update_ds(self, X, X_hat, draws, disc_gate):
+        d = self.disc_s
+        pred_true = d(self.frames(X, draws["idx_t"]), train=False)[0]
+        pred_fake = d(self.frames(X_hat, draws["idx_f"]), train=True)[0]
+        loss = 0.5 * (hinge_d_loss(pred_fake, False) + hinge_d_loss(pred_true, True))
+        self._apply(self.tx_ds, disc_gate * loss, disc_gate)
+        return loss.detach()
+
+    def update_g(self, X, draws, disc_gate, kl_gate=1.0):
+        X_hat, mu, logvar = self.model(X, train=True, noise=draws["noise"])
+        X_fake_w = self.window(torch.cat([X[:, :1], X_hat], dim=1), draws)
+        pred_fake_s = self.disc_s(self.frames(X_hat, draws["idx_f"]))[0]
+        pred_fake_t, fmap_fake = self.disc_t(X_fake_w)
+        with torch.no_grad():
+            fmap_true = self.disc_t(self.window(X, draws))[1]
+        l_gen_s, l_gen_t = gen_loss(pred_fake_s), gen_loss(pred_fake_t)
+        l_fmap = fmap_loss(fmap_fake, fmap_true)
+        l_vgg = vgg_loss(self.vgg, X[:, 1:].reshape(-1, *X.shape[2:]),
+                         X_hat.reshape(-1, *X_hat.shape[2:]))
+        l_l1 = (X[:, 1:] - X_hat).abs().mean()
+        l_kl = X.new_zeros(()) if self.model.deterministic else kl_loss(mu, logvar)
+        loss = (disc_gate * (l_gen_s + self.gen_w * l_gen_t + self.fmap_w * l_fmap)
+                + self.w_vgg * l_vgg + kl_gate * self.w_kl * l_kl
+                + self.w_l1 * l_l1)
+        self._apply(self.tx_g, loss, 1.0)
+        return {"loss_g_s": l_gen_s, "loss_g_t": l_gen_t, "loss_fmap_t": l_fmap,
+                "l_vgg": l_vgg, "l_rec": l_l1, "l_kl": l_kl, "loss": loss}
+
+    def __call__(self, batch, draws, disc_gate: float, kl_gate: float = 1.0):
+        X = batch["images"]
+        X_hat = self.fake(X, draws)
+        loss_dt, gp_dt = self.update_dt(X, X_hat, draws, disc_gate)
+        loss_ds = self.update_ds(X, X_hat, draws, disc_gate)
+        metrics = self.update_g(X, draws, disc_gate, kl_gate)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss_d_dt=loss_dt, loss_gp_dt=gp_dt, loss_d_ds=loss_ds)
+        return metrics
+
+
+def build_first_stage(config):
+    """(model, disc_s, disc_t) of a reference-style config tree, on the
+    current default device, fp32, weights uninitialised (``entry`` fills
+    them)."""
+    arch, dcfg, tcfg = config["architecture"], config["data"], config["training"]
+    if arch.get("fc_baseline", False):
+        raise NotImplementedError(
+            "the FC baseline first stage is not ported yet (ROADMAP queue 1 item 8)")
+    if arch.get("baseline", False):
+        raise NotImplementedError(
+            "the PokeVAE baseline is not ported yet (ROADMAP queue 1 item 5)")
+    if tcfg.get("mixed_prec", False):
+        raise NotImplementedError("bf16 mixed_prec first-stage training is not "
+                                  "ported yet (ROADMAP queue 1 item 4)")
+    if not tcfg.get("full_sequence", True) or not arch.get("motion_bias", True) \
+            or arch.get("torch_compat", False):
+        raise NotImplementedError("the port's first stage takes full_sequence, "
+                                  "motion_bias and no torch_compat")
+    model = FirstStageModel(
+        dcfg["spatial_size"][0], z_dim=arch["z_dim"],
+        dec_channels=tuple(arch["dec_channels"]),
+        n_gru_layers=arch.get("n_gru_layers", 4),
+        min_spatial_size=arch.get("min_spatial_size", 8),
+        norm=arch.get("norm", "group"),
+        enc_channels=tuple(arch["ENC_M_channels"]),
+        max_frames=dcfg["max_frames"],
+        deterministic=arch.get("deterministic", False),
+        spectral_norm=arch.get("spectral_norm", True))
+    disc_s = PatchDiscriminator2D(ndf=config["d_s"].get("ndf", 64),
+                                  n_layers=config["d_s"].get("n_layers", 3))
+    disc_t = ResNet3DDiscriminator(
+        layers=tuple(config["d_t"].get("layers", (1, 1, 1, 1))),
+        patch_temp_disc=config["d_t"].get("patch_temp_disc", False))
+    return model, disc_s, disc_t

@@ -1,4 +1,5 @@
-"""Conv building blocks, GRU, encoders, decoder and motion encoder."""
+"""Conv building blocks, GRU, encoders, decoder, motion encoder,
+discriminators and VGG."""
 
 from .blocks import (
     Conv,
@@ -8,9 +9,21 @@ from .blocks import (
     GroupNorm,
     ResBlock,
     Spade,
+    SpectralNormed,
     make_norm,
     resize_bilinear,
+)
+from .discriminators import (
+    PatchDiscriminator2D,
+    ResNet3DDiscriminator,
+    adaptive_disc_weight,
+    bce_d_loss,
+    fmap_loss,
+    gen_loss,
+    gradient_penalty,
+    hinge_d_loss,
 )
 from .encoders import ConvEncoder, FirstStageWrapper, SpadeCondConvDecoder
 from .gru import ConvGRU, ConvGRUCell
 from .motion import BasicBlock3d, Conv3d, ResNetMotionEncoder
+from .vgg import VGG19Features, vgg_loss

@@ -1,11 +1,17 @@
-"""Conv building blocks, inference (counterpart of ``ipoke_tpu/nn/blocks.py``).
+"""Conv building blocks (counterpart of ``ipoke_tpu/nn/blocks.py``).
 
 Modules take and return NHWC tensors, like the JAX package; each conv runs
 on an NCHW view of them (a channels-last NCHW tensor, so no copy).  Module
 and attribute names repeat the flax names (``Conv_0``, ``GroupNorm_0``,
 ``Conv2dBlock_1``, ...) so that ``ipoke_tpu_torch.convert`` maps a flax tree
-onto them path by path.  Spectral norm exists only in the JAX package's
-parameters: ``convert`` collapses it into the conv weight (flax's eval rule).
+onto them path by path.
+
+Spectral norm follows flax's ``nn.SpectralNorm``, not
+``torch.nn.utils.spectral_norm``: a conv built with ``snorm`` keeps a buffer
+``u`` (1, out) and ``sigma``, and every call runs one power-iteration step
+from the stored ``u`` over the kernel as a (-1, out) matrix, in train and
+eval alike; only ``train=True`` stores the new ``u`` and ``sigma``.  Frozen
+nets built without ``snorm`` take the collapsed weight (``convert``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,42 @@ class GroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _l2_normalize(x, eps: float = 1e-12):
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNormed(nn.Module):
+    """Base of the convs that may carry flax's spectral norm.  ``weight_t``
+    is the weight as an (out, -1) matrix: the transpose of flax's (-1, out)
+    kernel up to a permutation of its rows, which changes neither sigma nor
+    the power iteration."""
+
+    def _init_snorm(self, snorm: bool, cout: int) -> None:
+        self.snorm = snorm
+        if snorm:
+            self.register_buffer("u", torch.randn(1, cout))
+            self.register_buffer("sigma", torch.ones(()))
+
+    def weight_t(self):
+        return self.weight.reshape(self.weight.shape[0], -1)
+
+    def normed_weight(self, train: bool):
+        """The weight over sigma from one power-iteration step from ``u``
+        (no gradient through u and v); with ``train`` the new u and sigma are
+        stored as new tensors, since autograd may hold the old ``u``."""
+        if not self.snorm:
+            return self.weight
+        wt = self.weight_t()
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ wt)
+            u = _l2_normalize(v @ wt.t())
+        sigma = ((v @ wt.t()) @ u.t())[0, 0]
+        w = self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        if train:
+            self.u, self.sigma = u, sigma.detach()
+        return w
+
+
 def make_norm(name: Optional[str], channels: int) -> Optional[nn.Module]:
     if name == "none":
         return None
@@ -68,39 +110,45 @@ def make_norm(name: Optional[str], channels: int) -> Optional[nn.Module]:
     raise ValueError(f"unsupported norm {name!r}")
 
 
-class Conv(nn.Module):
+class Conv(SpectralNormed):
     """flax ``nn.Conv`` with symmetric integer padding, on NHWC tensors.
     ``weight`` is OIHW (converted from flax's HWIO kernel)."""
 
     def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 1,
-                 padding: int = 0, bias: bool = True):
+                 padding: int = 0, bias: bool = True, snorm: bool = False):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(cout, cin, ks, ks))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self._init_snorm(snorm, cout)
 
-    def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+    def forward(self, x, train: bool = False):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.normed_weight(train), self.bias,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(SpectralNormed):
     """flax ``nn.ConvTranspose(k3, s2, "SAME", transpose_kernel=False)`` on
     NHWC tensors: ``F.conv_transpose2d`` with the spatially flipped kernel,
     output cropped by one row and column at the end.  ``weight`` is
     (in, out, kh, kw) = flip(kernel, (0, 1)).permute(2, 3, 0, 1)."""
 
-    def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 2):
+    def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 2,
+                 snorm: bool = False):
         super().__init__()
         if (ks, stride) != (3, 2):
             raise NotImplementedError("only the k3 s2 transpose conv is ported")
         self.weight = nn.Parameter(torch.empty(cin, cout, ks, ks))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self._init_snorm(snorm, cout)
 
-    def forward(self, x):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                               stride=2)
+    def weight_t(self):  # u runs over the out features
+        return self.weight.transpose(0, 1).reshape(self.weight.shape[1], -1)
+
+    def forward(self, x, train: bool = False):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.normed_weight(train),
+                               self.bias, stride=2)
         return y[:, :, :-1, :-1].permute(0, 2, 3, 1)
 
 
@@ -109,14 +157,14 @@ class Conv2dBlock(nn.Module):
 
     def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 1,
                  padding: int = 0, norm: str = "none", activation: str = "elu",
-                 use_bias: bool = True):
+                 use_bias: bool = True, snorm: bool = False):
         super().__init__()
-        self.Conv_0 = Conv(cin, out_dim, ks, st, padding, use_bias)
+        self.Conv_0 = Conv(cin, out_dim, ks, st, padding, use_bias, snorm)
         self.GroupNorm_0 = make_norm(norm, out_dim)
         self.act = get_activation(activation)
 
-    def forward(self, x):
-        x = self.Conv_0(x)
+    def forward(self, x, train: bool = False):
+        x = self.Conv_0(x, train)
         if self.GroupNorm_0 is not None:
             x = self.GroupNorm_0(x)
         return self.act(x) if self.act is not None else x
@@ -126,14 +174,15 @@ class Conv2dTransposeBlock(nn.Module):
     """2x upsampling transpose conv -> norm -> activation."""
 
     def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 2,
-                 norm: str = "none", activation: str = "elu"):
+                 norm: str = "none", activation: str = "elu",
+                 snorm: bool = False):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose(cin, out_dim, ks, st)
+        self.ConvTranspose_0 = ConvTranspose(cin, out_dim, ks, st, snorm)
         self.GroupNorm_0 = make_norm(norm, out_dim)
         self.act = get_activation(activation)
 
-    def forward(self, x):
-        x = self.ConvTranspose_0(x)
+    def forward(self, x, train: bool = False):
+        x = self.ConvTranspose_0(x, train)
         if self.GroupNorm_0 is not None:
             x = self.GroupNorm_0(x)
         return self.act(x) if self.act is not None else x
@@ -145,31 +194,36 @@ class ResBlock(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, norm: str = "group",
                  activation: str = "elu", upsampling: bool = False,
-                 stride: int = 1):
+                 stride: int = 1, snorm: bool = False):
         super().__init__()
         self.upsampling = upsampling
+        sn = dict(snorm=snorm)
         if upsampling:
             self.Conv2dTransposeBlock_0 = Conv2dTransposeBlock(
-                dim_in, dim_out, 3, 2, norm=norm, activation=activation)
+                dim_in, dim_out, 3, 2, norm=norm, activation=activation, **sn)
             self.Conv2dBlock_0 = Conv2dBlock(dim_out, dim_out, 3, 1, 1, norm=norm,
-                                             activation="none")
+                                             activation="none", **sn)
             self.Conv2dTransposeBlock_1 = Conv2dTransposeBlock(
-                dim_in, dim_out, 3, 2, norm="in", activation=activation)
+                dim_in, dim_out, 3, 2, norm="in", activation=activation, **sn)
         else:
             self.Conv2dBlock_0 = Conv2dBlock(dim_in, dim_out, 3, stride, 1,
-                                             norm=norm, activation=activation)
+                                             norm=norm, activation=activation, **sn)
             self.Conv2dBlock_1 = Conv2dBlock(dim_out, dim_out, 3, 1, 1, norm=norm,
-                                             activation="none")
+                                             activation="none", **sn)
             if dim_in != dim_out or stride != 1:
                 self.Conv2dBlock_2 = Conv2dBlock(dim_in, dim_out, 3, stride, 1,
-                                                 norm="in", activation=activation)
+                                                 norm="in", activation=activation,
+                                                 **sn)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """The convs in the JAX package's order (each spectral norm's stats
+        advance once per call with ``train``)."""
         if self.upsampling:
-            h = self.Conv2dBlock_0(self.Conv2dTransposeBlock_0(x))
-            return h + self.Conv2dTransposeBlock_1(x)
-        h = self.Conv2dBlock_1(self.Conv2dBlock_0(x))
-        residual = self.Conv2dBlock_2(x) if hasattr(self, "Conv2dBlock_2") else x
+            h = self.Conv2dBlock_0(self.Conv2dTransposeBlock_0(x, train), train)
+            return h + self.Conv2dTransposeBlock_1(x, train)
+        h = self.Conv2dBlock_1(self.Conv2dBlock_0(x, train), train)
+        residual = self.Conv2dBlock_2(x, train) \
+            if hasattr(self, "Conv2dBlock_2") else x
         return h + residual
 
 

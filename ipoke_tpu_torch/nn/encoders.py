@@ -1,6 +1,7 @@
-"""Conv encoder and SPADE decoder used by sampling (counterpart of
-``ipoke_tpu/nn/encoders.py``), NHWC.  Only the deterministic encoder branch
-and ``FirstStageWrapper.encode`` are ported: sampling runs nothing else."""
+"""Conv encoder and SPADE decoder (counterpart of ``ipoke_tpu/nn/encoders.py``),
+NHWC.  Of the encoders only the deterministic branch and
+``FirstStageWrapper.encode`` are ported: sampling runs nothing else.  The
+decoder also trains (first stage), with spectral norm in its conv blocks."""
 
 from __future__ import annotations
 
@@ -41,16 +42,18 @@ class ConvEncoder(nn.Module):
 
 
 class SpadeCondConvDecoder(nn.Module):
-    """Upsampling decoder with SPADE(start_frame) after every ResBlock."""
+    """Upsampling decoder with SPADE(start_frame) after every ResBlock;
+    ``snorm``: spectral norm in every ResBlock conv (not in the SPADE and
+    output convs, as in the JAX package)."""
 
     def __init__(self, nf_in: int, dec_channels: Sequence[int],
-                 out_channels: int = 3, norm: str = "group"):
+                 out_channels: int = 3, norm: str = "group", snorm: bool = False):
         super().__init__()
-        self.ResBlock_0 = ResBlock(nf_in, dec_channels[0], norm=norm)
+        self.ResBlock_0 = ResBlock(nf_in, dec_channels[0], norm=norm, snorm=snorm)
         self.n_up = len(dec_channels) - 1
         for i, (cin, nf) in enumerate(zip(dec_channels[:-1], dec_channels[1:])):
             self.add_module(f"ResBlock_{i + 1}", ResBlock(
-                cin, nf, norm="none", upsampling=True))
+                cin, nf, norm="none", upsampling=True, snorm=snorm))
             self.add_module(f"Spade_{i}", Spade(nf))
         self.Conv2dBlock_0 = Conv2dBlock(
             dec_channels[-1], out_channels, 3, 1, 1, norm="none",
@@ -65,10 +68,10 @@ class SpadeCondConvDecoder(nn.Module):
                 start_frame, size, size))
         return tuple(mods)
 
-    def forward(self, h_t, mods):
-        h = self.ResBlock_0(h_t)
+    def forward(self, h_t, mods, train: bool = False):
+        h = self.ResBlock_0(h_t, train)
         for i in range(self.n_up):
-            h = getattr(self, f"ResBlock_{i + 1}")(h)
+            h = getattr(self, f"ResBlock_{i + 1}")(h, train)
             h = getattr(self, f"Spade_{i}")(h, mods[i])
         return self.Conv2dBlock_0(h)
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv, GroupNorm, _num_groups
+from .blocks import Conv, GroupNorm, SpectralNormed, _num_groups
 
 # flax ``nn.GroupNorm``'s default epsilon (the motion encoder keeps it)
 _GN_EPS = 1e-6
@@ -28,20 +28,22 @@ def _gn(c: int) -> GroupNorm:
     return GroupNorm(_num_groups(c), c, eps=_GN_EPS)
 
 
-class Conv3d(nn.Module):
+class Conv3d(SpectralNormed):
     """flax ``nn.Conv`` on (B, T, H, W, C) tensors without bias.  ``weight``
     is OIDHW (converted from flax's DHWIO kernel); ``padding`` symmetric per
-    axis (a 1x1x1 kernel under flax's SAME pads nothing)."""
+    axis (a 1x1x1 kernel under flax's SAME pads nothing); ``snorm`` as in
+    ``blocks.SpectralNormed``."""
 
     def __init__(self, cin: int, cout: int, ks: Tuple[int, int, int],
                  stride: Tuple[int, int, int] = (1, 1, 1),
-                 padding: Tuple[int, int, int] = (0, 0, 0)):
+                 padding: Tuple[int, int, int] = (0, 0, 0), snorm: bool = False):
         super().__init__()
         self.stride, self.padding = tuple(stride), tuple(padding)
         self.weight = nn.Parameter(torch.empty(cout, cin, *ks))
+        self._init_snorm(snorm, cout)
 
-    def forward(self, x):
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, None,
+    def forward(self, x, train: bool = False):
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.normed_weight(train), None,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
@@ -99,14 +101,18 @@ class ResNetMotionEncoder(nn.Module):
         self.Conv_1 = Conv(cin, z_dim, 3, 1, 1)
         self.Conv_2 = Conv(cin, z_dim, 3, 1, 1)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """z = noise * exp(logvar / 2) + mu, with ``noise`` given or drawn
+        from ``generator``; z = mu when deterministic or given neither."""
         h = F.relu(self.GroupNorm_0(self.Conv_0(x)))
         for i in range(self.n_blocks):
             h = getattr(self, f"BasicBlock3d_{i}")(h)
         h = h.mean(dim=1)  # the time left after the strides
         mu, logvar = self.Conv_1(h), self.Conv_2(h)
-        if self.deterministic or generator is None:
+        if self.deterministic or (generator is None and noise is None):
             return mu, mu, logvar
-        eps = torch.randn(logvar.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
-        return eps * torch.exp(0.5 * logvar) + mu, mu, logvar
+        if noise is None:
+            noise = torch.randn(logvar.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        return noise * torch.exp(0.5 * logvar) + mu, mu, logvar

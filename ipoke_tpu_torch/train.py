@@ -1,6 +1,14 @@
-"""The second-stage trainer's sequence (counterpart of
-``ipoke_tpu/cli/experiments.py``, second stage, ``build`` and
-``train_step``).
+"""The trainers' sequences (counterpart of ``ipoke_tpu/cli/experiments.py``,
+``build`` and ``train_step`` of the first and second stage).
+
+First stage (``FirstStageTrainer``): three ``gan_adam`` optimizers on the
+staircase schedule (per optimizer, at the updates it has made), the
+discriminators gated on ``epoch >= d_t.pretrain``, the KL weight annealed
+over ``kl_annealing`` epochs, one step's random numbers drawn from the
+caller's generator (``sample_draws``).  Grad accumulation, checkpoints and
+validation are not ported yet.
+
+Second stage (``SecondStageTrainer``):
 
 1. data-dependent init of the flow in fp32 on the first batch (``ddi``);
 2. under the mixed recipe, params and frozen nets cast to bf16 (``start``);
@@ -19,7 +27,14 @@ from typing import Optional
 
 import torch
 
-from .core.optim import cast_floats, flow_adam, master_weights
+from .core.optim import (
+    cast_floats,
+    exp_decay_per_epoch,
+    flow_adam,
+    gan_adam,
+    master_weights,
+)
+from .models.first_stage import FirstStageStep, create_first_stage_state, sample_draws
 from .models.second_stage import (
     SecondStageModel,
     create_second_stage_state,
@@ -54,3 +69,29 @@ class SecondStageTrainer:
         if self.tx is None:
             raise RuntimeError("SecondStageTrainer.train_step before start()")
         return self._step(batch, generator)
+
+
+class FirstStageTrainer:
+    def __init__(self, config, model, disc_s, disc_t, vgg):
+        tcfg = config["training"]
+        self.config = config
+        steps = int(tcfg.get("max_batches_per_epoch", 10 ** 9))
+        sched = exp_decay_per_epoch(float(tcfg.get("lr", 2e-4)),
+                                    float(tcfg.get("gamma", 0.98)), steps)
+        wd = float(tcfg.get("weight_decay", 1e-5))
+        self.tx = create_first_stage_state(model, disc_s, disc_t,
+                                           lambda params: gan_adam(params, sched, wd))
+        self.step = FirstStageStep(config, model, disc_s, disc_t, vgg, *self.tx)
+        self.pretrain = int(config["d_t"].get("pretrain", 0))
+        self.anneal = float(tcfg.get("kl_annealing", 0))
+
+    def gates(self, epoch: int):
+        """(disc_gate, kl_gate) at ``epoch``."""
+        kl_gate = min(1.0, (epoch + 1) / self.anneal) if self.anneal > 0 else 1.0
+        return (1.0 if epoch >= self.pretrain else 0.0), kl_gate
+
+    def train_step(self, batch, epoch: int, generator: torch.Generator):
+        draws = sample_draws(generator, self.config, batch["images"].shape[0])
+        draws = {k: v.to(batch["images"].device) if torch.is_tensor(v) else v
+                 for k, v in draws.items()}
+        return self.step(batch, draws, *self.gates(epoch))

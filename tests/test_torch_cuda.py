@@ -453,3 +453,87 @@ def test_toy_train_step_card_matches_cpu(dev):
     card, cpu = np.array(losses)
     assert np.isfinite(card).all()
     np.testing.assert_allclose(card, cpu, rtol=5e-2)
+
+
+# the first-stage decoder's training shapes (S, Ch): fp32, 20 frames rendered
+# one at a time, so one modulation per frame
+SPADE_TRAIN = [(16, 256), (32, 128), (64, 64)]
+
+
+@pytest.mark.parametrize("s,ch", SPADE_TRAIN)
+def test_spade_gn_kernel_training_shapes(dev, s, ch):
+    """K3 at the first-stage training shapes, fp32, t = 1: the forward
+    against the plain version and bitwise repeated; the gradients through
+    K3 + the portable VJP equal to autograd of the plain version (the same
+    backward on the same inputs)."""
+    x = 2.0 * _randn(dev, 20, s, s, ch, seed=90) + 0.5
+    gamma = _randn(dev, 20, s, s, ch, std=0.5, seed=91)
+    beta = _randn(dev, 20, s, s, ch, std=0.5, seed=92)
+    r = _randn(dev, 20, s, s, ch, seed=93)
+    got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
+    torch.testing.assert_close(got, spade_gn.spade_gn_plain(x, gamma, beta, 16),
+                               atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16))
+    assert spade_gn.spade_gn_plan(s * s, ch, 4)[1]  # the slices stay on chip
+    grads = []
+    for fn in (spade_gn.spade_gn_modulate, spade_gn.spade_gn_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        grads.append(torch.autograd.grad((fn(*leaves, 16) * r).sum(), leaves))
+    assert ops.LAUNCHES["spade_gn"] == 3
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_first_stage_tiny_step_card_matches_cpu(dev):
+    """One first-stage TINY step on the card (K3 in the decoder's training
+    graph, cuDNN convs, the gradient penalty's double backward) against the
+    CPU port from the same weights and draws, TF32 off, 18 K3 launches:
+
+    * every metric within 1e-3 of 1 + |CPU| (chip_smoke.py's (i2) bound);
+    * gradients, as Adam's first moments, by leaf norm within 3e-4 plus, per
+      entry, 1e-4 of the RMS entry of the net's moments (the rule of the
+      test against the jitted JAX step): Adam's first step moves each entry
+      by about lr whatever its gradient, so the params alone would pass a
+      gradient of the wrong sign;
+    * params: every entry within 2 lr, at most 1% of a net's entries more
+      than lr / 10 apart.
+
+    On the CPU, fp32 against float64 holds the same rule
+    (``test_step_fp32_holds_card_rule_against_float64``)."""
+    from ipoke_tpu_torch.core.optim import gan_adam
+    from ipoke_tpu_torch.models import first_stage as fs
+
+    lr = 1e-3
+    cfg = entry.FIRST_STAGE_TINY
+    nets = entry.build_first_stage(cfg, "cpu", torch.Generator().manual_seed(0))
+    images = entry.make_first_stage_batch(cfg, "cpu")["images"]
+    draws = fs.sample_draws(torch.Generator().manual_seed(1), cfg, 2)
+    out = []
+    for d in (dev, "cpu"):
+        ns = [copy.deepcopy(n).to(d) for n in nets]
+        txs = fs.create_first_stage_state(*ns[:3], lambda p: gan_adam(p, lr))
+        step = fs.FirstStageStep(cfg, *ns, *txs)
+        ops.reset_launches()
+        metrics = step({"images": images.to(d)},
+                       {k: v.to(d) if torch.is_tensor(v) else v
+                        for k, v in draws.items()}, 1.0)
+        if d == dev:
+            assert ops.LAUNCHES["spade_gn"] == 18
+        out.append(({k: v.item() for k, v in metrics.items()}, ns, txs))
+    (card, card_nets, card_txs), (cpu, cpu_nets, cpu_txs) = out
+    for k in cpu:
+        assert abs(card[k] - cpu[k]) <= 1e-3 * (1 + abs(cpu[k])), k
+    for i, (a, b, ta, tb) in enumerate(zip(card_nets[:3], cpu_nets[:3],
+                                           card_txs, cpu_txs)):
+        off = 0
+        for name, p, q in zip([n for n, _ in b.named_parameters()],
+                              a.parameters(), b.parameters()):
+            p = p.detach().cpu()
+            torch.testing.assert_close(p, q.detach(), atol=2 * lr, rtol=0, msg=name)
+            off += int(((p - q.detach()).abs() > 0.1 * lr).sum())
+        assert off <= 0.01 * sum(q.numel() for q in b.parameters()), (i, off)
+        mus = [tb.adam.state[q]["exp_avg"] for q in tb.params]
+        floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
+        for j, (q, m) in enumerate(zip(ta.params, mus)):
+            g = ta.adam.state[q]["exp_avg"].cpu()
+            assert (g - m).norm() <= 3e-4 * m.norm() + floor * m.numel() ** 0.5, (i, j)
