@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sampling pass, second-stage train step and
-first-stage VAE-GAN train step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
+first-stage VAE-GAN train step and conv third stage on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,9 +65,21 @@ Phases, in order; any failure raises and exits non-zero:
       every net checked to move, 3 steps timed with CUDA events (ms/step,
       clips/s, peak memory), a host split of one step and a
       ``torch.profiler`` table of one step with K3's in-situ time.
+  (j) the conv third stage (config/flow_motion.yaml and flow_vae.yaml, fp32):
+      (j1) K2 without conditioning rows at the bridge's units (B=32, 8x8,
+      C=32 and 28) and K3 at the flow-to-video decode's levels (320 frames
+      of 32 clips), each against its plain version, bitwise repeated, with
+      its bound; (j2) FLOW_MOTION_TINY card against CPU: hallucinated flow,
+      video from flow, 2 bridge and 2 flow-VAE steps by the (i2) rule; (j3)
+      FLOW_MOTION at full width (the bridge over the 1054.43M-param cINN at
+      64 px, B=32): hallucinated flow, video from flow, the bridge step and
+      the flow-VAE step (B=64), each with the launch counts zeroed before
+      and read after (the path's run), then 3 timed runs with the peak
+      memory; a host split of one bridge step and a ``torch.profiler``
+      table of one video pass with K2's and K3's in-situ time.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
-source, the TPU kernel it replaces, its launches in the two main-path runs
+source, the TPU kernel it replaces, its launches in the main-path runs
 (their sum, and per path), its largest error over the phase (c)/(c') cases,
 ``ms``/``plain_ms`` per call at the first case (the level-0 shapes; K3: the
 128 px decode level; K5: the level-0 flow in order A; device times, see
@@ -178,6 +190,22 @@ SMALL_FLOW_MAX_TOL, SMALL_FLOW_MEAN_TOL = 1.0, 5e-2
 # adds, against XLA's tie routing in max-pool) fp32 parts from float64 by
 # more than the rule on the CPU too, in the generator's first moments.
 FS_TINY_LR, FS_TINY_TOL = 1e-3, 1e-3
+# (j1) K2 without conditioning rows at the bridge's units (H = W, C): B = 32,
+# hid = 4C, the two levels of config/flow_motion.yaml (factor 8: C = 32, then
+# 28), out-conv gains drawn at 0.1 (an unconditioned unit with gains of 0.3
+# can diverge: tools/torch_k2_f64.py); and K3 in fp32 at the flow-to-video
+# decode's levels (S, Ch) of 320 frames of 32 clips
+K2_BRIDGE_CASES, K2_BRIDGE_B, K2_BRIDGE_GAIN = ((8, 32), (8, 28)), 32, 0.1
+K3_VIDEO_CASES, K3_VIDEO_CLIPS, K3_VIDEO_T = ((16, 256), (32, 128), (64, 64)), 32, 10
+# (j2) FLOW_MOTION_TINY, card vs CPU, fp32, TF32 off, the same weights and
+# noise tensors, the bridge's and the cINN's couplings perturbed at 0.1:
+# hallucinated flow and video frames within TS_TINY_TOL abs + rel (both
+# sides fp32, summing in other orders: cuDNN vs oneDNN convs, K2 and K3 vs
+# their plain versions; 5.7e-6 and 1.7e-5 read on an NVIDIA H100 80GB HBM3
+# at 700 W; a wrong kernel moves the output by O(1)); 2 bridge and 2
+# flow-VAE steps at lr TS_LR by the (i2) rule, each from the CPU's state,
+# every spectral-norm u and sigma within TS_TINY_TOL
+TS_PERTURB, TS_LR, TS_TINY_TOL = 0.1, 1e-3, 1e-3
 
 
 def cuda_ms(fn, iters):
@@ -590,7 +618,7 @@ def phase_small(dev):
     cfg = entry.SMALL
     gen = torch.Generator().manual_seed(0)
     model_cpu = entry.build(cfg, "cpu", gen)
-    entry.perturb(model_cpu, gen, SMALL_PERTURB, SMALL_PERTURB)
+    entry.perturb(model_cpu.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
     model_f32 = copy.deepcopy(model_cpu)
     model_cpu = model_cpu.to(torch.bfloat16)
     model_gpu = copy.deepcopy(model_cpu).to(dev)
@@ -639,7 +667,7 @@ def phase_shipped(dev, smi):
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     model = entry.build(cfg, dev, gen)
-    entry.perturb(model, gen)
+    entry.perturb(model.flow_params, gen)
     model = model.to(torch.bfloat16)
     batch = entry.make_batch(cfg, dev, torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -677,13 +705,7 @@ def phase_shipped(dev, smi):
                              ("K2", "macow_unit_inverse_kernel",
                               launches["macow_unit_inverse"]),
                              ("K3", "spade_gn_kernel", launches["spade_gn"])):
-        mine = [e for e in kernels if key in e.key]
-        total = sum(e.self_device_time_total for e in mine) / 1e3
-        print(f"  {name} in the pass: {sum(e.count for e in mine)} launches, "
-              f"{total:.3f} ms of device time ({total / calls:.4f} ms per call); "
-              + ", ".join(f"{e.key[e.key.find(key):][:40]} {e.count} x "
-                          f"{e.self_device_time_total / 1e3 / e.count:.4f} ms"
-                          for e in mine))
+        report_in_situ(kernels, "the pass", name, key, calls)
     return launches
 
 
@@ -697,7 +719,7 @@ def phase_small_train(dev):
     model = entry.build(cfg, "cpu", gen)
     batch = entry.make_batch(cfg, "cpu", seed=0)
     SecondStageTrainer(model, SMALL_TRAIN_LR).ddi(batch)  # fp32
-    entry.perturb(model, gen, SMALL_PERTURB, SMALL_PERTURB)
+    entry.perturb(model.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
     models = {"card": copy.deepcopy(model).to(dev), "cpu": model,
               "cpu fp32": copy.deepcopy(model)}
     models["cpu fp32"].config["training"]["mixed_prec_master"] = False
@@ -753,6 +775,18 @@ def profiled(name, fn):
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
               f"{e.key[:90]}")
     return events, kernels
+
+
+def report_in_situ(kernels, where, name, key, calls):
+    """Print a kernel's launches and device time in a profiled run (its
+    device events whose name holds ``key``); returns ms per wrapper call."""
+    mine = [e for e in kernels if key in e.key]
+    total = sum(e.self_device_time_total for e in mine) / 1e3
+    print(f"  {name} in {where}: {sum(e.count for e in mine)} launches, {total:.3f} ms "
+          f"of device time ({total / calls:.4f} ms per call); " + ", ".join(
+              f"{e.key[e.key.find(key):][:40]} {e.count} x "
+              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms" for e in mine))
+    return total / calls
 
 
 def profile_train_step(model, trainer, batch, gen, nice_calls):
@@ -814,7 +848,7 @@ def phase_shipped_train(dev, smi):
     # steps, 100 epochs of 2000 batches)
     trainer = SecondStageTrainer(model, warmup_linear_decay(1e-3, 500, 200000))
     trainer.ddi(batch, gen)
-    entry.perturb(model, gen)
+    entry.perturb(model.flow_params, gen)
     trainer.start()
     torch.cuda.synchronize()
     print(f"SHIPPED train set-up (build, fp32 DDI, bf16 cast, fp32 masters) "
@@ -857,7 +891,7 @@ def phase_nonsquare(dev, smi):
     cfg = entry.SHIPPED
     gen = torch.Generator(device=dev).manual_seed(4)
     model = entry.build(cfg, dev, gen)
-    entry.perturb(model, gen)
+    entry.perturb(model.flow_params, gen)
     flow, b = model.flow, cfg["batch_size"]
     z = torch.randn((b, *NONSQUARE, cfg["z_dim"]), generator=gen, device=dev)
     h = torch.randn((b, *NONSQUARE, flow.h_channels), generator=gen, device=dev)
@@ -901,19 +935,13 @@ def phase_nonsquare(dev, smi):
         for name, key, calls in (("K1", "nice_net_stage", launches["nice_net"]),
                                  ("K5", "masked_conv_inverse_kernel",
                                   launches["masked_conv_inverse"])):
-            mine = [e for e in kernels if key in e.key]
-            total = sum(e.self_device_time_total for e in mine) / 1e3
-            print(f"  {name} in the inverse: {sum(e.count for e in mine)} launches, "
-                  f"{total:.3f} ms of device time ({total / calls:.4f} ms per call); "
-                  + ", ".join(f"{e.key[e.key.find(key):][:40]} {e.count} x "
-                              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms"
-                              for e in mine))
+            report_in_situ(kernels, "the inverse", name, key, calls)
         del model, x, y, x16
 
         cfg = entry.SMALL
         gen = torch.Generator().manual_seed(0)
         model = entry.build(cfg, "cpu", gen)
-        entry.perturb(model, gen, SMALL_PERTURB, SMALL_PERTURB)
+        entry.perturb(model.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
         flow = model.flow
         z = torch.randn((cfg["batch_size"], *NONSQUARE, cfg["z_dim"]), generator=gen)
         h = torch.randn((cfg["batch_size"], *NONSQUARE, flow.h_channels),
@@ -1005,35 +1033,47 @@ def _first_stage_step(cfg, nets):
     return fs.FirstStageStep(cfg, *nets, *txs)
 
 
+def check_adam_update(name, card_tx, cpu_tx, lr):
+    """Hold the card's optimizer after an update against the CPU's by the
+    (i2) rule; returns the worst moment error over its limit and the share
+    of params more than lr / 10 apart."""
+    off = total = 0
+    for p, q in zip(card_tx.params, cpu_tx.params):
+        d = (p.detach().cpu() - q.detach()).abs()
+        if d.max() > 2 * lr:
+            raise AssertionError(f"{name}: a param {d.max():.2e} apart")
+        off, total = off + int((d > 0.1 * lr).sum()), total + d.numel()
+    if off > 0.01 * total:
+        raise AssertionError(f"{name}: {off} of {total} params more than lr / 10 apart")
+    mus = [cpu_tx.adam.state[q]["exp_avg"] for q in cpu_tx.params]
+    floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
+    ratios = []
+    for p, m in zip(card_tx.params, mus):
+        err = (card_tx.adam.state[p]["exp_avg"].cpu() - m).norm()
+        ratios.append(float(err / (3e-4 * m.norm() + floor * m.numel() ** 0.5)))
+    if max(ratios) > 1:
+        raise AssertionError(f"{name}: first moments apart ({max(ratios):.2f} of the limit)")
+    return max(ratios), off / total
+
+
+@torch.no_grad()
+def sync_moments(card_tx, cpu_tx, params=False):
+    """Load the CPU optimizer's Adam state (and with ``params`` its params)
+    into the card's."""
+    for qa, qb in zip(card_tx.params, cpu_tx.params):
+        if params:
+            qa.copy_(qb)
+        for k, v in cpu_tx.adam.state[qb].items():
+            card_tx.adam.state[qa][k].copy_(v)
+
+
 def check_first_stage_update(name, card, cpu, lr):
     """Hold the card's ``FirstStageStep`` after an update against the CPU's
-    by the (i2) rule; returns, per net, the worst moment error over its
-    limit and the share of params more than lr / 10 apart."""
-    worst = {}
-    for net_name, a, b, ta, tb in zip(
-            ("generator", "d_s", "d_t"), (card.model, card.disc_s, card.disc_t),
-            (cpu.model, cpu.disc_s, cpu.disc_t), (card.tx_g, card.tx_ds, card.tx_dt),
-            (cpu.tx_g, cpu.tx_ds, cpu.tx_dt)):
-        off = total = 0
-        for p, q in zip(a.parameters(), b.parameters()):
-            d = (p.detach().cpu() - q.detach()).abs()
-            if d.max() > 2 * lr:
-                raise AssertionError(f"{name} {net_name}: a param {d.max():.2e} apart")
-            off, total = off + int((d > 0.1 * lr).sum()), total + d.numel()
-        if off > 0.01 * total:
-            raise AssertionError(f"{name} {net_name}: {off} of {total} params "
-                                 "more than lr / 10 apart")
-        mus = [tb.adam.state[q]["exp_avg"] for q in tb.params]
-        floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
-        ratios = []
-        for q, m in zip(ta.params, mus):
-            err = (ta.adam.state[q]["exp_avg"].cpu() - m).norm()
-            ratios.append(float(err / (3e-4 * m.norm() + floor * m.numel() ** 0.5)))
-        if max(ratios) > 1:
-            raise AssertionError(f"{name} {net_name}: first moments apart "
-                                 f"({max(ratios):.2f} of the limit)")
-        worst[net_name] = (max(ratios), off / total)
-    return worst
+    by the (i2) rule, net by net."""
+    return {net_name: check_adam_update(f"{name} {net_name}", ta, tb, lr)
+            for net_name, ta, tb in zip(("generator", "d_s", "d_t"),
+                                        (card.tx_g, card.tx_ds, card.tx_dt),
+                                        (cpu.tx_g, cpu.tx_ds, cpu.tx_dt))}
 
 
 def sync_first_stage(card, cpu):
@@ -1044,9 +1084,7 @@ def sync_first_stage(card, cpu):
         a.load_state_dict(b.state_dict())
     for ta, tb in zip((card.tx_g, card.tx_ds, card.tx_dt),
                       (cpu.tx_g, cpu.tx_ds, cpu.tx_dt)):
-        for qa, qb in zip(ta.params, tb.params):
-            for k, v in tb.adam.state[qb].items():
-                ta.adam.state[qa][k].copy_(v)
+        sync_moments(ta, tb)
 
 
 def phase_first_stage_tiny(dev):
@@ -1162,14 +1200,264 @@ def phase_first_stage(dev, smi):
 
     _, kernels = profiled("FIRST_STAGE train step",
                           lambda: trainer.train_step(batch, 0, draw_gen))
-    mine = [e for e in kernels if "spade_gn_kernel" in e.key]
-    total = sum(e.self_device_time_total for e in mine) / 1e3
-    calls = launches["spade_gn"]
-    print(f"  K3 in the step: {sum(e.count for e in mine)} launches, {total:.3f} ms "
-          f"of device time ({total / calls:.4f} ms per call); " + ", ".join(
-              f"{e.key[e.key.find('spade_gn_kernel'):][:40]} {e.count} x "
-              f"{e.self_device_time_total / 1e3 / e.count:.4f} ms" for e in mine))
-    return launches, {"ms_per_step": ms, "in_situ_ms_per_call": total / calls}
+    per_call = report_in_situ(kernels, "the step", "K3", "spade_gn_kernel",
+                              launches["spade_gn"])
+    return launches, {"ms_per_step": ms, "in_situ_ms_per_call": per_call}
+
+
+def expected_third_stage_launches(cfg, path):
+    """Per run of a conv third-stage path: the bridge inverse's units
+    (hallucinated flow) or the cINN inverse's and the decode's SPADE levels
+    (video from flow) are the only kernel launches; the NICE couplings run
+    fp32, outside K1's bf16 family, and the train steps run no kernel."""
+    want = dict.fromkeys(("nice_net", "nice_net_train", "macow_unit_inverse",
+                          "masked_conv_inverse", "spade_gn"), 0)
+    ss = cfg["second_stage"]
+    if path == "hallucinated_flow":
+        want["macow_unit_inverse"] = 4 * sum(cfg["architecture"]["num_steps"])
+    elif path == "video_from_flow":
+        want["macow_unit_inverse"] = 4 * sum(ss["num_steps"])
+        want["spade_gn"] = len(ss["dec_ch"]) - 1
+    return want
+
+
+def phase_third_stage_kernels(dev):
+    """(j1) K2 without conditioning rows at the bridge's unit shapes, and
+    K3 in fp32 at the flow-to-video decode's levels: each against its plain
+    version, two calls bitwise equal, device times, bound and share."""
+    from ipoke_tpu_torch.ops import _build, masked_conv, spade_gn
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    lib, b, rows = _build.load(), K2_BRIDGE_B, {"macow_unit_inverse": [], "spade_gn": []}
+    for s, c in K2_BRIDGE_CASES:
+        hid = 4 * c
+        mcf = [{"w_shift": randn(2, 3, c, hid) * (6 * c) ** -0.5,
+                "out": {"v": randn(1, 1, hid, 2 * c) * 0.05,
+                        "g": randn(2 * c) * K2_BRIDGE_GAIN, "b": randn(2 * c) * 0.1}}
+               for _ in range(4)]
+        for p in mcf[2:]:  # C/D store the kernel dims swapped
+            p["w_shift"] = p["w_shift"].transpose(0, 1).contiguous()
+        an = [{"log_scale": randn(c) * 0.05, "bias": randn(c) * 0.05} for _ in range(2)]
+        y = randn(b, s, s, c)
+        packed = masked_conv.pack_unit(None, mcf, an, b, s, s)
+        name = f"K2 unconditioned B={b} {s}x{s} C={c}"
+        got = masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0)
+        want = masked_conv.macow_unit_inverse_plain(y, *packed, 1.0)
+        err = check_close(name, got, want, K2_TOL)
+        if not torch.equal(got, masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0)):
+            raise AssertionError(f"{name}: two calls differ")
+        ms = cuda_ms(lambda: masked_conv.macow_unit_inverse_cuda(y, *packed, 1.0), 20)
+        plain = cuda_ms(lambda: masked_conv.macow_unit_inverse_plain(y, *packed, 1.0), 2)
+        bound_ms, bound_by = bound(*unit_work(b, s, c, hid), FP32_FLOPS)
+        print(f"{name} hid={hid} (no conditioning rows; hc is the out bias): "
+              f"max_abs_err {err:.3e} (tol {K2_TOL}), two calls bitwise equal, kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+              f"({bound_by}; {100 * bound_ms / ms:.1f}% of it), "
+              f"{lib.macow_unit_inverse_max_clusters(s, s, c, hid, 2, 3)} clusters of "
+              f"{masked_conv.K2_CLUSTER} resident at once")
+        rows["macow_unit_inverse"].append(
+            {"B": b, "S": s, "C": c, "hid": hid, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by})
+    n, tol = K3_VIDEO_CLIPS * K3_VIDEO_T, K3_TOL[torch.float32]
+    for s, ch in K3_VIDEO_CASES:
+        x = randn(n, s, s, ch) * 2.0 + 0.5
+        gamma = randn(K3_VIDEO_CLIPS, s, s, ch) * 0.5
+        beta = randn(K3_VIDEO_CLIPS, s, s, ch) * 0.5
+        name = f"K3 fp32 video decode N={n} clips={K3_VIDEO_CLIPS} S={s} Ch={ch}"
+        got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
+        err = check_close(name, got, spade_gn.spade_gn_plain(x, gamma, beta, 16), tol, tol)
+        if not torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16)):
+            raise AssertionError(f"{name}: two calls differ")
+        del got
+        ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 20)
+        plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 5)
+        bound_ms, bound_by = bound(*spade_work(n, K3_VIDEO_CLIPS, s, ch, 4), FP32_FLOPS)
+        k, resident = spade_gn.spade_gn_plan(s * s, ch, 4)
+        print(f"{name} G=16: max_abs_err {err:.3e} (tol {tol} abs+rel), two calls "
+              f"bitwise equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); "
+              f"clusters of {k}, slices {'kept in' if resident else 'streamed past'} "
+              f"shared memory")
+        rows["spade_gn"].append({"N": n, "clips": K3_VIDEO_CLIPS, "S": s, "Ch": ch,
+                                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                 "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, gamma, beta
+    return rows
+
+
+def phase_third_stage_tiny(dev):
+    """(j2) FLOW_MOTION_TINY card vs CPU, fp32: hallucinated flow, video
+    from flow, 2 bridge steps and 2 flow-VAE steps, each step from the
+    CPU's state."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.train import FlowMotionTrainer, FlowVAETrainer
+
+    cfg = entry.FLOW_MOTION_TINY
+    ss = cfg["second_stage"]
+    gen = torch.Generator().manual_seed(0)
+    cpu = entry.build_flow_motion(cfg, "cpu", gen)
+    entry.perturb(cpu.second_stage.flow_params, gen, TS_PERTURB, TS_PERTURB)
+    entry.perturb(cpu.inn_params, gen, TS_PERTURB, TS_PERTURB)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = entry.make_batch(ss, "cpu")
+    on = lambda d, dv: {k: v.to(dv) for k, v in d.items()}
+    b, m = ss["batch_size"], ss["min_spatial"]
+    shape = lambda c: (b, m, m, c)
+    randn = lambda c: torch.randn(shape(c), generator=gen)
+    z, eps, extra = randn(cpu.z_total), randn(cpu.z_flow), randn(cpu.z_total - cpu.z_flow)
+    runs = {"hallucinated_flow": lambda mod, bt, dv: mod.forward_sample_flow(bt, z=z.to(dv)),
+            "video_from_flow": lambda mod, bt, dv: mod.forward_video_from_flow(
+                bt, ss["T"], noise=(eps.to(dv), extra.to(dv)))}
+    for path, run in runs.items():
+        ops.reset_launches()
+        got = run(card, on(batch, dev), dev)
+        torch.cuda.synchronize()
+        check_launches(f"FLOW_MOTION_TINY {path}", expected_third_stage_launches(cfg, path))
+        err = check_close(f"FLOW_MOTION_TINY {path}, card vs CPU", got.cpu(),
+                          run(cpu, batch, "cpu"), TS_TINY_TOL, TS_TINY_TOL)
+        print(f"FLOW_MOTION_TINY {path} {tuple(got.shape)}, fp32 card vs CPU: max_abs_err "
+              f"{err:.3e} (tol {TS_TINY_TOL} abs+rel)")
+
+    def steps(name, card_step, cpu_step, card_tx, cpu_tx, sync, draw):
+        for i in range(2):
+            noise = draw()
+            ops.reset_launches()
+            got = card_step(tuple(t.to(dev) for t in noise) if isinstance(noise, tuple)
+                            else noise.to(dev))
+            torch.cuda.synchronize()
+            check_launches(f"{name} step {i}", expected_third_stage_launches(cfg, "step"))
+            ref = cpu_step(noise)
+            diffs = {k: abs(got[k].item() - ref[k].item()) / (1.0 + abs(ref[k].item()))
+                     for k in ref}
+            if not all(math.isfinite(got[k].item()) for k in got) \
+                    or max(diffs.values()) > FS_TINY_TOL:
+                raise AssertionError(f"{name} step {i}: card disagrees with CPU: {diffs}")
+            worst, off = check_adam_update(f"{name} step {i}", card_tx, cpu_tx, TS_LR)
+            print(f"{name} step {i}, card vs CPU fp32 from the same state: metrics "
+                  f"|diff| / (1 + |CPU|) (tol {FS_TINY_TOL}) " + ", ".join(
+                      f"{k} {v:.1e}" for k, v in diffs.items())
+                  + f"; params within 2 lr, {100 * off:.3f}% past lr / 10; first "
+                  f"moments' worst leaf {worst:.3f} of its limit")
+            sync()
+
+    trainers = [FlowMotionTrainer(mod, TS_LR) for mod in (card, cpu)]
+    txs = [t.state.tx for t in trainers]
+    bridge_noise = lambda: (randn(cpu.z_flow), randn(cpu.z_total - cpu.z_flow),
+                            randn(cpu.z_total))
+    steps("FLOW_MOTION_TINY bridge",
+          lambda nz: trainers[0].train_step(on(batch, dev), 0, noise=nz),
+          lambda nz: trainers[1].train_step(batch, 0, noise=nz), *txs,
+          lambda: sync_moments(*txs, params=True), bridge_noise)
+
+    vae_cfg = {"training": {"lr": TS_LR, "kl_weight": entry.FLOW_VAE["training"]["kl_weight"]}}
+    vaes = [entry.build_flow_vae(ss["spatial"], cfg["architecture"], m, "cpu", gen)]
+    vaes.insert(0, copy.deepcopy(vaes[0]).to(dev))
+    vtrainers = [FlowVAETrainer(vae_cfg, vae) for vae in vaes]
+
+    def sync_vae():
+        want = vaes[1].state_dict()
+        for name, got in vaes[0].state_dict().items():
+            if name.rsplit(".", 1)[-1] in ("u", "sigma"):
+                check_close(f"FLOW_MOTION_TINY flow VAE {name}", got.cpu(), want[name],
+                            TS_TINY_TOL)
+        vaes[0].load_state_dict(want)
+        sync_moments(vtrainers[0].tx, vtrainers[1].tx)
+
+    steps("FLOW_MOTION_TINY flow VAE",
+          lambda nz: vtrainers[0].train_step({"flow": batch["flow"].to(dev)}, noise=nz),
+          lambda nz: vtrainers[1].train_step({"flow": batch["flow"]}, noise=nz),
+          vtrainers[0].tx, vtrainers[1].tx, sync_vae, lambda: randn(cpu.z_flow))
+
+
+def phase_flow_motion(dev, smi):
+    """(j3) FLOW_MOTION at full width, fp32: per path one run with the
+    launch counts zeroed before and read after, one warm run, 3 timed runs
+    (CUDA events) with the peak memory; then one video-from-flow pass under
+    ``torch.profiler``."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.flows import count_params
+    from ipoke_tpu_torch.train import FlowMotionTrainer, FlowVAETrainer
+
+    cfg, vae_cfg = entry.FLOW_MOTION, entry.FLOW_VAE
+    ss = cfg["second_stage"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = entry.build_flow_motion(cfg, dev, gen)
+    entry.perturb(model.second_stage.flow_params, gen)
+    entry.perturb(model.inn_params, gen)
+    batch = entry.make_batch(ss, dev)
+    va = vae_cfg["architecture"]
+    vae = entry.build_flow_vae(vae_cfg["data"]["spatial_size"][0], va,
+                               va["min_spatial_size"], dev, gen)
+    vae_batch = entry.make_flow_vae_batch(vae_cfg, dev)
+    trainer = FlowMotionTrainer(model, TS_LR)
+    vae_trainer = FlowVAETrainer(vae_cfg, vae)
+    torch.cuda.synchronize()
+    print(f"FLOW_MOTION built in {time.perf_counter() - t0:.1f} s: bridge "
+          f"{count_params(model.inn_params.tree()) / 1e6:.2f}M params, cINN "
+          f"{count_params(model.second_stage.flow_params.tree()) / 1e6:.2f}M, flow VAE "
+          f"{sum(p.numel() for p in model.flow_vae.parameters()) / 1e6:.2f}M")
+    b, s, t = ss["batch_size"], ss["spatial"], ss["T"]
+    vb = vae_cfg["data"]["batch_size"]
+    paths = {
+        "hallucinated_flow": (lambda: model.forward_sample_flow(batch, gen), (b, s, s, 2), b),
+        "video_from_flow": (lambda: model.forward_video_from_flow(batch, t, gen),
+                            (b, t, s, s, 3), b),
+        "bridge_step": (lambda: trainer.train_step(batch, 0, gen)["flow_loss"], (), b),
+        "flow_vae_step": (lambda: vae_trainer.train_step(vae_batch, gen)["loss"], (), vb),
+    }
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    launches, times = {}, {}
+    for name, (fn, shape, clips) in paths.items():
+        ops.reset_launches()  # this path's run
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = check_launches(f"FLOW_MOTION {name}",
+                                        expected_third_stage_launches(cfg, name))
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"FLOW_MOTION {name}: {tuple(out.shape)}, want finite {shape}")
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(3):
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        ms = sum(ts) / len(ts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times[name] = {"ms": ms, "clips_per_s": clips / (ms / 1e3), "peak_gib": peak}
+        print(f"FLOW_MOTION {name} fp32 B={clips}: {ms:.1f} ms ({', '.join(f'{x:.1f}' for x in ts)}), "
+              f"{clips / (ms / 1e3):.2f} clips/s, peak memory {peak:.2f} GiB on {smi}")
+    # the frozen target's share of the trainer's bridge step: the step and,
+    # alone, the target it computes, each closed by a synchronize
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    step_ms = host_ms(lambda: trainer.train_step(batch, 0, gen))
+    with torch.no_grad():
+        target_ms = host_ms(lambda: model.second_stage.forward_density(batch, gen))
+    times["bridge_step"]["target_share"] = target_ms / step_ms
+    print(f"FLOW_MOTION bridge step, host clock: the step {step_ms:.1f} ms, its target "
+          f"(the frozen second stage's forward_density, run alone) {target_ms:.1f} ms, "
+          f"{100 * target_ms / step_ms:.0f}%")
+    # one video pass under the profiler: the card's busy share, and K2's and
+    # K3's device time per call in situ
+    _, kernels = profiled("FLOW_MOTION video from flow", paths["video_from_flow"][0])
+    v = launches["video_from_flow"]
+    times["video_from_flow"]["k2_in_situ_ms"] = report_in_situ(
+        kernels, "the video pass", "K2", "macow_unit_inverse_kernel", v["macow_unit_inverse"])
+    times["video_from_flow"]["k3_in_situ_ms"] = report_in_situ(
+        kernels, "the video pass", "K3", "spade_gn_kernel", v["spade_gn"])
+    return launches, times
 
 
 def main():
@@ -1220,6 +1508,16 @@ def main():
     phase_first_stage_tiny(dev)
     paths["first_stage_train"], fs_times = phase_first_stage(dev, smi)
     kernels["spade_gn"]["first_stage_in_situ_ms"] = fs_times["in_situ_ms_per_call"]
+    # (j) the conv third stage
+    for name, cases in phase_third_stage_kernels(dev).items():
+        kernels[name]["third_stage_shapes"] = cases
+    phase_third_stage_tiny(dev)
+    ts_launches, ts_times = phase_flow_motion(dev, smi)
+    paths.update(ts_launches)
+    kernels["macow_unit_inverse"]["video_from_flow_in_situ_ms"] = \
+        ts_times["video_from_flow"]["k2_in_situ_ms"]
+    kernels["spade_gn"]["video_from_flow_in_situ_ms"] = \
+        ts_times["video_from_flow"]["k3_in_situ_ms"]
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

@@ -3,16 +3,19 @@
 The JAX package's trees arrive as nested dicts/lists of numpy arrays
 (``to_numpy_tree`` makes them from JAX/flax trees; it imports no JAX itself).
 
-* The flow tree maps 1:1 onto the port's (``flow_params``): same nesting,
-  same leaf shapes.  Stacked ``ScannedSteps`` leaves keep their leading
-  n axis; the port walks them like the JAX scan does.
+* A flow tree (the cINN's, the third stage's bridge) maps 1:1 onto the
+  port's (``flow_params``): same nesting, same leaf shapes.  Stacked
+  ``ScannedSteps`` leaves keep their leading n axis; the port walks them
+  like the JAX scan does.
 * The flax nets map path by path onto the port's modules, whose names
   repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW (3D
   kernels from DHWIO to OIDHW), transpose-conv kernels are flipped.  A
   flax spectral norm keeps its ``u`` and ``sigma`` in ``batch_stats``: a
   port conv built with ``snorm`` (training) takes them as they are; one
   without it (a frozen net) takes the kernel collapsed with flax's eval
-  rule (``collapse_spectral_norm``).
+  rule (``collapse_spectral_norm``).  The third stage's ``ConvFlowVAE``
+  keeps its spectral norms live, frozen or trained, and takes every u and
+  sigma.
 """
 
 from __future__ import annotations

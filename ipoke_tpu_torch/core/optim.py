@@ -13,6 +13,8 @@ a warmup's first step has lr 0).  ``torch.optim.Adam(amsgrad=True,
 weight_decay=...)`` is exactly that update.  Only parameters are handed in:
 the ``buf_*`` leaves of a flow tree are buffers and never get a gradient.
 
+``adam`` is plain ``optax.adam`` (the flow VAE's).
+
 ``master_weights`` is the mixed-precision recipe: bf16-resident params, an
 fp32 master copy of each that the inner optimizer updates, and params set to
 ``bf16(master)`` after every step.
@@ -90,6 +92,12 @@ class _Adam:
         self.adam.step()
         self.adam.zero_grad(set_to_none=True)
         self.count += 1
+
+
+def adam(params, lr_schedule: Schedule) -> _Adam:
+    """``optax.adam``: betas (0.9, 0.999), no weight decay, no AMSGrad (the
+    flow VAE's optimizer)."""
+    return _Adam(params, lr_schedule, (0.9, 0.999), 0.0, False)
 
 
 def flow_adam(params, lr_schedule: Schedule) -> _Adam:

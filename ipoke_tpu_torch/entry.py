@@ -18,6 +18,16 @@ copied as the reference-style tree the first stage is built from;
 ``FIRST_STAGE_TINY`` is the TINY config of the JAX package's first-stage
 tests.  ``build_first_stage`` makes the generator, both discriminators and
 VGG on a device from a generator (or on ``meta``).
+
+``FLOW_MOTION`` is the conv third stage of ``config/flow_motion.yaml``
+(the bridge INN, 64 px, B=32, T=10) over its frozen second stage, the
+shipped cINN at 64 px (``bench.py``'s 64 px kwargs), and the flow VAE of
+``config/flow_vae.yaml`` (``FLOW_VAE``, which also trains it: B=64), all
+fp32; ``FLOW_MOTION_TINY`` is the third-stage test config of the JAX
+package.  ``build_flow_motion`` makes the bridge model on a device from a
+generator; ``make_batch(cfg["second_stage"], ...)`` its batches (images,
+poke, flow); ``build_flow_vae`` and ``make_flow_vae_batch`` the flow VAE
+and the flow maps it trains on.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from .flows.base import ParamTree
 from .models import first_stage as _fs
 from .models.first_stage import FirstStageModel
 from .models.second_stage import SecondStageModel
+from .models.third_stage import ConvFlowVAE, FlowMotionModel
 from .nn.blocks import Conv, ConvTranspose, GroupNorm
 from .nn.discriminators import Dense
 from .nn.encoders import FirstStageWrapper
@@ -82,9 +93,47 @@ FIRST_STAGE_TINY = {
 }
 
 
+# config/flow_vae.yaml, the parts the trainer reads
+FLOW_VAE = {
+    "data": {"spatial_size": (64, 64), "max_frames": 10, "batch_size": 64},
+    "architecture": {"flow_vae_channels": 8, "flow_vae_nf_max": 64,
+                     "min_spatial_size": 8},
+    "training": {"lr": 1e-3, "kl_weight": 1e-6},
+}
+# config/flow_motion.yaml, the parts the trainer reads (its weight decay is
+# flow_adam's 1e-5, as in FlowMotionExperiment), over the shipped cINN at
+# 64 px (bench.py's 64 px kwargs; fp32, as FlowMotionExperiment runs it) and
+# the flow VAE of FLOW_VAE
+FLOW_MOTION = {
+    "second_stage": dict(SHIPPED, spatial=64, enc_ch=(64, 128, 256, 256),
+                         dec_ch=(256, 256, 128, 64), batch_size=32),
+    "architecture": {"num_steps": [2, 2], "flow_mid_channels_factor": 4,
+                     "factor": 8, "kernel_size": [2, 3], "transform": "affine",
+                     "prior_transform": "affine", "activation": "elu",
+                     "flow_vae_channels": 8, "flow_vae_nf_max": 64},
+    "training": {"lr": 1e-3, "n_epochs": 100,
+                 "max_batches_per_epoch": 2000, "lr_scaling_max_it": 500,
+                 "weight_recon": 1.0, "recon_scaling": True,
+                 "spatial_mean": False},
+}
+# tests/test_third_stage.py's bridge (and flow VAE: 32 px, 4 channels,
+# nf_max 16, min spatial 4) over tests/test_second_stage.py's SS_CFG with a
+# deterministic first stage
+FLOW_MOTION_TINY = {
+    "second_stage": dict(spatial=32, min_spatial=4, T=3, z_dim=8,
+                         enc_ch=(16, 16, 32, 32), dec_ch=(32, 32, 16, 16),
+                         nf_cond=16, num_steps=(1, 1), mid_factor=2, factor=4,
+                         batch_size=2, deterministic=True),
+    "architecture": {"num_steps": [1], "flow_mid_channels_factor": 2,
+                     "factor": 4, "flow_vae_channels": 4, "flow_vae_nf_max": 16},
+    "training": {"spatial_mean": False},
+}
+
+
 def second_stage_config(cfg) -> dict:
     return {"architecture": {
-        "flow_mid_channels_factor": cfg["mid_factor"], "factor": 16,
+        "flow_mid_channels_factor": cfg["mid_factor"],
+        "factor": cfg.get("factor", 16),
         "num_steps": list(cfg["num_steps"]), "kernel_size": [2, 3],
         "transform": "affine", "prior_transform": "affine",
         "activation": "elu", "augmented_input": False},
@@ -154,11 +203,12 @@ def build(cfg, device,
     return model.eval()
 
 
-def perturb(model: SecondStageModel, generator: torch.Generator,
+def perturb(params: ParamTree, generator: torch.Generator,
             g_std: float = 0.01, b_std: float = 0.01) -> None:
     """Give every coupling's weight-norm out conv (g, b) and every ActNorm
-    (log_scale, bias) random non-trivial values, in place.  The inverse of
-    random couplings amplifies: at the default scales the SHIPPED depth
+    (log_scale, bias) of a flow's ``ParamTree`` (``model.flow_params``,
+    ``model.inn_params``) random non-trivial values, in place.  The inverse
+    of random couplings amplifies: at the default scales the SHIPPED depth
     (50 steps) keeps N(0, 1) inputs finite; 0.1 overflows within 5 steps."""
     def walk(node):
         if isinstance(node, dict):
@@ -177,7 +227,7 @@ def perturb(model: SecondStageModel, generator: torch.Generator,
             for v in node:
                 walk(v)
     with torch.no_grad():
-        walk(model.flow_params.tree())
+        walk(params.tree())
 
 
 def make_batch(cfg, device, dtype=torch.float32, seed: int = 0) -> dict:
@@ -217,3 +267,42 @@ def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:
                               batch_size=d["batch_size"], n_frames=d["max_frames"],
                               spatial_size=d["spatial_size"][0])
     return {"images": torch.as_tensor(np_batch["images"], device=device)}
+
+
+def build_flow_vae(spatial: int, arch, min_spatial: int, device,
+                   generator: Optional[torch.Generator] = None) -> ConvFlowVAE:
+    """The fp32 ``ConvFlowVAE`` of an ``architecture`` block, with random
+    weights made on ``device`` from ``generator`` (``meta``: shapes only)."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        vae = ConvFlowVAE(spatial, arch.get("flow_vae_channels", 8),
+                          arch.get("flow_vae_nf_max", 64), min_spatial)
+    if device.type != "meta":
+        vae = vae.to_empty(device=device)
+        _init_random(vae, generator)
+    return vae
+
+
+def build_flow_motion(cfg, device,
+                      generator: Optional[torch.Generator] = None) -> FlowMotionModel:
+    """The fp32 bridge model of ``cfg`` (``FLOW_MOTION``): the frozen second
+    stage (``build``), the frozen flow VAE and a new bridge tree, all with
+    random weights made on ``device`` from ``generator`` (``meta``: shapes
+    only).  Every bridge coupling is an identity until ``perturb``."""
+    ss_cfg = cfg["second_stage"]
+    second_stage = build(ss_cfg, device, generator)
+    vae = build_flow_vae(ss_cfg["spatial"], cfg["architecture"],
+                         ss_cfg["min_spatial"], device, generator)
+    model = FlowMotionModel(cfg, second_stage, vae)
+    model.inn_params = ParamTree(model.init(generator, torch.device(device)))
+    return model.eval()
+
+
+def make_flow_vae_batch(cfg, device, seed: int = 0) -> dict:
+    """A synthetic batch of flow maps (B, H, W, 2) at ``cfg``'s data sizes
+    (``FLOW_VAE``), as a dict with ``flow``."""
+    d = cfg["data"]
+    np_batch = _make_batch_np(np.random.default_rng(seed),
+                              batch_size=d["batch_size"], n_frames=d["max_frames"],
+                              spatial_size=d["spatial_size"][0])
+    return {"flow": torch.as_tensor(np_batch["flow"], device=device)}

@@ -20,12 +20,14 @@ def nll(sample, spatial_mean: bool = False):
 
 
 def flow_loss(sample, logdet, generator: Optional[torch.Generator] = None,
-              spatial_mean: bool = False):
+              spatial_mean: bool = False,
+              reference: Optional[torch.Tensor] = None):
     """NLL + negative-logdet objective, both weighted 1 (the JAX package's
     defaults, which the trainer uses); returns (loss, log dict).
 
     ``generator`` enables the ``reference_nll_loss`` diagnostic: the NLL of a
-    fresh N(0, I) sample of the same shape, drawn from it."""
+    fresh N(0, I) sample of the same shape, drawn from it; ``reference``
+    gives that sample instead."""
     logdet = logdet.float()
     nll_loss = torch.mean(nll(sample, spatial_mean=spatial_mean))
     nlogdet = -torch.mean(logdet)
@@ -33,8 +35,10 @@ def flow_loss(sample, logdet, generator: Optional[torch.Generator] = None,
         nlogdet = nlogdet / (sample.shape[1] * sample.shape[2])
     loss = nll_loss + nlogdet
     log = {"flow_loss": loss, "nlogdet_loss": nlogdet, "nll_loss": nll_loss}
-    if generator is not None:
-        ref = torch.randn(sample.shape, generator=generator,
-                          device=sample.device, dtype=sample.dtype)
-        log["reference_nll_loss"] = torch.mean(nll(ref, spatial_mean=spatial_mean))
+    if reference is None and generator is not None:
+        reference = torch.randn(sample.shape, generator=generator,
+                                device=sample.device, dtype=sample.dtype)
+    if reference is not None:
+        log["reference_nll_loss"] = torch.mean(nll(reference,
+                                                   spatial_mean=spatial_mean))
     return loss, log

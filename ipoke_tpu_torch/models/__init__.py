@@ -1,4 +1,5 @@
-"""Models of the sampling path."""
+"""The first, second and (conv) third stage."""
 
 from .first_stage import FirstStageModel
 from .second_stage import SecondStageModel
+from .third_stage import ConvFlowVAE, FlowMotionModel

@@ -23,7 +23,12 @@ from .discriminators import (
     gradient_penalty,
     hinge_d_loss,
 )
-from .encoders import ConvEncoder, FirstStageWrapper, SpadeCondConvDecoder
+from .encoders import (
+    ConvDecoder,
+    ConvEncoder,
+    FirstStageWrapper,
+    SpadeCondConvDecoder,
+)
 from .gru import ConvGRU, ConvGRUCell
 from .motion import BasicBlock3d, Conv3d, ResNetMotionEncoder
 from .vgg import VGG19Features, vgg_loss

@@ -1,6 +1,10 @@
-"""Conv encoder and SPADE decoder (counterpart of ``ipoke_tpu/nn/encoders.py``),
-NHWC.  Of the encoders only the deterministic branch and
-``FirstStageWrapper.encode`` are ported: sampling runs nothing else.  The
+"""Conv encoder and decoders (counterpart of ``ipoke_tpu/nn/encoders.py``),
+NHWC.  Of the encoders only the deterministic branch is ported (no
+variational heads): the conditioning encoders of sampling and the flow VAE
+run nothing else.  ``ConvEncoder`` defaults to flax's spectral norm in its
+convs and ``ConvDecoder`` always has it in its ResBlocks, as in the JAX
+package (the flow VAE trains them so); the frozen ``FirstStageWrapper`` builds its encoder
+without it and takes the collapsed weights (``convert``).  The SPADE
 decoder also trains (first stage), with spectral norm in its conv blocks."""
 
 from __future__ import annotations
@@ -14,31 +18,59 @@ from .blocks import Conv2dBlock, ResBlock, Spade
 
 
 class ConvEncoder(nn.Module):
-    """Strided Conv2dBlock stem, stride-2 ResBlocks, bottleneck ResBlock."""
+    """Strided Conv2dBlock stem, stride-2 ResBlocks, bottleneck ResBlock;
+    ``snorm``: spectral norm in the stem and every ResBlock conv.
+    ``depths``: the per-stage widths, shallowest last (the ``ConvDecoder``
+    input spec)."""
 
     def __init__(self, nf_in: int, nf_max: int, n_stages: int,
-                 norm: str = "group"):
+                 snorm: bool = True):
         super().__init__()
         nf = 32
-        self.Conv2dBlock_0 = Conv2dBlock(nf_in, nf, 3, 2, 1, norm=norm,
-                                         activation="elu")
+        sn = dict(norm="group", activation="elu", snorm=snorm)
+        self.Conv2dBlock_0 = Conv2dBlock(nf_in, nf, 3, 2, 1, **sn)
+        depths = [nf]
         for i in range(n_stages - 1):
             nf_next = min(nf * 2, nf_max)
-            self.add_module(f"ResBlock_{i}", ResBlock(
-                nf, nf_next, norm=norm, activation="elu", stride=2))
+            self.add_module(f"ResBlock_{i}", ResBlock(nf, nf_next, stride=2, **sn))
             nf = nf_next
-        self.n_res = n_stages
-        self.add_module(f"ResBlock_{n_stages - 1}", ResBlock(
-            nf, nf_max, norm=norm, activation="elu"))
+            depths.insert(0, nf)
+        self.n_res, self.depths = n_stages, tuple(depths)
+        self.add_module(f"ResBlock_{n_stages - 1}", ResBlock(nf, nf_max, **sn))
 
-    def forward(self, x):
-        """(h, mean_pre, None), as the deterministic JAX encoder returns."""
-        h = self.Conv2dBlock_0(x)
+    def forward(self, x, train: bool = False):
+        """(h, mean_pre, None), as the deterministic JAX encoder returns;
+        ``train`` stores each spectral norm's new u and sigma."""
+        h = self.Conv2dBlock_0(x, train)
         for i in range(self.n_res - 1):
-            h = getattr(self, f"ResBlock_{i}")(h)
+            h = getattr(self, f"ResBlock_{i}")(h, train)
         mean_pre = h
-        h = getattr(self, f"ResBlock_{self.n_res - 1}")(h)
+        h = getattr(self, f"ResBlock_{self.n_res - 1}")(h, train)
         return h, mean_pre, None
+
+
+class ConvDecoder(nn.Module):
+    """A ResBlock, then upsampling ResBlocks, then a Conv2dBlock to the 2
+    flow channels with no activation (the flow VAE's decoder, the one
+    ported caller).  ``in_channels`` is the channel plan, deepest first
+    (``[nf_max] + encoder.depths``); group norm and spectral norm in every
+    ResBlock conv (not the output conv)."""
+
+    def __init__(self, nf_in: int, in_channels: Sequence[int]):
+        super().__init__()
+        self.ResBlock_0 = ResBlock(nf_in, in_channels[0], snorm=True)
+        self.n_up = len(in_channels) - 1
+        for i, (cin, nf) in enumerate(zip(in_channels[:-1], in_channels[1:])):
+            self.add_module(f"ResBlock_{i + 1}", ResBlock(
+                cin, nf, upsampling=True, snorm=True))
+        self.Conv2dBlock_0 = Conv2dBlock(in_channels[-1], 2, 3, 1, 1,
+                                         norm="none", activation="none")
+
+    def forward(self, z, train: bool = False):
+        h = self.ResBlock_0(z, train)
+        for i in range(self.n_up):
+            h = getattr(self, f"ResBlock_{i + 1}")(h, train)
+        return self.Conv2dBlock_0(h)
 
 
 class SpadeCondConvDecoder(nn.Module):
@@ -87,7 +119,7 @@ class FirstStageWrapper(nn.Module):
         super().__init__()
         self.nf_max, self.min_spatial_size = nf_max, min_spatial_size
         n_stages = int(np.log2(spatial_size // min_spatial_size))
-        self.encoder = ConvEncoder(nf_in, nf_max, n_stages)
+        self.encoder = ConvEncoder(nf_in, nf_max, n_stages, snorm=False)
 
     def encode(self, x):
         return self.encoder(x)

@@ -19,6 +19,14 @@ Second stage (``SecondStageTrainer``):
 The caller runs 1 (``ddi``) and 2-3 (``start``) before the first
 ``train_step``, and may change the params between them (``entry.perturb``
 in tests).
+
+Conv third stage (counterpart of ``ipoke_tpu/cli/fc_experiments.py``):
+``FlowVAETrainer`` trains the ``ConvFlowVAE`` (MSE + kl_weight * KL, plain
+Adam, every spectral norm's u advancing each step); ``FlowMotionTrainer``
+trains the bridge INN over the frozen second stage and flow VAE
+(``flow_adam`` on the warmup/linear-decay schedule, the recon-weight
+doubling).  Both ``validate`` on endpoint and angular error.  No DDI runs,
+as in the JAX trainer.  Grad accumulation and checkpoints are not ported.
 """
 
 from __future__ import annotations
@@ -28,17 +36,32 @@ from typing import Optional
 import torch
 
 from .core.optim import (
+    adam,
     cast_floats,
     exp_decay_per_epoch,
     flow_adam,
     gan_adam,
     master_weights,
+    warmup_linear_decay,
 )
-from .models.first_stage import FirstStageStep, create_first_stage_state, sample_draws
+from .eval import angular_error, endpoint_error
+from .models.first_stage import (
+    FirstStageStep,
+    create_first_stage_state,
+    kl_loss,
+    sample_draws,
+)
 from .models.second_stage import (
     SecondStageModel,
     create_second_stage_state,
     make_second_stage_train_step,
+)
+from .models.third_stage import (
+    ConvFlowVAE,
+    FlowMotionModel,
+    create_third_stage_state,
+    double_recon_weight_schedule,
+    make_flow_motion_train_step,
 )
 
 
@@ -95,3 +118,78 @@ class FirstStageTrainer:
         draws = {k: v.to(batch["images"].device) if torch.is_tensor(v) else v
                  for k, v in draws.items()}
         return self.step(batch, draws, *self.gates(epoch))
+
+
+def _flow_errors(pairs):
+    """{"EE-val", "AE-val"}: the mean endpoint and angular errors over
+    (flow, estimate) pairs, each pair's mean first."""
+    ees, aes = [], []
+    for flow, est in pairs:
+        ees.append(endpoint_error(flow, est).mean().item())
+        aes.append(angular_error(flow, est).mean().item())
+    return {"EE-val": sum(ees) / len(ees), "AE-val": sum(aes) / len(aes)}
+
+
+class FlowVAETrainer:
+    """``FlowVAEExperiment``'s step: ``optax.adam(lr)``, loss MSE(rec, flow)
+    + kl_weight * KL (channel-sum, mean elsewhere), the encoder's sample
+    drawn from the caller's generator or given as ``noise``."""
+
+    def __init__(self, config, model: ConvFlowVAE):
+        tcfg = config["training"]
+        self.model = model.requires_grad_(True)
+        self.kl_weight = float(tcfg.get("kl_weight", 1e-6))
+        self.tx = adam(list(model.parameters()), float(tcfg.get("lr", 1e-3)))
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None):
+        flow = batch["flow"]
+        rec, mu, logvar = self.model(flow, generator, noise, train=True)
+        rec_l = torch.mean((rec - flow) ** 2)
+        kl = kl_loss(mu, logvar)
+        loss = rec_l + self.kl_weight * kl
+        loss.backward()
+        self.tx.step()
+        return {"loss": loss.detach(), "rec_loss": rec_l.detach(),
+                "kl_loss": kl.detach()}
+
+    @torch.no_grad()
+    def validate(self, batches):
+        """Endpoint and angular error of the reconstruction (z = mu)."""
+        return _flow_errors((b["flow"], self.model(b["flow"])[0]) for b in batches)
+
+
+class FlowMotionTrainer:
+    """``FlowMotionExperiment``'s build and step: ``flow_adam`` over the
+    bridge's params only, on ``lr_schedule`` (default: the config's
+    ``warmup_linear_decay(lr, lr_scaling_max_it, n_epochs *
+    max_batches_per_epoch)``), and with ``recon_scaling`` the recon weight
+    doubled every 10 epochs."""
+
+    def __init__(self, model: FlowMotionModel, lr_schedule=None):
+        tcfg = model.config["training"]
+        if lr_schedule is None:
+            lr_schedule = warmup_linear_decay(
+                float(tcfg.get("lr", 1e-3)), int(tcfg.get("lr_scaling_max_it", 500)),
+                int(tcfg.get("n_epochs", 100))
+                * int(tcfg.get("max_batches_per_epoch", 2000)))
+        self.model = model
+        self.weight_recon = float(tcfg.get("weight_recon", 1.0))
+        self.recon_scaling = bool(tcfg.get("recon_scaling", False))
+        self.state = create_third_stage_state(
+            model, lambda params: flow_adam(params, lr_schedule), self.weight_recon)
+        self._step = make_flow_motion_train_step(model)
+
+    def train_step(self, batch, epoch: int,
+                   generator: Optional[torch.Generator] = None, noise=None):
+        if self.recon_scaling:
+            self.state = double_recon_weight_schedule(self.state, epoch,
+                                                      self.weight_recon)
+        self.state, log = self._step(self.state, batch, generator, noise)
+        return log
+
+    def validate(self, batches, generator: Optional[torch.Generator] = None):
+        """Endpoint and angular error of hallucinated flow against the
+        batch's flow."""
+        return _flow_errors((b["flow"], self.model.forward_sample_flow(b, generator))
+                            for b in batches)

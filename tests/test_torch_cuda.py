@@ -110,7 +110,9 @@ def _unit_operands(dev, b, s, c, ch, g_std=0.3):
 UNIT_CASES = [(3, 8, 8, 6), (2, 4, 4, 0), (40, 8, 32, 128),
               (1, 8, 4, 0), (3, 8, 18, 128), (40, 8, 4, 6), (1, 8, 32, 0),
               (40, 8, 18, 0), (3, 16, 32, 128), (1, 16, 18, 6), (40, 16, 4, 0),
-              (40, 16, 32, 0), (3, 16, 4, 128)]
+              (40, 16, 32, 0), (3, 16, 4, 128),
+              # the unconditioned units of config/flow_motion.yaml's bridge
+              (32, 8, 32, 0), (32, 8, 28, 0)]
 
 
 @pytest.mark.parametrize("b,s,c,ch", UNIT_CASES)
@@ -386,7 +388,7 @@ def test_toy_sampling_card_matches_cpu(dev, dtype, kernels, tol):
     bound is chip_smoke.py's (bf16 noise through the inverse)."""
     gen = torch.Generator().manual_seed(0)
     model = entry.build(TOY, "cpu", gen)
-    entry.perturb(model, gen, 0.03, 0.03)
+    entry.perturb(model.flow_params, gen, 0.03, 0.03)
     model = model.to(dtype)
     batch = entry.make_batch(TOY, "cpu", dtype)
     z = torch.randn((2, 8, 8, TOY["z_dim"]), generator=gen).to(dtype)
@@ -436,7 +438,7 @@ def test_toy_train_step_card_matches_cpu(dev):
     model = entry.build(cfg, "cpu", gen)
     batch = entry.make_batch(cfg, "cpu")
     SecondStageTrainer(model, 1e-3).ddi(batch)
-    entry.perturb(model, gen, 0.03, 0.03)
+    entry.perturb(model.flow_params, gen, 0.03, 0.03)
     steps = sum(cfg["num_steps"])
     losses = []
     for m, d in ((copy.deepcopy(model).to(dev), dev), (model, "cpu")):
@@ -484,6 +486,22 @@ def test_spade_gn_kernel_training_shapes(dev, s, ch):
         assert torch.equal(a, b)
 
 
+def _check_update(card_tx, cpu_tx, lr, name):
+    """The card's optimizer after an update against the CPU's, by
+    chip_smoke.py's (i2) rule: every param within 2 lr, at most 1% of them
+    more than lr / 10 apart; Adam's first moments by leaf norm within 3e-4
+    plus, per entry, 1e-4 of the RMS entry of the CPU's moments."""
+    d = [(p.detach().cpu() - q.detach()).abs()
+         for p, q in zip(card_tx.params, cpu_tx.params)]
+    assert max(x.max() for x in d) <= 2 * lr, name
+    assert sum(int((x > 0.1 * lr).sum()) for x in d) <= 0.01 * sum(x.numel() for x in d), name
+    mus = [cpu_tx.adam.state[q]["exp_avg"] for q in cpu_tx.params]
+    floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
+    for j, (p, m) in enumerate(zip(card_tx.params, mus)):
+        g = card_tx.adam.state[p]["exp_avg"].cpu()
+        assert (g - m).norm() <= 3e-4 * m.norm() + floor * m.numel() ** 0.5, (name, j)
+
+
 def test_first_stage_tiny_step_card_matches_cpu(dev):
     """One first-stage TINY step on the card (K3 in the decoder's training
     graph, cuDNN convs, the gradient penalty's double backward) against the
@@ -519,21 +537,45 @@ def test_first_stage_tiny_step_card_matches_cpu(dev):
                         for k, v in draws.items()}, 1.0)
         if d == dev:
             assert ops.LAUNCHES["spade_gn"] == 18
-        out.append(({k: v.item() for k, v in metrics.items()}, ns, txs))
-    (card, card_nets, card_txs), (cpu, cpu_nets, cpu_txs) = out
+        out.append(({k: v.item() for k, v in metrics.items()}, txs))
+    (card, card_txs), (cpu, cpu_txs) = out
     for k in cpu:
         assert abs(card[k] - cpu[k]) <= 1e-3 * (1 + abs(cpu[k])), k
-    for i, (a, b, ta, tb) in enumerate(zip(card_nets[:3], cpu_nets[:3],
-                                           card_txs, cpu_txs)):
-        off = 0
-        for name, p, q in zip([n for n, _ in b.named_parameters()],
-                              a.parameters(), b.parameters()):
-            p = p.detach().cpu()
-            torch.testing.assert_close(p, q.detach(), atol=2 * lr, rtol=0, msg=name)
-            off += int(((p - q.detach()).abs() > 0.1 * lr).sum())
-        assert off <= 0.01 * sum(q.numel() for q in b.parameters()), (i, off)
-        mus = [tb.adam.state[q]["exp_avg"] for q in tb.params]
-        floor = 1e-4 * torch.cat([m.flatten() for m in mus]).square().mean().sqrt()
-        for j, (q, m) in enumerate(zip(ta.params, mus)):
-            g = ta.adam.state[q]["exp_avg"].cpu()
-            assert (g - m).norm() <= 3e-4 * m.norm() + floor * m.numel() ** 0.5, (i, j)
+    for i, (ta, tb) in enumerate(zip(card_txs, cpu_txs)):
+        _check_update(ta, tb, lr, i)
+
+
+def test_flow_motion_tiny_card_matches_cpu(dev):
+    """FLOW_MOTION_TINY on the card against the CPU port, fp32, the same
+    weights (the bridge's and the cINN's couplings perturbed at 0.1) and
+    noise: hallucinated flow (4 unconditioned K2 launches) within
+    chip_smoke.py's 1e-3 abs + rel, and one bridge step (no kernel): its
+    metrics within 1e-3 of 1 + |CPU|, its params and Adam's first moments
+    by ``_check_update``."""
+    from ipoke_tpu_torch.train import FlowMotionTrainer
+
+    cfg = entry.FLOW_MOTION_TINY
+    ss = cfg["second_stage"]
+    gen = torch.Generator().manual_seed(0)
+    cpu = entry.build_flow_motion(cfg, "cpu", gen)
+    entry.perturb(cpu.second_stage.flow_params, gen, 0.1, 0.1)
+    entry.perturb(cpu.inn_params, gen, 0.1, 0.1)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = entry.make_batch(ss, "cpu")
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    shape = lambda c: (ss["batch_size"], ss["min_spatial"], ss["min_spatial"], c)
+    z = torch.randn(shape(cpu.z_total), generator=gen)
+    got = card.forward_sample_flow(on_card, z=z.to(dev))
+    assert ops.LAUNCHES["macow_unit_inverse"] == 4 * sum(cfg["architecture"]["num_steps"])
+    torch.testing.assert_close(got.cpu(), cpu.forward_sample_flow(batch, z=z),
+                               atol=1e-3, rtol=1e-3)
+    noise = tuple(torch.randn(shape(c), generator=gen)
+                  for c in (cpu.z_flow, cpu.z_total - cpu.z_flow, cpu.z_total))
+    ops.reset_launches()
+    trainers = [FlowMotionTrainer(m, 1e-3) for m in (card, cpu)]
+    got = trainers[0].train_step(on_card, 0, noise=tuple(t.to(dev) for t in noise))
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+    want = trainers[1].train_step(batch, 0, noise=noise)
+    for k in want:
+        assert abs(got[k].item() - want[k].item()) <= 1e-3 * (1 + abs(want[k].item())), k
+    _check_update(*(t.state.tx for t in trainers), 1e-3, "bridge")
