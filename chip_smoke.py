@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-first-stage VAE-GAN train step and conv third stage on one NVIDIA GPU.
+first-stage VAE-GAN train step, conv third stage and CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -77,6 +77,24 @@ Phases, in order; any failure raises and exits non-zero:
       and read after (the path's run), then 3 timed runs with the peak
       memory; a host split of one bridge step and a ``torch.profiler``
       table of one video pass with K2's and K3's in-situ time.
+  (k) the port's CLI, ``ipoke_tpu_torch.main.run(argv)``, through the conv
+      pipeline on a synthetic 64 px PlantDataset tree written by the port's
+      ``make_synthetic_dataset``, from the shipped YAMLs (data, epochs,
+      CLI_BATCHES train and 1 val batch, frozen run dirs and second_stage's
+      depth changed; widths as shipped): k1 img_encoder, k2 poke_encoder,
+      k3 first_stage, k4 second_stage (bf16 with fp32 masters, B=40; one
+      epoch, a restore check that the state a resume loads is the run's own
+      bit for bit, then --resume for one more epoch: step and lr count go
+      on, DDI does not rerun), k5 flow_vae and flow_motion over k4's and
+      k5's runs.  Each run with the launch counts zeroed before and read
+      after (the CLI path's run, checked against ``expected_cli_launches``);
+      per run ms/step after the first, the loader's wait per step, the
+      wait in each step's closing synchronize and its cudaMalloc calls, a
+      host probe (us per launch of a one-element add, just before the
+      run), validation seconds and metrics (finite), checkpoint bytes and
+      save seconds, restore seconds, peak memory.  The tree and run dirs live in
+      a temporary directory that is removed at the end.  Alone:
+      ``_build.load()``, then ``phase_cli(dev, smi)`` (~70 s).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -1460,6 +1478,251 @@ def phase_flow_motion(dev, smi):
     return launches, times
 
 
+# (k) the port's CLI: the synthetic tree (64 px, PlantDataset: 20 videos of
+# 30 frames, 400 train and 100 val clips: 3 batches of the flow VAE's 64
+# and 1 val batch), the shipped YAMLs with only the dataset, the epochs,
+# CLI_BATCHES train and 1 val batch, the frozen run dirs and one depth cut
+# changed: second_stage's num_steps, so that one state copy (bf16 params,
+# fp32 masters, 3 AMSGrad moments: 18 bytes a param) stays under ~4 GB
+# (209.3M params, 3.77 GB; at the yaml's depth 1054.4M params, ~19 GB a
+# copy, and the store writes `last` and the monitored copy every epoch).
+# Widths stay: flow_mid_channels_factor 64, factor 16, kernel (2, 3), B = 40.
+CLI_VIDEOS, CLI_FRAMES, CLI_BATCHES = 20, 30, 3
+CLI_SECOND_STAGE_STEPS = [4, 2, 1, 1, 1]
+CLI_KERNELS = ("nice_net", "nice_net_train", "macow_unit_inverse",
+               "masked_conv_inverse", "spade_gn")
+
+
+def expected_cli_launches(name, cfg, n_train, n_val):
+    """Per CLI run of ``name`` with ``n_train`` steps and ``n_val`` val
+    batches: the first stage's K3 (60 a train step at T = 10, one per decode
+    level a val batch); the second stage's bf16 steps (K1 in each step's
+    no-grad pass, K4 in its recompute and the priors; its fp32 DDI runs no
+    kernel), its validation's no-grad density (K1 in every coupling) and
+    sampling pass (K1, K2 in every unit, K3 per decode level); flow_motion's
+    validation, the bridge's units in the hallucinated flow (K2).  The
+    image AEs, the flow VAE and the bridge's steps run no kernel."""
+    want = dict.fromkeys(CLI_KERNELS, 0)
+    arch = cfg["architecture"]
+    if name == "first_stage":
+        levels = len(arch["dec_channels"]) - 1
+        want["spade_gn"] = n_train * 2 * cfg["data"]["max_frames"] * levels + n_val * levels
+    elif name == "second_stage":
+        steps, levels = sum(arch["num_steps"]), len(arch["num_steps"])
+        from ipoke_tpu_torch.core.config import load_config
+
+        dec = len(load_config(cfg["first_stage"]["config"])["architecture"]
+                  ["dec_channels"]) - 1
+        want["nice_net"] = n_train * 4 * steps + n_val * 2 * (4 * steps + levels)
+        want["nice_net_train"] = n_train * (4 * steps + levels)
+        want["macow_unit_inverse"] = n_val * 4 * steps
+        want["spade_gn"] = n_val * dec
+    elif name == "flow_motion":
+        want["macow_unit_inverse"] = n_val * 4 * sum(arch["num_steps"])
+    return want
+
+
+def phase_cli(dev, smi):
+    """(k) ``ipoke_tpu_torch.main`` through the conv pipeline on a synthetic
+    tree: k1 img_encoder, k2 poke_encoder, k3 first_stage, k4 second_stage
+    (1 epoch, a restore check, then --resume for 1 more), k5 flow_vae and
+    flow_motion, each run with the launch counts zeroed before and read
+    after (the CLI path's run).  Per run: ms per step (after the first),
+    the loader's wait per step, validation seconds and metrics (finite),
+    checkpoint bytes and save seconds, restore seconds, peak memory and the
+    kernels' launches per step; beside each step's time, the host's wait in
+    its closing synchronize and its cudaMalloc calls, and a host probe
+    before each run, which tell a host-bound step from an allocator-bound
+    one."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.data.prep import make_synthetic_dataset
+
+    gc.collect()  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    old_base = os.environ.get("DATAPATH_BASE")
+    try:
+        t0 = time.perf_counter()
+        data_root = os.path.join(root, "data")
+        meta = make_synthetic_dataset(data_root, n_videos=CLI_VIDEOS,
+                                      n_frames=CLI_FRAMES, spatial_size=64)
+        base = os.path.join(root, "logs")
+        os.environ["DATAPATH_BASE"] = base
+        print(f"CLI synthetic tree: {len(meta['img_path'])} clips "
+              f"({int(meta['train'].sum())} train) in {time.perf_counter() - t0:.1f} s")
+
+        def run_dir(exp):
+            return {"config": os.path.join(base, exp, "config", "smoke", "0.yaml"),
+                    "ckpt": os.path.join(base, exp, "ckpt", "smoke", "0")}
+
+        def config(exp):
+            cfg = load_config(os.path.join("config", f"{exp}.yaml")).to_dict()
+            cfg["data"]["dataset"] = "PlantDataset"
+            cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES,
+                                   max_val_batches=1)
+            for sec in ("first_stage", "conditioner", "poke_embedder"):
+                if sec in cfg:
+                    cfg[sec].update(run_dir({"conditioner": "img_encoder",
+                                             "poke_embedder": "poke_encoder"}.get(sec, sec)))
+            if exp == "second_stage":
+                cfg["architecture"]["num_steps"] = CLI_SECOND_STAGE_STEPS
+            if exp == "flow_motion":
+                cfg["second_stage"].update(run_dir("second_stage"))
+                cfg["flow_vae"]["ckpt"] = run_dir("flow_vae")["ckpt"]
+            path = os.path.join(root, f"{exp}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            return path
+
+        def host_probe(n=2000):
+            # us per launch of a one-element add queued back to back: the
+            # host's dispatch speed just before the run (the small nets'
+            # steps are bound by it)
+            x = torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                x.add_(1)
+            torch.cuda.synchronize()
+            return 1e6 * (time.perf_counter() - t) / n
+
+        def drive(exp, path, *extra):
+            probe_us = host_probe()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2 ** 30  # before the run
+            stats0 = torch.cuda.memory_stats()
+            ops.reset_launches()  # this CLI run
+            t_run = time.perf_counter()
+            e = cli.run(["--config", path, "--model_name", "smoke",
+                         "--data_root", data_root, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            got = dict(ops.LAUNCHES)
+            tm = e.timings
+            n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
+            want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
+            label = f"CLI {exp}{' --resume' if extra else ''}"
+            print(f"{label} kernel launches: {got} (expected {want})")
+            if got != want:
+                raise AssertionError(f"{label}: launches {got} != {want}")
+            with open(e.metrics_logger.path) as f:
+                val = [json.loads(line) for line in f if '"val/' in line][-1]
+            val = {k[4:]: v for k, v in val.items() if k.startswith("val/")}
+            if not val or not all(map(math.isfinite, val.values())):
+                raise AssertionError(f"{label}: validation metrics {val}")
+            steps_ms = [1e3 * t for t in tm["step_s"]]
+            ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
+            wait = [1e3 * t for t in tm["loader_wait_s"]]
+            drain = [1e3 * t for t in tm["drain_s"]]
+            # cudaMalloc calls in each step (the first from the run's start)
+            counts = [stats0.get("num_device_alloc", 0)] + tm["device_allocs"]
+            allocs = [b - a for a, b in zip(counts, counts[1:])]
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+                - stats0.get("num_alloc_retries", 0)
+            per_step = {k: v / n_train for k, v in got.items() if v}
+            out = {"ms_per_step": ms, "steps_ms": steps_ms,
+                   "loader_wait_ms": wait, "drain_ms": drain,
+                   "host_probe_us": probe_us, "device_allocs": allocs,
+                   "alloc_retries": retries,
+                   "val_s": tm["val_s"], "val": val,
+                   "save_s": tm["save_s"], "save_bytes": tm["save_bytes"],
+                   "restore_s": tm["restore_s"], "wall_s": wall,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "held_before_gib": held,
+                   "launches": got, "launches_per_step": per_step}
+            print(f"{label} B={e.batch_size}: {n_train} steps, "
+                  f"{ms:.1f} ms/step after the first ({', '.join(f'{t:.1f}' for t in steps_ms)}); "
+                  f"loader wait {', '.join(f'{t:.1f}' for t in wait)} ms; "
+                  f"wait in the closing sync {', '.join(f'{t:.1f}' for t in drain)} ms; "
+                  f"cudaMallocs {allocs}, {retries} retries; "
+                  f"host probe {probe_us:.2f} us a launch; "
+                  f"validation {', '.join(f'{t:.2f}' for t in tm['val_s'])} s "
+                  f"{json.dumps(val)}; checkpoint {tm['save_bytes']} bytes in "
+                  f"{', '.join(f'{t:.2f}' for t in tm['save_s'])} s; restore "
+                  f"{tm['restore_s']} s; peak {out['peak_gib']:.2f} GiB "
+                  f"({held:.2f} held before the run); "
+                  f"launches per step {per_step}; run {wall:.1f} s on {smi}")
+            return e, out
+
+        def release():
+            # an experiment and its trainer refer to each other (the trainer
+            # holds the experiment's grad-accumulation wrapper): collect the
+            # cycle so that the next run's peak memory is its own
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        results, launches = {}, {}
+        for exp in ("img_encoder", "poke_encoder", "first_stage"):
+            e, results[exp] = drive(exp, config(exp))
+            launches[f"cli_{exp}"] = results[exp]["launches"]
+            del e
+            release()
+        ss_path = config("second_stage")
+        e1, results["second_stage"] = drive("second_stage", ss_path)
+        launches["cli_second_stage"] = results["second_stage"]["launches"]
+        if e1.ddi_runs != 1:
+            raise AssertionError(f"CLI second_stage: DDI ran {e1.ddi_runs} times")
+        # restore check: the state a --resume loads equals the run's own
+        args = cli.parse_args(["--config", ss_path, "--model_name", "smoke",
+                               "--data_root", data_root, "--resume"])
+        cfg_r, dirs, _ = cli.load_parameters(args)
+        from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+        e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
+        e2.build()
+        e2.restore_last()
+        checks = {"step": e2.step == e1.step,
+                  "lr count": e2.tx.count == e1.tx.count,
+                  "masters fp32, bitwise": all(
+                      a.dtype == torch.float32 and torch.equal(a, b)
+                      for a, b in zip(e2.tx.master, e1.tx.master)),
+                  "params bf16, bitwise": all(
+                      a.dtype == torch.bfloat16 and torch.equal(a, b)
+                      for a, b in zip(e2.model.flow_params.parameters(),
+                                      e1.model.flow_params.parameters()))}
+        e2.metrics_logger.close()
+        print(f"CLI second_stage restore check (step {e2.step}, lr count "
+              f"{e2.tx.count}): {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"CLI second_stage restore: {checks}")
+        step1, count1 = e1.step, e1.tx.count
+        del e1, e2
+        release()
+        e3, results["second_stage_resume"] = drive("second_stage", ss_path, "--resume")
+        launches["cli_second_stage_resume"] = results["second_stage_resume"]["launches"]
+        n3 = len(e3.timings["step_s"])
+        if (e3.step, e3.tx.count, e3.ddi_runs) != (step1 + n3, count1 + n3, 0):
+            raise AssertionError(
+                f"CLI second_stage --resume: step {e3.step}, lr count {e3.tx.count}, "
+                f"DDI runs {e3.ddi_runs}; want {step1 + n3}, {count1 + n3}, 0")
+        print(f"CLI second_stage --resume: step {step1} -> {e3.step}, lr count "
+              f"{count1} -> {e3.tx.count}, DDI not rerun")
+        del e3
+        release()
+        for exp in ("flow_vae", "flow_motion"):
+            e, results[exp] = drive(exp, config(exp))
+            launches[f"cli_{exp}"] = results[exp]["launches"]
+            del e
+            release()
+        print(f"CLI phase (k) in {time.perf_counter() - t0:.1f} s")
+        return launches, results
+    finally:
+        if old_base is None:
+            os.environ.pop("DATAPATH_BASE", None)
+        else:
+            os.environ["DATAPATH_BASE"] = old_base
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -1518,6 +1781,9 @@ def main():
         ts_times["video_from_flow"]["k2_in_situ_ms"]
     kernels["spade_gn"]["video_from_flow_in_situ_ms"] = \
         ts_times["video_from_flow"]["k3_in_situ_ms"]
+    # (k) the port's CLI through the conv pipeline
+    cli_launches, _ = phase_cli(dev, smi)
+    paths.update(cli_launches)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

@@ -16,6 +16,10 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   rule (``collapse_spectral_norm``).  The third stage's ``ConvFlowVAE``
   keeps its spectral norms live, frozen or trained, and takes every u and
   sigma.
+* The image AE's state, ``{'ae', 'logvar'}`` with its discriminator
+  (``load_image_ae``); the FirstStageWrapper's decoder maps like any flax
+  net.  MotionFeatureNet reads the JAX package's flat npz keys itself
+  (``nn.motion_feat.load_motion_feat``).
 """
 
 from __future__ import annotations
@@ -137,3 +141,15 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
         else:
             for pname, p in sub.named_parameters(recurse=False):
                 _copy(p, _get(params, path + [pname]), f"{where}/{pname}")
+
+
+def load_image_ae(model, params, stats=None, disc=None, params_d=None,
+                  stats_d=None) -> None:
+    """The JAX package's image-AE state (``models/image_ae.py``'s
+    ``AETrainState``): ``params`` {'ae': the ``FirstStageWrapper`` tree,
+    'logvar': ()} and its ``stats`` into the port's ``ImageAE``, and the
+    discriminator's ``params_d`` / ``stats_d`` into ``disc`` if given."""
+    load_flax(model.ae, params["ae"], stats)
+    _copy(model.logvar, params["logvar"], "logvar")
+    if disc is not None:
+        load_flax(disc, params_d, stats_d)

@@ -1,1 +1,2 @@
-"""Training support (counterpart of ``ipoke_tpu/core``): the optimizers."""
+"""Training support (counterpart of ``ipoke_tpu/core``): the config tree,
+the optimizers and the checkpoint store."""

@@ -6,8 +6,10 @@ before ``scale_by_adam``; ``exp_decay_per_epoch`` its staircase schedule.
 A gated step (``disc_gate`` 0) is skipped, so neither params nor moments
 move, as the JAX package's ``gated_update`` keeps them.
 
-``flow_adam`` is the JAX package's default flow optimizer: coupled L2 weight
-decay, then torch's exact AMSGrad, then the learning-rate schedule, which is
+``flow_adam`` is the JAX package's default flow optimizer: an optional clip
+by global norm (``clip_grad_norm`` > 0, optax's ``clip_by_global_norm``:
+every grad scaled by clip / norm where the norm reaches clip), coupled L2
+weight decay, then torch's exact AMSGrad, then the learning-rate schedule, which is
 read at the update count before the update (optax's ``count`` starts at 0, so
 a warmup's first step has lr 0).  ``torch.optim.Adam(amsgrad=True,
 weight_decay=...)`` is exactly that update.  Only parameters are handed in:
@@ -17,7 +19,16 @@ the ``buf_*`` leaves of a flow tree are buffers and never get a gradient.
 
 ``master_weights`` is the mixed-precision recipe: bf16-resident params, an
 fp32 master copy of each that the inner optimizer updates, and params set to
-``bf16(master)`` after every step.
+``bf16(master)`` after every step (the inner optimizer's clip sees the fp32
+grads).
+
+``with_grad_accumulation`` is ``optax.MultiSteps``: k microbatches' grads
+averaged (a running mean in the params' dtype) into one update of the inner
+optimizer, whose count and schedule advance once per k; params do not move
+between updates.
+
+Every optimizer has ``state_dict`` / ``load_state_dict`` (its count, the
+torch Adam state, masters, the accumulator) for checkpoints.
 """
 
 from __future__ import annotations
@@ -73,10 +84,12 @@ class _Adam:
     it."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr_schedule: Schedule,
-                 betas, weight_decay: float, amsgrad: bool):
+                 betas, weight_decay: float, amsgrad: bool,
+                 clip_grad_norm: float = 0.0):
         self.params = list(params)
         self.schedule = lr_schedule if callable(lr_schedule) \
             else (lambda _: lr_schedule)
+        self.clip = float(clip_grad_norm or 0.0)
         self.count = 0
         self.adam = torch.optim.Adam(self.params, lr=0.0, betas=betas,
                                      eps=1e-8, weight_decay=weight_decay,
@@ -87,11 +100,24 @@ class _Adam:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.clip > 0:
+            norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in self.params))
+            keep = norm < self.clip  # no host sync
+            for p in self.params:
+                g = p.grad
+                p.grad = torch.where(keep, g, g / norm.to(g.dtype) * self.clip)
         for group in self.adam.param_groups:
             group["lr"] = float(self.schedule(self.count))
         self.adam.step()
         self.adam.zero_grad(set_to_none=True)
         self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adam": self.adam.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adam.load_state_dict(state["adam"])
 
 
 def adam(params, lr_schedule: Schedule) -> _Adam:
@@ -100,9 +126,12 @@ def adam(params, lr_schedule: Schedule) -> _Adam:
     return _Adam(params, lr_schedule, (0.9, 0.999), 0.0, False)
 
 
-def flow_adam(params, lr_schedule: Schedule) -> _Adam:
-    """The flow optimizer over ``params`` (the trainable leaves): AMSGrad."""
-    return _Adam(params, lr_schedule, (0.9, 0.999), WEIGHT_DECAY, True)
+def flow_adam(params, lr_schedule: Schedule,
+              clip_grad_norm: float = 0.0) -> _Adam:
+    """The flow optimizer over ``params`` (the trainable leaves): AMSGrad,
+    after the clip by global norm when ``clip_grad_norm`` > 0."""
+    return _Adam(params, lr_schedule, (0.9, 0.999), WEIGHT_DECAY, True,
+                 clip_grad_norm)
 
 
 def gan_adam(params, lr_schedule: Schedule, weight_decay: float = 1e-5) -> _Adam:
@@ -131,9 +160,81 @@ class _MasterWeights:
         for p, m in zip(self.params, self.master):
             p.copy_(m)
 
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    def state_dict(self) -> dict:
+        return {"master": list(self.master), "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for m, v in zip(self.master, state["master"]):
+            m.copy_(v)
+        self.inner.load_state_dict(state["inner"])
+
 
 def master_weights(params, make_inner: Callable[[list], _Adam]) -> _MasterWeights:
     """``make_inner(masters)`` builds the inner optimizer over fp32 copies
     of ``params``, taken now (after any bf16 cast, as the JAX trainer
     builds its optimizer after DDI and the cast)."""
     return _MasterWeights(params, make_inner)
+
+
+class _MultiSteps:
+    """``optax.MultiSteps(tx, every_k_schedule=k)`` over ``tx.params``:
+    ``step`` folds each param's ``.grad`` (zero when missing) into a running
+    mean, ``acc + (g - acc) / (n + 1)``, and clears it; the k-th call hands
+    the mean to ``tx`` as its grads and steps it."""
+
+    def __init__(self, tx, k: int):
+        self.inner, self.k = tx, k
+        self.params = tx.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.n = 0
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is not None:
+                acc.add_((p.grad.to(acc.dtype) - acc) / (self.n + 1))
+            else:
+                acc.sub_(acc / (self.n + 1))
+            p.grad = None
+        self.n += 1
+        if self.n < self.k:
+            return
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+            acc.zero_()
+        self.n = 0
+        self.inner.step()
+
+    def state_dict(self) -> dict:
+        return {"acc": list(self.acc), "n": self.n,
+                "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for a, v in zip(self.acc, state["acc"]):
+            a.copy_(v)
+        self.n = int(state["n"])
+        self.inner.load_state_dict(state["inner"])
+
+
+def with_grad_accumulation(tx, config, batch_size: int):
+    """``(tx, k)``: ``tx`` wrapped to accumulate k = ceil(min_acc_batch_size
+    / batch_size) microbatches per update (``training.min_acc_batch_size``,
+    reference experiments/experiment.py:81-82); ``tx`` itself when k is 1."""
+    import math
+
+    min_acc = int(config.get("training", {}).get("min_acc_batch_size", 0) or 0)
+    bs = max(1, int(batch_size))
+    if min_acc <= bs:
+        return tx, 1
+    k = math.ceil(min_acc / bs)
+    return _MultiSteps(tx, k), k

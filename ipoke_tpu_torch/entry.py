@@ -247,16 +247,33 @@ def build_first_stage(cfg, device, generator: Optional[torch.Generator] = None):
     as the JAX package's VGG; the values are not JAX's)."""
     device = torch.device(device)
     with torch.device("meta"):
-        nets = (*_fs.build_first_stage(cfg), VGG19Features())
+        nets = _fs.build_first_stage(cfg)
+    return (*(materialize(net, device, generator) for net in nets),
+            build_vgg(device))
+
+
+def materialize(module: torch.nn.Module, device,
+                generator: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """A module built on ``meta``, moved to ``device`` with random weights
+    (``_init_random``) drawn from ``generator``; on ``meta`` as it is."""
+    device = torch.device(device)
     if device.type == "meta":
-        return nets
-    *nets, vgg = nets
-    nets = [net.to_empty(device=device) for net in nets]
-    for net in nets:
-        _init_random(net, generator)
-    vgg = vgg.to_empty(device="cpu")
-    _init_random(vgg, torch.Generator().manual_seed(0))
-    return (*nets, vgg.to(device))
+        return module
+    module = module.to_empty(device=device)
+    _init_random(module, generator)
+    return module
+
+
+def build_vgg(device) -> VGG19Features:
+    """VGG19 to conv5_1 from its own CPU generator seeded 0, so that it has
+    the same weights on every device (fixed-seed, as the JAX package's VGG;
+    the values are not JAX's)."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        vgg = VGG19Features()
+    if device.type == "meta":
+        return vgg
+    return materialize(vgg, "cpu", torch.Generator().manual_seed(0)).to(device)
 
 
 def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:

@@ -1,4 +1,15 @@
-"""Evaluation metrics (counterpart of ``ipoke_tpu/eval``): the optical-flow
-errors the third-stage trainers monitor."""
+"""Evaluation (counterpart of ``ipoke_tpu/eval``): the validation metrics
+and the FVD backbone."""
 
-from .metrics import angular_error, endpoint_error
+from .backbone import init_fvd_backbone
+from .metrics import (
+    angular_error,
+    calculate_moments,
+    compute_fid,
+    compute_fvd,
+    endpoint_error,
+    frechet_distance,
+    perceptual_distance,
+    psnr,
+    ssim,
+)

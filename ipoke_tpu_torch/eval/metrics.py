@@ -1,10 +1,72 @@
-"""Optical-flow errors (counterpart of ``ipoke_tpu/eval/metrics.py``
-``angular_error`` and ``endpoint_error``, reference utils/metrics.py:20-83),
-per pixel of NHWC flow maps (..., 2)."""
+"""Evaluation metrics, the validation half (counterpart of
+``ipoke_tpu/eval/metrics.py``): PSNR, SSIM, the VGG perceptual distance,
+the optical-flow errors (reference utils/metrics.py:20-83), and the
+Fréchet distances (FVD over the MotionFeatureNet, FID over pooled VGG19
+features) with the host-side moments and scipy ``sqrtm`` of the JAX
+package.  Images are NHWC in [-1, 1]; flow maps (..., 2)."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Image metrics
+# ---------------------------------------------------------------------------
+
+
+def psnr(a, b, data_range: float = 2.0):
+    """Per-image PSNR."""
+    mse = ((a - b) ** 2).mean(dim=(-3, -2, -1))
+    return 10.0 * torch.log10(data_range ** 2 / torch.clamp(mse, min=1e-10))
+
+
+def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device=None):
+    g = torch.exp(-0.5 * ((torch.arange(size, device=device, dtype=torch.float32)
+                           - size // 2) / sigma) ** 2)
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def ssim(a, b, data_range: float = 2.0):
+    """Per-image SSIM with the 11x11 Gaussian window (valid region),
+    variances clamped at 0."""
+    c = a.shape[-1]
+    kern = _gaussian_kernel(device=a.device).to(a.dtype)
+    kern = kern[None, None].expand(c, 1, -1, -1)
+
+    def filt(x):
+        return F.conv2d(x.permute(0, 3, 1, 2), kern, groups=c)
+
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_a, mu_b = filt(a), filt(b)
+    va = torch.clamp(filt(a * a) - mu_a ** 2, min=0.0)
+    vb = torch.clamp(filt(b * b) - mu_b ** 2, min=0.0)
+    vab = filt(a * b) - mu_a * mu_b
+    s = ((2 * mu_a * mu_b + c1) * (2 * vab + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (va + vb + c2))
+    return s.mean(dim=(-3, -2, -1))
+
+
+def perceptual_distance(vgg, a, b):
+    """LPIPS-style distance over unit-normalised VGG19 features, mean over
+    the five taps (uniform channel weights)."""
+    total = 0.0
+    fa, fb = vgg(a), vgg(b)
+    for x, y in zip(fa, fb):
+        xn = x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-10)
+        yn = y / (torch.linalg.norm(y, dim=-1, keepdim=True) + 1e-10)
+        total = total + ((xn - yn) ** 2).mean(dim=(-3, -2, -1))
+    return total / len(fa)
+
+
+# ---------------------------------------------------------------------------
+# Optical flow errors
+# ---------------------------------------------------------------------------
 
 
 def angular_error(f1, f2):
@@ -18,3 +80,65 @@ def angular_error(f1, f2):
 
 def endpoint_error(f1, f2):
     return (f1 - f2).norm(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Fréchet distances (FVD / FID)
+# ---------------------------------------------------------------------------
+
+
+def calculate_moments(acts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Mean and covariance of the activation matrix; a diagonal covariance
+    when N < D (the full one is rank-deficient there)."""
+    mu = np.mean(acts, axis=0)
+    n, d = acts.shape
+    if n < d:
+        sigma = np.diag(np.var(acts, axis=0, ddof=1) + 1e-8)
+    else:
+        sigma = np.cov(acts, rowvar=False)
+    return mu, sigma
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
+    """Stable Fréchet distance (reference metrics.py:690-743)."""
+    from scipy import linalg
+
+    diff = mu1 - mu2
+    covmean = linalg.sqrtm(sigma1.dot(sigma2))
+    if not np.isfinite(covmean).all():
+        offset = np.eye(sigma1.shape[0]) * eps
+        covmean = linalg.sqrtm((sigma1 + offset).dot(sigma2 + offset))
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(
+        diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2)
+        - 2.0 * np.trace(covmean)
+    )
+
+
+@torch.no_grad()
+def compute_fid(vgg, real_images, fake_images, batch_size: int = 32) -> float:
+    """Fréchet distance over VGG19's last tap, mean-pooled (the JAX
+    package's stand-in for the reference's InceptionV3 FID)."""
+    dev = next(vgg.parameters()).device
+
+    def collect(images):
+        out = []
+        for i in range(0, images.shape[0], batch_size):
+            x = torch.as_tensor(images[i:i + batch_size]).to(dev, torch.float32)
+            out.append(vgg(x)[-1].mean(dim=(1, 2)).cpu().numpy())
+        return np.concatenate(out)
+
+    a, b = collect(real_images), collect(fake_images)
+    return frechet_distance(*calculate_moments(a), *calculate_moments(b))
+
+
+def compute_fvd(backbone, real_videos, fake_videos, batch_size: int = 8) -> float:
+    """FVD over the backbone's activations (``eval.backbone``); videos (N,
+    T, H, W, 3) in [-1, 1], tensors or arrays."""
+    from ..nn.motion_feat import motion_feat_activations
+
+    a_real = motion_feat_activations(backbone, real_videos, batch_size)
+    a_fake = motion_feat_activations(backbone, fake_videos, batch_size)
+    return frechet_distance(*calculate_moments(a_real),
+                            *calculate_moments(a_fake))

@@ -1,7 +1,7 @@
 """Conv encoder and decoders (counterpart of ``ipoke_tpu/nn/encoders.py``),
 NHWC.  Of the encoders only the deterministic branch is ported (no
-variational heads): the conditioning encoders of sampling and the flow VAE
-run nothing else.  ``ConvEncoder`` defaults to flax's spectral norm in its
+variational heads): the conditioning encoders, the image AE and the flow
+VAE run nothing else.  ``ConvEncoder`` defaults to flax's spectral norm in its
 convs and ``ConvDecoder`` always has it in its ResBlocks, as in the JAX
 package (the flow VAE trains them so); the frozen ``FirstStageWrapper`` builds its encoder
 without it and takes the collapsed weights (``convert``).  The SPADE
@@ -50,21 +50,24 @@ class ConvEncoder(nn.Module):
 
 
 class ConvDecoder(nn.Module):
-    """A ResBlock, then upsampling ResBlocks, then a Conv2dBlock to the 2
-    flow channels with no activation (the flow VAE's decoder, the one
-    ported caller).  ``in_channels`` is the channel plan, deepest first
-    (``[nf_max] + encoder.depths``); group norm and spectral norm in every
-    ResBlock conv (not the output conv)."""
+    """A ResBlock, then upsampling ResBlocks, then a Conv2dBlock to
+    ``out_channels`` (tanh at 3, else no activation).  ``in_channels`` is the
+    channel plan, deepest first (``[nf_max] + encoder.depths``); group norm
+    and spectral norm in every ResBlock conv (not the output conv).  The
+    flow VAE's decoder has 2 outputs; the image AE's has its input's
+    channels."""
 
-    def __init__(self, nf_in: int, in_channels: Sequence[int]):
+    def __init__(self, nf_in: int, in_channels: Sequence[int],
+                 out_channels: int = 2):
         super().__init__()
         self.ResBlock_0 = ResBlock(nf_in, in_channels[0], snorm=True)
         self.n_up = len(in_channels) - 1
         for i, (cin, nf) in enumerate(zip(in_channels[:-1], in_channels[1:])):
             self.add_module(f"ResBlock_{i + 1}", ResBlock(
                 cin, nf, upsampling=True, snorm=True))
-        self.Conv2dBlock_0 = Conv2dBlock(in_channels[-1], 2, 3, 1, 1,
-                                         norm="none", activation="none")
+        self.Conv2dBlock_0 = Conv2dBlock(
+            in_channels[-1], out_channels, 3, 1, 1, norm="none",
+            activation="tanh" if out_channels == 3 else "none")
 
     def forward(self, z, train: bool = False):
         h = self.ResBlock_0(z, train)
@@ -109,17 +112,30 @@ class SpadeCondConvDecoder(nn.Module):
 
 
 class FirstStageWrapper(nn.Module):
-    """The deterministic encoder of the image conditioner / poke embedder
-    (its decoder does not take part in sampling and is not ported; nor are
-    the variational heads and ``poke_and_image``, unused at the shipped
-    config)."""
+    """The deterministic conv AE of the image conditioner and the poke
+    embedder.  With ``decoder`` it is the trainable AE of the image AE
+    stage: encoder and decoder, with flax's spectral norm in the stem and
+    every ResBlock conv (the CLI's frozen copies are that net with its
+    spectral norms collapsed, ``models.image_ae.freeze_spectral_norm``).
+    Without it, the frozen encoder alone that ``entry``'s sampling models
+    build for converted weights (``convert``).  The variational heads and
+    ``poke_and_image`` are not ported (ROADMAP queue 1 item 3)."""
 
     def __init__(self, spatial_size: int, nf_in: int, nf_max: int,
-                 min_spatial_size: int = 8):
+                 min_spatial_size: int = 8, decoder: bool = False):
         super().__init__()
         self.nf_max, self.min_spatial_size = nf_max, min_spatial_size
         n_stages = int(np.log2(spatial_size // min_spatial_size))
-        self.encoder = ConvEncoder(nf_in, nf_max, n_stages, snorm=False)
+        self.encoder = ConvEncoder(nf_in, nf_max, n_stages, snorm=decoder)
+        if decoder:
+            self.decoder = ConvDecoder(nf_max, (nf_max,) + self.encoder.depths,
+                                       out_channels=nf_in)
 
-    def encode(self, x):
-        return self.encoder(x)
+    def encode(self, x, train: bool = False):
+        return self.encoder(x, train)
+
+    def forward(self, x, train: bool = False):
+        """The reconstruction of ``x``; ``train`` advances every spectral
+        norm's u."""
+        z, _, _ = self.encoder(x, train)
+        return self.decoder(z, train)

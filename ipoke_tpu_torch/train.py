@@ -5,8 +5,12 @@ First stage (``FirstStageTrainer``): three ``gan_adam`` optimizers on the
 staircase schedule (per optimizer, at the updates it has made), the
 discriminators gated on ``epoch >= d_t.pretrain``, the KL weight annealed
 over ``kl_annealing`` epochs, one step's random numbers drawn from the
-caller's generator (``sample_draws``).  Grad accumulation, checkpoints and
-validation are not ported yet.
+caller's generator (``sample_draws``).
+
+Every trainer takes ``wrap``, applied to each optimizer it builds: the
+experiment layer's grad accumulation (``core.optim.with_grad_accumulation``).
+The experiments (``cli/experiments.py``) add data, validation and
+checkpoints.
 
 Second stage (``SecondStageTrainer``):
 
@@ -26,7 +30,7 @@ Adam, every spectral norm's u advancing each step); ``FlowMotionTrainer``
 trains the bridge INN over the frozen second stage and flow VAE
 (``flow_adam`` on the warmup/linear-decay schedule, the recon-weight
 doubling).  Both ``validate`` on endpoint and angular error.  No DDI runs,
-as in the JAX trainer.  Grad accumulation and checkpoints are not ported.
+as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -65,12 +69,32 @@ from .models.third_stage import (
 )
 
 
+def _identity(tx):
+    return tx
+
+
+def run_lr_schedule(tcfg, decay_to_end: bool = True):
+    """The second stage's and the bridge's schedule from the training
+    config: warmup over ``lr_scaling_max_it``, then linear decay to 0 at the
+    run's last step, ``n_epochs * max_batches_per_epoch`` (the experiment
+    writes its ``--debug`` values there), or at 10**9 without
+    ``decay_to_end`` (``custom_lr_decrease`` off)."""
+    total = int(tcfg.get("n_epochs", 100)) * int(
+        tcfg.get("max_batches_per_epoch", 10**9)) if decay_to_end else 10**9
+    return warmup_linear_decay(float(tcfg.get("lr", 1e-3)),
+                               int(tcfg.get("lr_scaling_max_it", 500)), total)
+
+
 class SecondStageTrainer:
-    def __init__(self, model: SecondStageModel, lr_schedule):
+    """``clip_grad_norm``: ``flow_adam``'s clip by global norm (0: none)."""
+
+    def __init__(self, model: SecondStageModel, lr_schedule,
+                 clip_grad_norm: float = 0.0, wrap=_identity):
         self.model = model
         self.mixed = bool(model.config.get("training", {}).get(
             "mixed_prec_master", False))
-        self.make_tx = lambda params: flow_adam(params, lr_schedule)
+        self.make_tx = lambda params: flow_adam(params, lr_schedule, clip_grad_norm)
+        self.wrap = wrap
         self.tx = self._step = None
 
     def ddi(self, batch, generator: Optional[torch.Generator] = None) -> None:
@@ -85,7 +109,7 @@ class SecondStageTrainer:
             make = lambda params: master_weights(params, self.make_tx)
         else:
             make = self.make_tx
-        self.tx = create_second_stage_state(self.model, make)
+        self.tx = self.wrap(create_second_stage_state(self.model, make))
         self._step = make_second_stage_train_step(self.model, self.tx)
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None):
@@ -95,15 +119,15 @@ class SecondStageTrainer:
 
 
 class FirstStageTrainer:
-    def __init__(self, config, model, disc_s, disc_t, vgg):
+    def __init__(self, config, model, disc_s, disc_t, vgg, wrap=_identity):
         tcfg = config["training"]
         self.config = config
         steps = int(tcfg.get("max_batches_per_epoch", 10 ** 9))
         sched = exp_decay_per_epoch(float(tcfg.get("lr", 2e-4)),
                                     float(tcfg.get("gamma", 0.98)), steps)
         wd = float(tcfg.get("weight_decay", 1e-5))
-        self.tx = create_first_stage_state(model, disc_s, disc_t,
-                                           lambda params: gan_adam(params, sched, wd))
+        self.tx = create_first_stage_state(
+            model, disc_s, disc_t, lambda params: wrap(gan_adam(params, sched, wd)))
         self.step = FirstStageStep(config, model, disc_s, disc_t, vgg, *self.tx)
         self.pretrain = int(config["d_t"].get("pretrain", 0))
         self.anneal = float(tcfg.get("kl_annealing", 0))
@@ -135,11 +159,11 @@ class FlowVAETrainer:
     + kl_weight * KL (channel-sum, mean elsewhere), the encoder's sample
     drawn from the caller's generator or given as ``noise``."""
 
-    def __init__(self, config, model: ConvFlowVAE):
+    def __init__(self, config, model: ConvFlowVAE, wrap=_identity):
         tcfg = config["training"]
         self.model = model.requires_grad_(True)
         self.kl_weight = float(tcfg.get("kl_weight", 1e-6))
-        self.tx = adam(list(model.parameters()), float(tcfg.get("lr", 1e-3)))
+        self.tx = wrap(adam(list(model.parameters()), float(tcfg.get("lr", 1e-3))))
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None,
                    noise: Optional[torch.Tensor] = None):
@@ -161,23 +185,20 @@ class FlowVAETrainer:
 
 class FlowMotionTrainer:
     """``FlowMotionExperiment``'s build and step: ``flow_adam`` over the
-    bridge's params only, on ``lr_schedule`` (default: the config's
-    ``warmup_linear_decay(lr, lr_scaling_max_it, n_epochs *
-    max_batches_per_epoch)``), and with ``recon_scaling`` the recon weight
+    bridge's params only, on ``lr_schedule`` (default: the config's,
+    ``run_lr_schedule``), and with ``recon_scaling`` the recon weight
     doubled every 10 epochs."""
 
-    def __init__(self, model: FlowMotionModel, lr_schedule=None):
+    def __init__(self, model: FlowMotionModel, lr_schedule=None, wrap=_identity):
         tcfg = model.config["training"]
         if lr_schedule is None:
-            lr_schedule = warmup_linear_decay(
-                float(tcfg.get("lr", 1e-3)), int(tcfg.get("lr_scaling_max_it", 500)),
-                int(tcfg.get("n_epochs", 100))
-                * int(tcfg.get("max_batches_per_epoch", 2000)))
+            lr_schedule = run_lr_schedule(tcfg)
         self.model = model
         self.weight_recon = float(tcfg.get("weight_recon", 1.0))
         self.recon_scaling = bool(tcfg.get("recon_scaling", False))
         self.state = create_third_stage_state(
-            model, lambda params: flow_adam(params, lr_schedule), self.weight_recon)
+            model, lambda params: wrap(flow_adam(params, lr_schedule)),
+            self.weight_recon)
         self._step = make_flow_motion_train_step(model)
 
     def train_step(self, batch, epoch: int,

@@ -579,3 +579,48 @@ def test_flow_motion_tiny_card_matches_cpu(dev):
     for k in want:
         assert abs(got[k].item() - want[k].item()) <= 1e-3 * (1 + abs(want[k].item())), k
     _check_update(*(t.state.tx for t in trainers), 1e-3, "bridge")
+
+
+def test_second_stage_experiment_card_matches_cpu(dev, tmp_path):
+    """The TINY ``second_stage`` experiment (``tests/test_second_stage.py``'s
+    SS_CFG with a NICE hidden width of 128, so that K1 and K4 take its
+    couplings, in bf16 with fp32 masters, over TINY frozen stages trained on
+    the CPU, the first stage deterministic) runs one epoch of 2 batches through
+    ``ipoke_tpu_torch.main`` on the card and on the CPU, from the same seed
+    (the weights are drawn on the CPU) and the same synthetic tree.  The
+    logged step-1 losses are held by phase (f)'s rule, 5e-2 relative (the
+    ``reference_nll_loss`` diagnostic is a fresh draw of each device's
+    generator and is not compared); then ``--resume`` on the card continues
+    the step and the optimizer's count without a second DDI."""
+    import json
+
+    from test_torch_cli import CONFIGS, SS, Env
+
+    env = Env(tmp_path)
+    for exp in ("img_encoder", "poke_encoder", "first_stage"):
+        body = copy.deepcopy(CONFIGS[exp])
+        body["architecture"]["deterministic"] = True
+        env.run(env.config(exp, body))
+    ss = copy.deepcopy(SS)  # NICE hidden 16 * 8 = 128: K1/K4's family
+    ss["architecture"]["flow_mid_channels_factor"] = 16
+    path = env.config("second_stage", ss)
+    runs = [env.run(path, device=d) for d in ("cpu", "cuda")]
+
+    def step1(e):
+        with open(e.metrics_logger.path) as f:
+            rec = next(json.loads(line) for line in f if '"train/' in line)
+        assert rec["step"] == 1
+        return {k: v for k, v in rec.items()
+                if k.startswith("train/") and k.endswith("loss")
+                and "reference" not in k}
+
+    cpu, card = map(step1, runs)
+    assert cpu.keys() == card.keys() and "train/flow_loss" in cpu
+    for k in cpu:
+        assert abs(card[k] - cpu[k]) <= 5e-2 * abs(cpu[k]), (k, card[k], cpu[k])
+    assert runs[1].ddi_runs == 1 and runs[1].version == 1
+    assert all(ops.LAUNCHES[k] > 0 for k in
+               ("nice_net", "nice_net_train", "macow_unit_inverse", "spade_gn"))
+    resumed = env.run(path, "--resume", device="cuda")
+    assert (resumed.version, resumed.step, resumed.tx.count, resumed.ddi_runs) \
+        == (1, 4, 4, 0)
