@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-first-stage VAE-GAN train step, conv third stage and CLI on one NVIDIA GPU.
+first-stage VAE-GAN train step, conv third stage, CLI and ``--test`` modes
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,8 +94,21 @@ Phases, in order; any failure raises and exits non-zero:
       host probe (us per launch of a one-element add, just before the
       run), validation seconds and metrics (finite), checkpoint bytes and
       save seconds, restore seconds, peak memory.  The tree and run dirs live in
-      a temporary directory that is removed at the end.  Alone:
-      ``_build.load()``, then ``phase_cli(dev, smi)`` (~70 s).
+      a temporary directory (``cli_tree``) that is removed after phase (l).
+  (l) the ``--test`` modes: (l1) LPIPS (3 and 2 channels) and PoseResNet-50
+      on 400 frames at 64 px, I3D on 8 clips of (10, 64, 64), and the MSE,
+      VGG and LPIPS diversity scores, card against the CPU port (fp32, TF32
+      off; tolerances at ``EVAL_TOL``), with the card's ms per call; (l2)
+      ``main.run([... "--test", mode, "--debug"])`` for samples, fvd,
+      accuracy, diversity, control_sensitivity, transfer and kps_acc on
+      (k)'s second-stage run (the YAML's batch of 40: data.test_batch_size),
+      each with the launch counts zeroed before and read after (the path
+      ``test_<mode>``) and held against ``expected_test_launches``, its
+      artifacts and finite metrics checked, seconds per mode and per
+      sampling pass, peak memory; then ``--test realism`` raises.  Alone:
+      ``_build.load()``, then ``with cli_tree() as tree:``
+      ``phase_cli(dev, smi, tree)``, ``phase_eval_nets(dev, smi)``,
+      ``phase_test_modes(dev, smi, tree)`` (~3 min of command time).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -107,6 +121,7 @@ TFLOP/s bf16, 67 TFLOP/s fp32).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -1522,7 +1537,38 @@ def expected_cli_launches(name, cfg, n_train, n_val):
     return want
 
 
-def phase_cli(dev, smi):
+@contextlib.contextmanager
+def cli_tree():
+    """A temporary directory with the synthetic PlantDataset tree of phase
+    (k) (``data``) and the run dirs' base (``logs``, as ``DATAPATH_BASE``);
+    removed, and ``DATAPATH_BASE`` restored, on exit."""
+    import os
+    import shutil
+    import tempfile
+
+    from ipoke_tpu_torch.data.prep import make_synthetic_dataset
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    old_base = os.environ.get("DATAPATH_BASE")
+    try:
+        t0 = time.perf_counter()
+        data_root = os.path.join(root, "data")
+        meta = make_synthetic_dataset(data_root, n_videos=CLI_VIDEOS,
+                                      n_frames=CLI_FRAMES, spatial_size=64)
+        base = os.path.join(root, "logs")
+        os.environ["DATAPATH_BASE"] = base
+        print(f"CLI synthetic tree: {len(meta['img_path'])} clips "
+              f"({int(meta['train'].sum())} train) in {time.perf_counter() - t0:.1f} s")
+        yield {"root": root, "data_root": data_root, "base": base}
+    finally:
+        if old_base is None:
+            os.environ.pop("DATAPATH_BASE", None)
+        else:
+            os.environ["DATAPATH_BASE"] = old_base
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_cli(dev, smi, tree):
     """(k) ``ipoke_tpu_torch.main`` through the conv pipeline on a synthetic
     tree: k1 img_encoder, k2 poke_encoder, k3 first_stage, k4 second_stage
     (1 epoch, a restore check, then --resume for 1 more), k5 flow_vae and
@@ -1536,191 +1582,425 @@ def phase_cli(dev, smi):
     one."""
     import gc
     import os
-    import shutil
-    import tempfile
 
     import yaml
 
     from ipoke_tpu_torch import main as cli
     from ipoke_tpu_torch import ops
     from ipoke_tpu_torch.core.config import load_config
-    from ipoke_tpu_torch.data.prep import make_synthetic_dataset
 
     gc.collect()  # what earlier phases left in reference cycles
     torch.cuda.empty_cache()
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    old_base = os.environ.get("DATAPATH_BASE")
-    try:
+    root, data_root, base = tree["root"], tree["data_root"], tree["base"]
+    t0 = time.perf_counter()
+
+    def run_dir(exp):
+        return {"config": os.path.join(base, exp, "config", "smoke", "0.yaml"),
+                "ckpt": os.path.join(base, exp, "ckpt", "smoke", "0")}
+
+    def config(exp):
+        cfg = load_config(os.path.join("config", f"{exp}.yaml")).to_dict()
+        cfg["data"]["dataset"] = "PlantDataset"
+        cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES,
+                               max_val_batches=1)
+        for sec in ("first_stage", "conditioner", "poke_embedder"):
+            if sec in cfg:
+                cfg[sec].update(run_dir({"conditioner": "img_encoder",
+                                         "poke_embedder": "poke_encoder"}.get(sec, sec)))
+        if exp == "second_stage":
+            cfg["architecture"]["num_steps"] = CLI_SECOND_STAGE_STEPS
+        if exp == "flow_motion":
+            cfg["second_stage"].update(run_dir("second_stage"))
+            cfg["flow_vae"]["ckpt"] = run_dir("flow_vae")["ckpt"]
+        path = os.path.join(root, f"{exp}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    def host_probe(n=2000):
+        # us per launch of a one-element add queued back to back: the
+        # host's dispatch speed just before the run (the small nets'
+        # steps are bound by it)
+        x = torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            x.add_(1)
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t) / n
+
+    def drive(exp, path, *extra):
+        probe_us = host_probe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30  # before the run
+        stats0 = torch.cuda.memory_stats()
+        ops.reset_launches()  # this CLI run
+        t_run = time.perf_counter()
+        e = cli.run(["--config", path, "--model_name", "smoke",
+                     "--data_root", data_root, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        got = dict(ops.LAUNCHES)
+        tm = e.timings
+        n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
+        want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
+        label = f"CLI {exp}{' --resume' if extra else ''}"
+        print(f"{label} kernel launches: {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+        with open(e.metrics_logger.path) as f:
+            val = [json.loads(line) for line in f if '"val/' in line][-1]
+        val = {k[4:]: v for k, v in val.items() if k.startswith("val/")}
+        if not val or not all(map(math.isfinite, val.values())):
+            raise AssertionError(f"{label}: validation metrics {val}")
+        steps_ms = [1e3 * t for t in tm["step_s"]]
+        ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
+        wait = [1e3 * t for t in tm["loader_wait_s"]]
+        drain = [1e3 * t for t in tm["drain_s"]]
+        # cudaMalloc calls in each step (the first from the run's start)
+        counts = [stats0.get("num_device_alloc", 0)] + tm["device_allocs"]
+        allocs = [b - a for a, b in zip(counts, counts[1:])]
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+            - stats0.get("num_alloc_retries", 0)
+        per_step = {k: v / n_train for k, v in got.items() if v}
+        out = {"ms_per_step": ms, "steps_ms": steps_ms,
+               "loader_wait_ms": wait, "drain_ms": drain,
+               "host_probe_us": probe_us, "device_allocs": allocs,
+               "alloc_retries": retries,
+               "val_s": tm["val_s"], "val": val,
+               "save_s": tm["save_s"], "save_bytes": tm["save_bytes"],
+               "restore_s": tm["restore_s"], "wall_s": wall,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "held_before_gib": held,
+               "launches": got, "launches_per_step": per_step}
+        print(f"{label} B={e.batch_size}: {n_train} steps, "
+              f"{ms:.1f} ms/step after the first ({', '.join(f'{t:.1f}' for t in steps_ms)}); "
+              f"loader wait {', '.join(f'{t:.1f}' for t in wait)} ms; "
+              f"wait in the closing sync {', '.join(f'{t:.1f}' for t in drain)} ms; "
+              f"cudaMallocs {allocs}, {retries} retries; "
+              f"host probe {probe_us:.2f} us a launch; "
+              f"validation {', '.join(f'{t:.2f}' for t in tm['val_s'])} s "
+              f"{json.dumps(val)}; checkpoint {tm['save_bytes']} bytes in "
+              f"{', '.join(f'{t:.2f}' for t in tm['save_s'])} s; restore "
+              f"{tm['restore_s']} s; peak {out['peak_gib']:.2f} GiB "
+              f"({held:.2f} held before the run); "
+              f"launches per step {per_step}; run {wall:.1f} s on {smi}")
+        return e, out
+
+    def release():
+        # an experiment and its trainer refer to each other (the trainer
+        # holds the experiment's grad-accumulation wrapper): collect the
+        # cycle so that the next run's peak memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    results, launches = {}, {}
+    for exp in ("img_encoder", "poke_encoder", "first_stage"):
+        e, results[exp] = drive(exp, config(exp))
+        launches[f"cli_{exp}"] = results[exp]["launches"]
+        del e
+        release()
+    ss_path = config("second_stage")
+    e1, results["second_stage"] = drive("second_stage", ss_path)
+    launches["cli_second_stage"] = results["second_stage"]["launches"]
+    if e1.ddi_runs != 1:
+        raise AssertionError(f"CLI second_stage: DDI ran {e1.ddi_runs} times")
+    # restore check: the state a --resume loads equals the run's own
+    args = cli.parse_args(["--config", ss_path, "--model_name", "smoke",
+                           "--data_root", data_root, "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+    e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
+    e2.build()
+    e2.restore_last()
+    checks = {"step": e2.step == e1.step,
+              "lr count": e2.tx.count == e1.tx.count,
+              "masters fp32, bitwise": all(
+                  a.dtype == torch.float32 and torch.equal(a, b)
+                  for a, b in zip(e2.tx.master, e1.tx.master)),
+              "params bf16, bitwise": all(
+                  a.dtype == torch.bfloat16 and torch.equal(a, b)
+                  for a, b in zip(e2.model.flow_params.parameters(),
+                                  e1.model.flow_params.parameters()))}
+    e2.metrics_logger.close()
+    print(f"CLI second_stage restore check (step {e2.step}, lr count "
+          f"{e2.tx.count}): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"CLI second_stage restore: {checks}")
+    step1, count1 = e1.step, e1.tx.count
+    del e1, e2
+    release()
+    e3, results["second_stage_resume"] = drive("second_stage", ss_path, "--resume")
+    launches["cli_second_stage_resume"] = results["second_stage_resume"]["launches"]
+    n3 = len(e3.timings["step_s"])
+    if (e3.step, e3.tx.count, e3.ddi_runs) != (step1 + n3, count1 + n3, 0):
+        raise AssertionError(
+            f"CLI second_stage --resume: step {e3.step}, lr count {e3.tx.count}, "
+            f"DDI runs {e3.ddi_runs}; want {step1 + n3}, {count1 + n3}, 0")
+    print(f"CLI second_stage --resume: step {step1} -> {e3.step}, lr count "
+          f"{count1} -> {e3.tx.count}, DDI not rerun")
+    del e3
+    release()
+    for exp in ("flow_vae", "flow_motion"):
+        e, results[exp] = drive(exp, config(exp))
+        launches[f"cli_{exp}"] = results[exp]["launches"]
+        del e
+        release()
+    print(f"CLI phase (k) in {time.perf_counter() - t0:.1f} s")
+    tree["second_stage"] = ss_path
+    return launches, results
+
+
+# (l) the --test modes.  (l1) the evaluation nets, card against the CPU
+# port, fp32 with TF32 off, at the modes' shapes: LPIPS (3 and 2 channels)
+# and PoseResNet-50 on the B*T = 400 frames of a 64 px test batch, I3D on
+# 8 clips (10, 64, 64, 3); the diversity scores on (N, S) = (8, 5) clips
+# (the mode's N = 40 on the card alone: VGG19 and VGG16 over 2000 frames
+# take the CPU ~30 s).  cuDNN and oneDNN sum their convolutions in other
+# orders, ~1e-6 relative a layer; a wrong layout or pad moves the output
+# by O(1).  LPIPS and the LPIPS and MSE diversity within 1e-4 relative;
+# I3D's logits and features, PoseResNet's heatmaps within 1e-3 abs + rel;
+# the VGG diversity, 1 - cos of the fixed-seed VGG19's last taps (~1e-4:
+# its features all but align), within 1e-6 absolute (fp32 rounds the
+# cosine at ~1e-7).
+EVAL_FRAMES, EVAL_I3D, EVAL_DIVERSITY = 400, (8, 10, 64, 64, 3), (8, 5, 10, 64, 64, 3)
+EVAL_TOL = {"lpips": 1e-4, "i3d": 1e-3, "pose": 1e-3, "div_rel": 1e-4, "div_vgg_abs": 1e-6}
+# (l2) each mode through ``ipoke_tpu_torch.main --test <mode> --debug`` on
+# phase (k)'s second-stage run, with the JAX package's --debug batch counts
+# and the YAML's batch (data.test_batch_size set to its batch_size, 40:
+# --debug cuts batch_size to 2, and the test loader reads
+# data.test_batch_size); (sampling passes, density passes) per mode at
+# testing.n_samples_per_data_point = S
+TEST_MODES = ("samples", "fvd", "accuracy", "diversity", "control_sensitivity",
+              "transfer", "kps_acc")
+
+
+def test_mode_passes(mode, cfg):
+    s = int(cfg["testing"]["n_samples_per_data_point"])
+    return {"samples": (s, 0), "fvd": (2, 0), "accuracy": (2 * s, 0),
+            "diversity": (s, 0), "control_sensitivity": (1 + 4, 0),
+            "transfer": (2, 1), "kps_acc": (2, 0)}[mode]
+
+
+def expected_test_launches(mode, cfg):
+    """A sampling pass runs K1 in every NICE coupling of the inverse
+    (4 a step and one a level's prior), K2 in every unit (4 a step) and K3
+    once a decode level; the no-grad density pass (transfer) K1 in every
+    coupling; no K4 (no grad) and no K5 (every latent 8x8)."""
+    from ipoke_tpu_torch.core.config import load_config
+
+    arch = cfg["architecture"]
+    steps, levels = sum(arch["num_steps"]), len(arch["num_steps"])
+    dec = len(load_config(cfg["first_stage"]["config"])["architecture"]
+              ["dec_channels"]) - 1
+    passes, density = test_mode_passes(mode, cfg)
+    want = dict.fromkeys(CLI_KERNELS, 0)
+    want["nice_net"] = (passes + density) * (4 * steps + levels)
+    want["macow_unit_inverse"] = passes * 4 * steps
+    want["spade_gn"] = passes * dec
+    return want
+
+
+def phase_eval_nets(dev, smi):
+    """(l1) LPIPS, I3D, PoseResNet-50 and the diversity scores, card against
+    the CPU port on the same inputs, with the card's ms per call."""
+    import numpy as np
+
+    from ipoke_tpu_torch import entry
+    from ipoke_tpu_torch.eval import metrics
+    from ipoke_tpu_torch.eval.i3d import init_i3d
+    from ipoke_tpu_torch.eval.pose import build_pose_resnet
+    from ipoke_tpu_torch.nn.lpips import init_lpips
+
+    rng = np.random.default_rng(0)
+
+    def clips(*shape):
+        return np.clip(0.5 * rng.standard_normal(shape), -1, 1).astype(np.float32)
+
+    nets = {"lpips": init_lpips(0), "i3d": init_i3d(0), "pose": build_pose_resnet(),
+            "vgg": entry.build_vgg("cpu")}
+    card = {k: copy.deepcopy(v).to(dev) for k, v in nets.items()}
+    frames = clips(EVAL_FRAMES, 64, 64, 3)
+    cases = {
+        "lpips3": ("lpips", (frames, np.clip(frames + 0.3 * clips(*frames.shape), -1, 1))),
+        "lpips2": ("lpips", (frames[..., :2], np.clip(frames[..., 1:] + 0.3, -1, 1))),
+        "i3d": ("i3d", (clips(*EVAL_I3D),)),
+        "pose": ("pose", (frames,)),
+    }
+    out = {}
+    for name, (net, args) in cases.items():
+        dargs = [torch.as_tensor(a).to(dev) for a in args]
+        kw = {"return_features": True} if net == "i3d" else {}
+        with torch.no_grad():
+            want = nets[net](*map(torch.as_tensor, args), **kw)
+            got = card[net](*dargs, **kw)
+            if net == "i3d":  # logits and features
+                want, got = torch.cat(want, -1), torch.cat(got, -1)
+            tol = EVAL_TOL[net]
+            err = (got.cpu() - want).abs()
+            bad = err > tol * want.abs() + (0.0 if net == "lpips" else tol)
+            ms = cuda_ms(lambda: card[net](*dargs, **kw), 3)
+        print(f"(l1) {name} {tuple(args[0].shape)}: card vs CPU max abs err "
+              f"{err.max().item():.3e} (tolerance {tol:g}{' rel' if net == 'lpips' else ' abs + rel'}), "
+              f"{ms:.3f} ms a call on {smi}")
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"(l1) {name}: card vs CPU beyond {tol:g}")
+        out[name] = {"max_abs_err": err.max().item(), "ms": ms}
+    samples = clips(*EVAL_DIVERSITY)
+    samples_full = clips(40, *EVAL_DIVERSITY[1:])
+    for name, fn, net in (("div_mse", metrics.diversity_score_mse, None),
+                          ("div_lpips", metrics.diversity_score_lpips, "lpips"),
+                          ("div_vgg", metrics.diversity_score_vgg, "vgg")):
+        args = (lambda n: (samples,)) if net is None else (lambda n: (n, samples))
+        want, got = fn(*args(nets.get(net))), fn(*args(card.get(net)))
+        err = abs(got - want)
+        tol = EVAL_TOL["div_vgg_abs"] if name == "div_vgg" else EVAL_TOL["div_rel"] * abs(want)
+        full = (samples_full,) if net is None else (card[net], samples_full)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        data_root = os.path.join(root, "data")
-        meta = make_synthetic_dataset(data_root, n_videos=CLI_VIDEOS,
-                                      n_frames=CLI_FRAMES, spatial_size=64)
-        base = os.path.join(root, "logs")
-        os.environ["DATAPATH_BASE"] = base
-        print(f"CLI synthetic tree: {len(meta['img_path'])} clips "
-              f"({int(meta['train'].sum())} train) in {time.perf_counter() - t0:.1f} s")
+        value = fn(*full)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"(l1) {name} {EVAL_DIVERSITY}: card {got:.6g}, CPU {want:.6g}, err {err:.3e} "
+              f"(tolerance {tol:.3g}); at N = 40 on the card {value:.6g} in {secs:.3f} s "
+              f"on {smi}")
+        if not err <= tol or not math.isfinite(value):
+            raise AssertionError(f"(l1) {name}: card {got} vs CPU {want}")
+        out[name] = {"abs_err": err, "full_s": secs}
+    return out
 
-        def run_dir(exp):
-            return {"config": os.path.join(base, exp, "config", "smoke", "0.yaml"),
-                    "ckpt": os.path.join(base, exp, "ckpt", "smoke", "0")}
 
-        def config(exp):
-            cfg = load_config(os.path.join("config", f"{exp}.yaml")).to_dict()
-            cfg["data"]["dataset"] = "PlantDataset"
-            cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES,
-                                   max_val_batches=1)
-            for sec in ("first_stage", "conditioner", "poke_embedder"):
-                if sec in cfg:
-                    cfg[sec].update(run_dir({"conditioner": "img_encoder",
-                                             "poke_embedder": "poke_encoder"}.get(sec, sec)))
-            if exp == "second_stage":
-                cfg["architecture"]["num_steps"] = CLI_SECOND_STAGE_STEPS
-            if exp == "flow_motion":
-                cfg["second_stage"].update(run_dir("second_stage"))
-                cfg["flow_vae"]["ckpt"] = run_dir("flow_vae")["ckpt"]
-            path = os.path.join(root, f"{exp}.yaml")
-            with open(path, "w") as f:
-                yaml.safe_dump(cfg, f)
-            return path
+def check_test_artifacts(mode, d, result):
+    """The files and metric keys of each mode (``tests/test_pipeline_e2e.py``
+    for the JAX package), metrics finite."""
+    import os
 
-        def host_probe(n=2000):
-            # us per launch of a one-element add queued back to back: the
-            # host's dispatch speed just before the run (the small nets'
-            # steps are bound by it)
-            x = torch.zeros(1, device=dev)
+    import numpy as np
+
+    files = set(os.listdir(d))
+    if not all(map(math.isfinite, result.values())):
+        raise AssertionError(f"--test {mode}: metrics {result}")
+    with_json = {"fvd": "fvd.json", "accuracy": "metrics.json",
+                 "diversity": "metrics.json", "control_sensitivity": "metrics.json",
+                 "kps_acc": "metrics.json"}
+    if mode in with_json:
+        with open(os.path.join(d, with_json[mode])) as f:
+            if json.load(f) != result:
+                raise AssertionError(f"--test {mode}: {with_json[mode]} != {result}")
+    want = {
+        "samples": lambda: {"samples_batch0.npy", "real_batch0.npy", "grid_batch0.mp4",
+                            "enrollment_b0_s0.png"} <= files
+        and np.isfinite(np.load(os.path.join(d, "samples_batch0.npy"))).all(),
+        "fvd": lambda: {"real_samples.npy", "fake_samples.npy"} <= files
+        and set(result) == {"FVD", "n_samples"},
+        "accuracy": lambda: {"per_frame_metrics.csv", "per_frame_metrics.png"} <= files
+        and set(result) == {"ssim_best_of_n", "psnr_best_of_n", "lpips_best_of_n"},
+        "diversity": lambda: set(result) == {"divscore_mse", "divscore_vgg", "divscore_lpips"},
+        "control_sensitivity": lambda: any(
+            f.startswith("sid_") and {"overview.mp4", "groundtruth_poke_enrollment.png"}
+            <= set(os.listdir(os.path.join(d, f))) for f in files)
+        and "direction_correlation" in result,
+        "transfer": lambda: "transfer_grid-0.mp4" in files
+        and any(f.startswith("transfer_row-ids_m") for f in files)
+        and any(f.startswith("transfer_grid-ids_m") and f.endswith(".png") for f in files),
+        "kps_acc": lambda: result.get("annotated_keypoints") == 0.0 and "kps_mse" in result,
+    }[mode]
+    if not want():
+        raise AssertionError(f"--test {mode}: artifacts {sorted(files)}, metrics {result}")
+
+
+def phase_test_modes(dev, smi, tree):
+    """(l2) ``ipoke_tpu_torch.main --test <mode> --debug`` on phase (k)'s
+    second-stage run, each mode with the launch counts zeroed before and
+    read after (this path's run): artifacts, finite metrics, launches
+    against ``expected_test_launches``, seconds per mode, its build, its
+    restore and each sampling pass (each closed by a synchronize), peak
+    memory; then ``realism`` raises the JAX package's assertion."""
+    import gc
+    import os
+
+    import yaml
+
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+    from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.models.second_stage import SecondStageModel
+
+    cfg = load_config(tree["second_stage"]).to_dict()
+    cfg["data"]["test_batch_size"] = cfg["data"]["batch_size"]
+    path = os.path.join(tree["root"], "second_stage_test.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    passes, density, builds = [], [], []
+    sample, dens = SecondStageModel.forward_sample, SecondStageModel.forward_density
+    build, restore = SecondStageExperiment.build, SecondStageExperiment.restore
+
+    def timed(fn, into):
+        def wrapper(*args, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for _ in range(n):
-                x.add_(1)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
-            return 1e6 * (time.perf_counter() - t) / n
+            into.append(time.perf_counter() - t)
+            return out
+        return wrapper
 
-        def drive(exp, path, *extra):
-            probe_us = host_probe()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated() / 2 ** 30  # before the run
-            stats0 = torch.cuda.memory_stats()
-            ops.reset_launches()  # this CLI run
-            t_run = time.perf_counter()
-            e = cli.run(["--config", path, "--model_name", "smoke",
-                         "--data_root", data_root, *extra])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_run
-            got = dict(ops.LAUNCHES)
-            tm = e.timings
-            n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
-            want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
-            label = f"CLI {exp}{' --resume' if extra else ''}"
-            print(f"{label} kernel launches: {got} (expected {want})")
-            if got != want:
-                raise AssertionError(f"{label}: launches {got} != {want}")
-            with open(e.metrics_logger.path) as f:
-                val = [json.loads(line) for line in f if '"val/' in line][-1]
-            val = {k[4:]: v for k, v in val.items() if k.startswith("val/")}
-            if not val or not all(map(math.isfinite, val.values())):
-                raise AssertionError(f"{label}: validation metrics {val}")
-            steps_ms = [1e3 * t for t in tm["step_s"]]
-            ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
-            wait = [1e3 * t for t in tm["loader_wait_s"]]
-            drain = [1e3 * t for t in tm["drain_s"]]
-            # cudaMalloc calls in each step (the first from the run's start)
-            counts = [stats0.get("num_device_alloc", 0)] + tm["device_allocs"]
-            allocs = [b - a for a, b in zip(counts, counts[1:])]
-            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
-                - stats0.get("num_alloc_retries", 0)
-            per_step = {k: v / n_train for k, v in got.items() if v}
-            out = {"ms_per_step": ms, "steps_ms": steps_ms,
-                   "loader_wait_ms": wait, "drain_ms": drain,
-                   "host_probe_us": probe_us, "device_allocs": allocs,
-                   "alloc_retries": retries,
-                   "val_s": tm["val_s"], "val": val,
-                   "save_s": tm["save_s"], "save_bytes": tm["save_bytes"],
-                   "restore_s": tm["restore_s"], "wall_s": wall,
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                   "held_before_gib": held,
-                   "launches": got, "launches_per_step": per_step}
-            print(f"{label} B={e.batch_size}: {n_train} steps, "
-                  f"{ms:.1f} ms/step after the first ({', '.join(f'{t:.1f}' for t in steps_ms)}); "
-                  f"loader wait {', '.join(f'{t:.1f}' for t in wait)} ms; "
-                  f"wait in the closing sync {', '.join(f'{t:.1f}' for t in drain)} ms; "
-                  f"cudaMallocs {allocs}, {retries} retries; "
-                  f"host probe {probe_us:.2f} us a launch; "
-                  f"validation {', '.join(f'{t:.2f}' for t in tm['val_s'])} s "
-                  f"{json.dumps(val)}; checkpoint {tm['save_bytes']} bytes in "
-                  f"{', '.join(f'{t:.2f}' for t in tm['save_s'])} s; restore "
-                  f"{tm['restore_s']} s; peak {out['peak_gib']:.2f} GiB "
-                  f"({held:.2f} held before the run); "
-                  f"launches per step {per_step}; run {wall:.1f} s on {smi}")
-            return e, out
-
-        def release():
-            # an experiment and its trainer refer to each other (the trainer
-            # holds the experiment's grad-accumulation wrapper): collect the
-            # cycle so that the next run's peak memory is its own
+    gen = os.path.join(tree["base"], "second_stage", "generated", "smoke")
+    launches, results = {}, {}
+    t_phase = time.perf_counter()
+    SecondStageModel.forward_sample = timed(sample, passes)
+    SecondStageModel.forward_density = timed(dens, density)
+    SecondStageExperiment.build = timed(build, builds)
+    SecondStageExperiment.restore = timed(restore, builds)
+    try:
+        for mode in TEST_MODES:
             gc.collect()
             torch.cuda.empty_cache()
-
-        results, launches = {}, {}
-        for exp in ("img_encoder", "poke_encoder", "first_stage"):
-            e, results[exp] = drive(exp, config(exp))
-            launches[f"cli_{exp}"] = results[exp]["launches"]
-            del e
-            release()
-        ss_path = config("second_stage")
-        e1, results["second_stage"] = drive("second_stage", ss_path)
-        launches["cli_second_stage"] = results["second_stage"]["launches"]
-        if e1.ddi_runs != 1:
-            raise AssertionError(f"CLI second_stage: DDI ran {e1.ddi_runs} times")
-        # restore check: the state a --resume loads equals the run's own
-        args = cli.parse_args(["--config", ss_path, "--model_name", "smoke",
-                               "--data_root", data_root, "--resume"])
-        cfg_r, dirs, _ = cli.load_parameters(args)
-        from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
-        e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
-        e2.build()
-        e2.restore_last()
-        checks = {"step": e2.step == e1.step,
-                  "lr count": e2.tx.count == e1.tx.count,
-                  "masters fp32, bitwise": all(
-                      a.dtype == torch.float32 and torch.equal(a, b)
-                      for a, b in zip(e2.tx.master, e1.tx.master)),
-                  "params bf16, bitwise": all(
-                      a.dtype == torch.bfloat16 and torch.equal(a, b)
-                      for a, b in zip(e2.model.flow_params.parameters(),
-                                      e1.model.flow_params.parameters()))}
-        e2.metrics_logger.close()
-        print(f"CLI second_stage restore check (step {e2.step}, lr count "
-              f"{e2.tx.count}): {checks}")
-        if not all(checks.values()):
-            raise AssertionError(f"CLI second_stage restore: {checks}")
-        step1, count1 = e1.step, e1.tx.count
-        del e1, e2
-        release()
-        e3, results["second_stage_resume"] = drive("second_stage", ss_path, "--resume")
-        launches["cli_second_stage_resume"] = results["second_stage_resume"]["launches"]
-        n3 = len(e3.timings["step_s"])
-        if (e3.step, e3.tx.count, e3.ddi_runs) != (step1 + n3, count1 + n3, 0):
-            raise AssertionError(
-                f"CLI second_stage --resume: step {e3.step}, lr count {e3.tx.count}, "
-                f"DDI runs {e3.ddi_runs}; want {step1 + n3}, {count1 + n3}, 0")
-        print(f"CLI second_stage --resume: step {step1} -> {e3.step}, lr count "
-              f"{count1} -> {e3.tx.count}, DDI not rerun")
-        del e3
-        release()
-        for exp in ("flow_vae", "flow_motion"):
-            e, results[exp] = drive(exp, config(exp))
-            launches[f"cli_{exp}"] = results[exp]["launches"]
-            del e
-            release()
-        print(f"CLI phase (k) in {time.perf_counter() - t0:.1f} s")
-        return launches, results
+            torch.cuda.reset_peak_memory_stats()
+            passes.clear()
+            density.clear()
+            builds.clear()
+            ops.reset_launches()  # this mode's run
+            t0 = time.perf_counter()
+            result = cli.run(["--config", path, "--model_name", "smoke", "--data_root",
+                              tree["data_root"], "--test", mode, "--debug"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = dict(ops.LAUNCHES)
+            want = expected_test_launches(mode, cfg)
+            n_pass, n_dens = test_mode_passes(mode, cfg)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rest = secs - sum(builds) - sum(passes) - sum(density)
+            print(f"(l2) --test {mode}: {json.dumps(result)}; {len(passes)} sampling passes "
+                  f"({', '.join(f'{1e3 * t:.1f}' for t in passes)} ms), {len(density)} density "
+                  f"passes; {secs:.2f} s the mode: build {builds[0]:.2f} s, restore "
+                  f"{builds[1]:.2f} s, the passes {sum(passes) + sum(density):.2f} s, the rest "
+                  f"(batches, metrics, writing) {rest:.2f} s; launches {got} (expected {want}); "
+                  f"peak {peak:.2f} GiB on {smi}")
+            if got != want or (len(passes), len(density)) != (n_pass, n_dens):
+                raise AssertionError(f"--test {mode}: launches {got} != {want} or passes "
+                                     f"{len(passes)}/{len(density)} != {n_pass}/{n_dens}")
+            check_test_artifacts(mode, os.path.join(gen, mode), result)
+            launches[f"test_{mode}"] = got
+            results[mode] = {"s": secs, "build_s": builds[0], "restore_s": builds[1],
+                             "pass_ms": [1e3 * t for t in passes], "rest_s": rest,
+                             "peak_gib": peak, "metrics": result}
     finally:
-        if old_base is None:
-            os.environ.pop("DATAPATH_BASE", None)
-        else:
-            os.environ["DATAPATH_BASE"] = old_base
-        shutil.rmtree(root, ignore_errors=True)
+        SecondStageModel.forward_sample, SecondStageModel.forward_density = sample, dens
+        SecondStageExperiment.build, SecondStageExperiment.restore = build, restore
+    try:
+        cli.run(["--config", path, "--model_name", "smoke", "--data_root",
+                 tree["data_root"], "--test", "realism", "--debug"])
+    except AssertionError as e:
+        if "hallucinated-flow pipeline" not in str(e):
+            raise
+        print(f"(l2) --test realism on the second stage raises: {e}")
+    else:
+        raise AssertionError("--test realism ran on a second-stage run")
+    print(f"(l2) the seven modes in {time.perf_counter() - t_phase:.1f} s")
+    return launches, results
 
 
 def main():
@@ -1781,9 +2061,14 @@ def main():
         ts_times["video_from_flow"]["k2_in_situ_ms"]
     kernels["spade_gn"]["video_from_flow_in_situ_ms"] = \
         ts_times["video_from_flow"]["k3_in_situ_ms"]
-    # (k) the port's CLI through the conv pipeline
-    cli_launches, _ = phase_cli(dev, smi)
-    paths.update(cli_launches)
+    with cli_tree() as tree:
+        # (k) the port's CLI through the conv pipeline
+        cli_launches, _ = phase_cli(dev, smi, tree)
+        paths.update(cli_launches)
+        # (l) the --test modes on (k)'s second-stage run
+        phase_eval_nets(dev, smi)
+        test_launches, _ = phase_test_modes(dev, smi, tree)
+        paths.update(test_launches)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

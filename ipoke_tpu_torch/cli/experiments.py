@@ -261,16 +261,23 @@ class Experiment:
         finally:
             self.metrics_logger.close()
 
-    def restore_last(self):
+    def restore(self, name: Optional[str] = None) -> None:
+        """Load the checkpoint ``name`` of this run (the monitored best
+        without one) into the built state, brought first to the form a
+        trained run holds (``_resume_template``); the step goes on from it."""
         t0 = time.perf_counter()
         self._resume_template()
-        state = self.store.restore("last", map_location=self.device)
+        state = self.store.restore(name, map_location=self.device) if name \
+            else self.store.restore_best(map_location=self.device)
         self.load_checkpoint_state(state)
         self.step = int(state["step"])
         self.sync()
         self.timings["restore_s"] = time.perf_counter() - t0
-        self.logger.info(f"resumed from {self.version_dir}/last at step "
-                         f"{self.step}")
+        self.logger.info(f"restored {self.version_dir}/{name or 'best'} at "
+                         f"step {self.step}")
+
+    def restore_last(self):
+        self.restore("last")
 
     def _train_loop(self):
         self.build()

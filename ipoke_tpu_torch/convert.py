@@ -20,6 +20,11 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   (``load_image_ae``); the FirstStageWrapper's decoder maps like any flax
   net.  MotionFeatureNet reads the JAX package's flat npz keys itself
   (``nn.motion_feat.load_motion_feat``).
+* The evaluation nets: I3D and PoseResNet map like any flax net, their
+  inference BatchNorms taking ``scale``/``bias`` from ``params`` and
+  ``mean``/``var`` from ``batch_stats``; PoseResNet's deconvs
+  (``transpose_kernel=True``) take the kernel transposed, not flipped.
+  LPIPS params ``{'vgg', 'lins'}`` go through ``load_lpips``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from .flows.base import tree_map
-from .nn.blocks import Conv, ConvTranspose, GroupNorm
+from .nn.blocks import BatchNorm, Conv, ConvTranspose, ConvTransposeTK, GroupNorm
 from .nn.motion import Conv3d
 
 
@@ -133,6 +138,14 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
             _copy(sub.weight, w, where)
             if getattr(sub, "bias", None) is not None:
                 _copy(sub.bias, node["bias"], where)
+        elif isinstance(sub, ConvTransposeTK):
+            kernel = np.asarray(_get(params, path)["kernel"], np.float32)
+            _copy(sub.weight, kernel.transpose(3, 2, 0, 1), where)
+        elif isinstance(sub, BatchNorm):
+            node, st = _get(params, path), _get(stats, path)
+            for name, value in (("scale", node["scale"]), ("bias", node["bias"]),
+                                ("mean", st["mean"]), ("var", st["var"])):
+                _copy(getattr(sub, name), value, f"{where}/{name}")
         elif isinstance(sub, GroupNorm):
             if sub.scale is not None:
                 node = _get(params, path)
@@ -153,3 +166,11 @@ def load_image_ae(model, params, stats=None, disc=None, params_d=None,
     _copy(model.logvar, params["logvar"], "logvar")
     if disc is not None:
         load_flax(disc, params_d, stats_d)
+
+
+def load_lpips(net, params) -> None:
+    """The JAX package's LPIPS params ``{'vgg': the VGG16 tree, 'lins': five
+    (C,) heads}`` into the port's ``nn.lpips.LPIPS``."""
+    load_flax(net.vgg, params["vgg"])
+    for k, w in enumerate(params["lins"]):
+        _copy(net.lins[k], w, f"lins/{k}")

@@ -32,6 +32,7 @@ and the flow maps it trains on.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -47,7 +48,7 @@ from .nn.blocks import Conv, ConvTranspose, GroupNorm
 from .nn.discriminators import Dense
 from .nn.encoders import FirstStageWrapper
 from .nn.motion import Conv3d
-from .nn.vgg import VGG19Features
+from .nn.vgg import VGG19Features, load_torch_vgg19_npz
 
 SHIPPED = dict(spatial=128, min_spatial=8, T=10, z_dim=32,
                enc_ch=(64, 128, 256, 256, 256),
@@ -265,15 +266,21 @@ def materialize(module: torch.nn.Module, device,
 
 
 def build_vgg(device) -> VGG19Features:
-    """VGG19 to conv5_1 from its own CPU generator seeded 0, so that it has
-    the same weights on every device (fixed-seed, as the JAX package's VGG;
-    the values are not JAX's)."""
+    """VGG19 to conv5_1: the converted torchvision npz that
+    ``IPOKE_VGG_WEIGHTS`` names (as the JAX package's ``init_vgg_params``),
+    else from its own CPU generator seeded 0, so that it has the same
+    weights on every device (fixed-seed, as the JAX package's VGG; the
+    values are not JAX's)."""
     device = torch.device(device)
     with torch.device("meta"):
         vgg = VGG19Features()
     if device.type == "meta":
         return vgg
-    return materialize(vgg, "cpu", torch.Generator().manual_seed(0)).to(device)
+    vgg = materialize(vgg, "cpu", torch.Generator().manual_seed(0))
+    path = os.environ.get("IPOKE_VGG_WEIGHTS")
+    if path:
+        load_torch_vgg19_npz(vgg, path)
+    return vgg.to(device)
 
 
 def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:

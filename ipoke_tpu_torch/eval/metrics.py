@@ -1,9 +1,11 @@
-"""Evaluation metrics, the validation half (counterpart of
-``ipoke_tpu/eval/metrics.py``): PSNR, SSIM, the VGG perceptual distance,
-the optical-flow errors (reference utils/metrics.py:20-83), and the
-Fréchet distances (FVD over the MotionFeatureNet, FID over pooled VGG19
-features) with the host-side moments and scipy ``sqrtm`` of the JAX
-package.  Images are NHWC in [-1, 1]; flow maps (..., 2)."""
+"""Evaluation metrics (counterpart of ``ipoke_tpu/eval/metrics.py``): PSNR,
+SSIM, the VGG perceptual distance, the optical-flow errors and their
+threshold fractions (reference utils/metrics.py:20-83), the Fréchet
+distances (FVD over the backbone of ``eval.backbone``, FID over pooled
+VGG19 features) with the host-side moments and scipy ``sqrtm`` of the JAX
+package, and the diversity scores of ``--test diversity`` (reference
+``compute_div_score*``, metrics.py:139-212).  Images are NHWC in [-1, 1];
+flow maps (..., 2)."""
 
 from __future__ import annotations
 
@@ -82,6 +84,18 @@ def endpoint_error(f1, f2):
     return (f1 - f2).norm(dim=-1)
 
 
+def optical_flow_metrics(f1, f2):
+    """Fractions of pixels above the angular (5/10/15 degrees) and endpoint
+    (1/2/3/5 px) thresholds (reference ``optical_flow_metric``)."""
+    ae, ee = angular_error(f1, f2), endpoint_error(f1, f2)
+    out = {}
+    for deg in (5.0, 10.0, 15.0):
+        out[f"AE_R{deg:g}"] = (ae > deg * np.pi / 180.0).float().mean()
+    for px in (1.0, 2.0, 3.0, 5.0):
+        out[f"EE_R{px:g}"] = (ee > px).float().mean()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Fréchet distances (FVD / FID)
 # ---------------------------------------------------------------------------
@@ -136,9 +150,82 @@ def compute_fid(vgg, real_images, fake_images, batch_size: int = 32) -> float:
 def compute_fvd(backbone, real_videos, fake_videos, batch_size: int = 8) -> float:
     """FVD over the backbone's activations (``eval.backbone``); videos (N,
     T, H, W, 3) in [-1, 1], tensors or arrays."""
-    from ..nn.motion_feat import motion_feat_activations
+    from .backbone import backbone_activations
 
-    a_real = motion_feat_activations(backbone, real_videos, batch_size)
-    a_fake = motion_feat_activations(backbone, fake_videos, batch_size)
+    a_real = backbone_activations(backbone, real_videos, batch_size)
+    a_fake = backbone_activations(backbone, fake_videos, batch_size)
     return frechet_distance(*calculate_moments(a_real),
                             *calculate_moments(a_fake))
+
+
+# ---------------------------------------------------------------------------
+# Diversity: samples (N, S, T, H, W, 3) in [-1, 1], S samples of each of N
+# data points, host arrays
+# ---------------------------------------------------------------------------
+
+
+def diversity_score_mse(samples) -> float:
+    """Mean over sample pairs of the MSE between them."""
+    samples = np.asarray(samples)
+    s = samples.shape[1]
+    total, cnt = 0.0, 0
+    for i in range(s):
+        for j in range(i + 1, s):
+            total += float(np.mean((samples[:, i] - samples[:, j]) ** 2))
+            cnt += 1
+    return total / max(cnt, 1)
+
+
+@torch.no_grad()
+def diversity_score_lpips(lpips, samples) -> float:
+    """Mean over sample pairs of the per-frame LPIPS (reference
+    ``compute_div_score_lpips``).  One feature pass per sample and chunk of
+    ``max(1, 256 // N)`` frames of every data point, as the JAX package
+    chunks, so that only S chunk-sized feature stacks are held at once."""
+    dev = next(lpips.parameters()).device
+    samples = np.asarray(samples)
+    n, s = samples.shape[:2]
+    frame = samples.shape[3:]
+    frames = samples.reshape(n, s, -1, *frame)
+    n_frames = frames.shape[2]
+    chunk = max(1, 256 // max(n, 1))
+    pair_sums = np.zeros((s, s))
+    count = 0
+    for f0 in range(0, n_frames, chunk):
+        f1 = min(f0 + chunk, n_frames)
+        feats = [lpips.features(torch.as_tensor(
+            frames[:, i, f0:f1].reshape(-1, *frame)).to(dev, torch.float32))
+            for i in range(s)]
+        for i in range(s):
+            for j in range(i + 1, s):
+                pair_sums[i, j] += float(lpips.from_features(feats[i], feats[j]).sum())
+        count += (f1 - f0) * n
+    total, cnt = 0.0, 0
+    for i in range(s):
+        for j in range(i + 1, s):
+            total += pair_sums[i, j] / max(count, 1)
+            cnt += 1
+    return total / max(cnt, 1)
+
+
+@torch.no_grad()
+def diversity_score_vgg(vgg, samples) -> float:
+    """Mean over sample pairs of the cosine distance between VGG19 last-tap
+    features (unit-normalised, eps 1e-10), frame by frame (reference
+    ``compute_div_score``)."""
+    dev = next(vgg.parameters()).device
+    samples = np.asarray(samples)
+    s = samples.shape[1]
+
+    def feats(i):
+        x = torch.as_tensor(samples[:, i].reshape(-1, *samples.shape[3:]))
+        f = vgg(x.to(dev, torch.float32))[-1].reshape(x.shape[0], -1)
+        return f / (torch.linalg.norm(f, dim=-1, keepdim=True) + 1e-10)
+
+    fs = [feats(i) for i in range(s)]
+    total, cnt = 0.0, 0
+    for i in range(s):
+        for j in range(i + 1, s):
+            total += float((1.0 - (fs[i] * fs[j]).sum(dim=-1)).mean())
+            cnt += 1
+    return total / max(cnt, 1)

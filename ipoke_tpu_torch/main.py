@@ -9,9 +9,12 @@ Trains ``img_encoder``, ``poke_encoder``, ``first_stage``, ``second_stage``,
 ``flow_vae`` and ``flow_motion`` from the shipped YAMLs, with ``main.py``'s
 flags and run-directory layout (``$DATAPATH_BASE`` or ``general.base_dir``;
 the dataset from ``--data_root``, ``data.data_root`` or ``$DATAPATH``).
-``--device`` defaults to ``cuda`` and raises without a card: only
-``--device cpu`` runs on the CPU.  ``--devices`` above 1 (ROADMAP queue 1
-item 11) and the ``--test`` modes (item 7) are not ported and raise;
+``--test <mode>`` evaluates the run's latest version instead
+(``cli.testing.run_test``: samples, fvd, accuracy, diversity,
+control_sensitivity, transfer, kps_acc on a second stage; realism needs the
+FC third stage, ROADMAP queue 1 item 8).  ``--device`` defaults to
+``cuda`` and raises without a card: only ``--device cpu`` runs on the CPU.
+``--devices`` above 1 (ROADMAP queue 1 item 11) is not ported and raises;
 ``--gpus`` is accepted and ignored, as in ``main.py``.
 """
 
@@ -94,17 +97,14 @@ def check_args(args):
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 11)")
-    if args.test != "none":
-        raise NotImplementedError(
-            f"--test {args.test} is not ported yet (cli/testing.py, ROADMAP "
-            "queue 1 item 7)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
 
 
 def run(argv=None):
-    """Train as ``main`` does; returns the finished experiment."""
+    """Train as ``main`` does and return the finished experiment; under
+    ``--test`` run the mode and return its metrics."""
     args = parse_args(argv)
     check_args(args)
     from ipoke_tpu_torch.cli.experiments import select_experiment
@@ -114,7 +114,14 @@ def run(argv=None):
     config, dirs, data_root = load_parameters(args)
     maybe_prompt_resume(config, dirs)
     experiment = cls(config, dirs, data_root=data_root, device=args.device)
-    return experiment.train()
+    if args.test == "none":
+        return experiment.train()
+    from ipoke_tpu_torch.cli.testing import run_test
+
+    try:
+        return run_test(experiment, args.test)
+    finally:
+        experiment.metrics_logger.close()
 
 
 def main(argv=None):

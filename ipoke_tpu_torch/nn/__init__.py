@@ -2,10 +2,12 @@
 discriminators and VGG."""
 
 from .blocks import (
+    BatchNorm,
     Conv,
     Conv2dBlock,
     Conv2dTransposeBlock,
     ConvTranspose,
+    ConvTransposeTK,
     GroupNorm,
     ResBlock,
     Spade,

@@ -152,6 +152,42 @@ class ConvTranspose(SpectralNormed):
         return y[:, :, :-1, :-1].permute(0, 2, 3, 1)
 
 
+class ConvTransposeTK(nn.Module):
+    """flax ``nn.ConvTranspose(k, s, "VALID", transpose_kernel=True)``
+    without bias, cropped by ``padding`` on every side, on NHWC tensors:
+    torch's ``ConvTranspose2d(k, s, padding, bias=False)``.  ``weight`` is (in, out, kh, kw),
+    flax's (kh, kw, out, in) kernel transposed, not flipped."""
+
+    def __init__(self, cin: int, cout: int, ks: int = 4, stride: int = 2,
+                 padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(cin, cout, ks, ks))
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, None,
+                               stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True)`` on channels-last
+    tensors: (x - mean) * (scale * rsqrt(var + eps)) + bias, the running
+    statistics as buffers (flax's ``batch_stats``)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        return (x - self.mean) * (self.scale * torch.rsqrt(self.var + self.eps)) \
+            + self.bias
+
+
 class Conv2dBlock(nn.Module):
     """conv -> norm -> activation."""
 

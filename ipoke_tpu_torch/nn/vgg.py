@@ -3,12 +3,16 @@
 
 The net stops at conv5_1, the last of the five relu*_1 taps; the [-1, 1]
 input goes in without ImageNet normalisation, as in the JAX package.  Its
-weights are carried from the JAX tree (``convert.load_flax``) or drawn from
-a generator (``entry``): nothing is downloaded.
+weights are carried from the JAX tree (``convert.load_flax``), read from a
+converted torchvision npz (``load_torch_vgg19_npz``; ``entry.build_vgg``
+does so when ``IPOKE_VGG_WEIGHTS`` names one) or drawn from a generator
+(``entry``): nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -38,6 +42,23 @@ class VGG19Features(nn.Module):
             if b < len(_CFG) - 1:
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
         return taps
+
+
+def load_torch_vgg19_npz(vgg: VGG19Features, path: str) -> VGG19Features:
+    """Torchvision VGG19 weights from an npz with keys ``features.{i}.weight``
+    (OIHW) and ``features.{i}.bias`` (the JAX package's
+    ``load_torch_vgg19_npz`` layout) into ``vgg``, in place."""
+    raw = np.load(path)
+    idx = 0
+    with torch.no_grad():
+        for b, (_, n_convs) in enumerate(_CFG):
+            for c in range(n_convs):
+                conv = getattr(vgg, f"conv{b + 1}_{c + 1}")
+                conv.weight.copy_(torch.as_tensor(raw[f"features.{idx}.weight"]))
+                conv.bias.copy_(torch.as_tensor(raw[f"features.{idx}.bias"]))
+                idx += 2  # conv + relu
+            idx += 1  # pool
+    return vgg
 
 
 def vgg_loss(vgg: VGG19Features, x, y, weighted: bool = False):

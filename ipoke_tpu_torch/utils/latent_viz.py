@@ -1,11 +1,13 @@
-"""Latent-space scatter diagnostics (counterpart of
-``ipoke_tpu/utils/latent_viz.py``; reference ``log_umap``,
-second_stage_video.py:599-638).
+"""Latent-space scatter diagnostics and the per-frame metric errorbars
+(counterpart of ``ipoke_tpu/utils/latent_viz.py``; reference ``log_umap``,
+second_stage_video.py:599-638, and the per-frame metric dumps).
 
 The projection is the JAX package's PCA (SVD), the basis fit on the first
 entry and shared so that the clouds are comparable.  The scatter is drawn
 with cv2 (matplotlib is not a dependency of the port): one colour per entry,
-a legend in the corner, a 600x600 PNG.
+a legend in the corner, a 600x600 PNG.  ``plot_metric_errorbars`` draws one
+panel per metric with ``utils.plots.draw_series`` and writes the JAX
+package's CSV.
 """
 
 from __future__ import annotations
@@ -51,4 +53,28 @@ def plot_latent_scatter(latents: Dict[str, np.ndarray], path: str,
                 cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 0, 0), 1)
     if not cv2.imwrite(path, img):
         raise OSError(f"could not write {path}")
+    return path
+
+
+def plot_metric_errorbars(per_frame: Dict[str, np.ndarray], path: str,
+                          csv_path: str = None) -> str:
+    """Per-frame mean +- std of each metric (name -> (N, T) array): one panel
+    a metric side by side in a PNG, and the CSV ``metric,frame,mean,std``."""
+    from .plots import draw_series, save_figure
+
+    panels, rows = [], []
+    for name, arr in per_frame.items():
+        arr = np.asarray(arr)
+        mean, std = arr.mean(0), arr.std(0)
+        frames = np.arange(1, arr.shape[1] + 1)
+        panels.append(draw_series([(name, frames, mean, std)], "frame", name,
+                                  title=name, size=(400, 320)))
+        rows.append((name, mean, std))
+    save_figure(path, np.concatenate(panels, axis=1))
+    if csv_path:
+        with open(csv_path, "w") as f:
+            f.write("metric,frame,mean,std\n")
+            for name, mean, std in rows:
+                for t, (m, s) in enumerate(zip(mean, std)):
+                    f.write(f"{name},{t + 1},{m:.6f},{s:.6f}\n")
     return path

@@ -250,10 +250,13 @@ def test_unported_experiments_raise(env, name, item):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--test", "fvd"], NotImplementedError, "item 7"),
-    (["--test", "samples"], NotImplementedError, "item 7"),
+    (["--test", "fvd"], AssertionError, "no frozen-submodel sampler"),
+    (["--test", "samples"], AssertionError, "no frozen-submodel sampler"),
     (["--devices", "2"], NotImplementedError, "item 11")])
 def test_unported_flags_raise(env, extra, error, match):
+    """``--devices 2`` is not ported; the ``--test`` modes are
+    (``tests/test_torch_cli_testing.py``) and refuse, as the JAX package's
+    do, an experiment without a sampling pipeline (the flow VAE)."""
     with pytest.raises(error, match=match):
         env.run(env.config("flow_vae", CONFIGS["flow_vae"], name="flags"), *extra)
 

@@ -624,3 +624,47 @@ def test_second_stage_experiment_card_matches_cpu(dev, tmp_path):
     resumed = env.run(path, "--resume", device="cuda")
     assert (resumed.version, resumed.step, resumed.tx.count, resumed.ddi_runs) \
         == (1, 4, 4, 0)
+
+
+def _eval_net_case(name):
+    """(net on the CPU, its inputs) of one evaluation net at a toy size:
+    fixed-seed weights, inputs from a numpy seed."""
+    from ipoke_tpu_torch.eval.i3d import init_i3d
+    from ipoke_tpu_torch.eval.pose import build_pose_resnet
+    from ipoke_tpu_torch.nn.lpips import init_lpips
+
+    rng = np.random.default_rng(0)
+
+    def x(*shape):
+        return torch.as_tensor(np.clip(0.5 * rng.standard_normal(shape), -1, 1)
+                               .astype(np.float32))
+
+    if name.startswith("lpips"):
+        c = int(name[-1])
+        return init_lpips(0), (x(6, 32, 32, c), x(6, 32, 32, c))
+    if name == "i3d":
+        return init_i3d(0), (x(2, 10, 32, 32, 3),)
+    return build_pose_resnet(), (x(4, 64, 64, 3),)
+
+
+# the evaluation nets (``--test`` accuracy, diversity, fvd, kps_acc), card
+# against the CPU port, fp32 with TF32 off: cuDNN and oneDNN sum their
+# convolutions in other orders, ~1e-6 relative a layer; a wrong layout or
+# padding moves the output by O(1).  LPIPS within 1e-4 relative; I3D's
+# logits and features and PoseResNet's heatmaps within 1e-3 abs + rel
+@pytest.mark.parametrize("name,tol", [("lpips3", 1e-4), ("lpips2", 1e-4),
+                                      ("i3d", 1e-3), ("pose", 1e-3)])
+def test_eval_nets_card_match_cpu(dev, name, tol):
+    net, inputs = _eval_net_case(name)
+    kw = {"return_features": True} if name == "i3d" else {}
+    with torch.no_grad():
+        want = net(*inputs, **kw)
+        got = copy.deepcopy(net).to(dev)(*(t.to(dev) for t in inputs), **kw)
+    if name == "i3d":  # logits and features
+        want, got = torch.cat(want, -1), torch.cat(got, -1)
+    assert torch.isfinite(got).all()
+    if name.startswith("lpips"):
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=0.0)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    assert not any(ops.LAUNCHES.values())  # no kernel of ops/ on this path

@@ -107,10 +107,16 @@ def test_motion_feat_and_fvd_match_jax():
 
 
 def test_fvd_backbone_refuses_unported_choices(monkeypatch):
+    """Every choice of the JAX package's priority is ported: the random I3D
+    when asked for or when the packaged weights are absent; the one choice
+    left to refuse is the MotionFeatureNet forced without its weights."""
+    from ipoke_tpu_torch.eval.i3d import I3D
+
     monkeypatch.setenv("IPOKE_FVD_BACKBONE", "random_i3d")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbackbone.init_fvd_backbone()
+    assert isinstance(tbackbone.init_fvd_backbone("cpu"), I3D)
     monkeypatch.delenv("IPOKE_FVD_BACKBONE")
     monkeypatch.setattr(tbackbone, "_PACKAGED", "/nonexistent/motion_feat_v1.npz")
-    with pytest.raises(FileNotFoundError, match="item 7"):
-        tbackbone.init_fvd_backbone()
+    assert isinstance(tbackbone.init_fvd_backbone("cpu"), I3D)
+    monkeypatch.setenv("IPOKE_FVD_BACKBONE", "motion_feat")
+    with pytest.raises(FileNotFoundError):
+        tbackbone.init_fvd_backbone("cpu")
