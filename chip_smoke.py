@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-first-stage VAE-GAN train step, conv third stage, CLI and ``--test`` modes
-on one NVIDIA GPU.
+first-stage VAE-GAN train step, conv third stage, CLI, ``--test`` modes and
+FC tower on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -109,6 +109,30 @@ Phases, in order; any failure raises and exits non-zero:
       ``_build.load()``, then ``with cli_tree() as tree:``
       ``phase_cli(dev, smi, tree)``, ``phase_eval_nets(dev, smi)``,
       ``phase_test_modes(dev, smi, tree)`` (~3 min of command time).
+      The modes sample in fp32 on the mixed second stage too (its bf16
+      weights upcast, the batch uncast, as the JAX package's modes do), so
+      K1 runs in none of them.  Every ``main.run`` of (k), (l) and (m)
+      starts with both TF32 switches on and must leave them off
+      (``run_cli``).
+  (m) the FC tower (fp32): (m1) K3 at the FC generator's levels (8x8x256,
+      16x16x128, 32x32x64) in training (20 frames, one modulation each)
+      and sampling (400 frames of 40 clips), against its plain version,
+      bitwise repeated, with its bound, and its backward at 32 px; (m2)
+      ``entry.FC_TINY`` card against the CPU port by the (i2) rule: 2 FCAE
+      (BigAE VAE-GAN) steps, 2 first_stage_fc steps, the flat flow's
+      forward and inverse, a second_stage_fc sampling pass and 2 of its
+      steps; (m3) ``main.run`` from the shipped YAMLs on (k)'s tree
+      (``FC_RUNS``; widths and batches as shipped, 1 epoch of CLI_BATCHES
+      train and 1 val batch, the FC baseline's runs at 32 px, the size its
+      four dec_channels render), each run recorded as in (k) with its
+      launches against ``expected_cli_launches`` (path ``fc_<run>``), then
+      second_stage_fc's restore check and ``--resume``; (m4) the seven
+      ``--test`` modes on (m3)'s second_stage_fc run (path
+      ``test_fc_<mode>``), then ``third_stage_fc`` raises.  The conv runs'
+      dirs are removed before (m3).  Alone: ``_build.load()``, then
+      ``phase_fc_kernels(dev)``, ``phase_fc_tiny(dev)``, and ``with
+      cli_tree() as tree:`` ``phase_fc_cli(dev, smi, tree)``,
+      ``phase_test_modes(dev, smi, tree, fc=True)``.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -321,6 +345,30 @@ def row(err, times, work, peak):
     bound_ms, bound_by = bound(*work, peak)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def k3_row(name, x, gamma, beta, tol, dtype_flops=FP32_FLOPS):
+    """K3 against its plain version at one shape: two calls bitwise equal,
+    device times, bound and share of it."""
+    from ipoke_tpu_torch.ops import spade_gn
+
+    n, s, _, ch = x.shape
+    got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
+    err = check_close(name, got, spade_gn.spade_gn_plain(x, gamma, beta, 16), tol, tol)
+    if not torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16)):
+        raise AssertionError(f"{name}: two calls differ")
+    ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 50)
+    plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 20)
+    bound_ms, bound_by = bound(*spade_work(n, gamma.shape[0], s, ch, x.element_size()),
+                               dtype_flops)
+    k, resident = spade_gn.spade_gn_plan(s * s, ch, x.element_size())
+    print(f"{name} G=16: max_abs_err {err:.3e} (tol {tol} abs+rel), two calls bitwise "
+          f"equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {100 * bound_ms / ms:.1f}% of it); clusters of {k}, slices "
+          f"{'kept in' if resident else 'streamed past'} shared memory")
+    return {"N": n, "clips": gamma.shape[0], "S": s, "Ch": ch, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_kernels(dev):
@@ -1100,6 +1148,18 @@ def sync_moments(card_tx, cpu_tx, params=False):
             card_tx.adam.state[qa][k].copy_(v)
 
 
+def check_metrics(name, got, ref, tol=FS_TINY_TOL):
+    """A card step's metrics against the CPU's: |diff| / (1 + |CPU|) within
+    ``tol``, and finite."""
+    diffs = {k: abs(got[k].item() - ref[k].item()) / (1.0 + abs(ref[k].item()))
+             for k in ref}
+    print(f"{name}, card vs CPU fp32 from the same state, |diff| / (1 + |CPU|) "
+          f"(tol {tol}): " + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items()))
+    if not all(math.isfinite(got[k].item()) for k in got) or max(diffs.values()) > tol:
+        raise AssertionError(f"{name}: card disagrees with CPU")
+    return diffs
+
+
 def check_first_stage_update(name, card, cpu, lr):
     """Hold the card's ``FirstStageStep`` after an update against the CPU's
     by the (i2) rule, net by net."""
@@ -1120,16 +1180,17 @@ def sync_first_stage(card, cpu):
         sync_moments(ta, tb)
 
 
-def phase_first_stage_tiny(dev):
-    """(i2) TINY, 3 steps card against CPU, each from the same state."""
+def phase_first_stage_tiny(dev, cfg=None, n_steps=3, label="first-stage TINY"):
+    """(i2) TINY (or ``cfg``), ``n_steps`` steps card against CPU, each from
+    the same state."""
     from ipoke_tpu_torch import entry, ops
     from ipoke_tpu_torch.models.first_stage import sample_draws
 
-    cfg = entry.FIRST_STAGE_TINY
+    cfg = cfg or entry.FIRST_STAGE_TINY
     nets = entry.build_first_stage(cfg, "cpu", torch.Generator().manual_seed(0))
     batch = entry.make_first_stage_batch(cfg, "cpu")
     draw_gen = torch.Generator().manual_seed(1)
-    draws = [sample_draws(draw_gen, cfg, cfg["data"]["batch_size"]) for _ in range(3)]
+    draws = [sample_draws(draw_gen, cfg, cfg["data"]["batch_size"]) for _ in range(n_steps)]
     to = lambda d, dv: {k: v.to(dv) if torch.is_tensor(v) else v for k, v in d.items()}
     card = _first_stage_step(cfg, [copy.deepcopy(n).to(dev) for n in nets])
     cpu = _first_stage_step(cfg, nets)
@@ -1138,19 +1199,11 @@ def phase_first_stage_tiny(dev):
         ops.reset_launches()
         got = card(to(batch, dev), to(d, dev), 1.0)
         torch.cuda.synchronize()
-        check_launches(f"first-stage TINY step {i}", want)
+        check_launches(f"{label} step {i}", want)
         ref = cpu(batch, d, 1.0)
-        diffs = {k: abs(got[k].item() - ref[k].item()) / (1.0 + abs(ref[k].item()))
-                 for k in ref}
-        print(f"first-stage TINY step {i}, card vs CPU fp32 from the same state, "
-              f"|diff| / (1 + |CPU|) (tol {FS_TINY_TOL}): "
-              + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items()))
-        if not all(math.isfinite(got[k].item()) for k in got) \
-                or max(diffs.values()) > FS_TINY_TOL:
-            raise AssertionError(f"first-stage TINY step {i}: card disagrees with CPU")
-        worst = check_first_stage_update(f"first-stage TINY step {i}", card, cpu,
-                                         FS_TINY_LR)
-        print(f"first-stage TINY step {i}: params within 2 lr; first moments' worst "
+        check_metrics(f"{label} step {i}", got, ref)
+        worst = check_first_stage_update(f"{label} step {i}", card, cpu, FS_TINY_LR)
+        print(f"{label} step {i}: params within 2 lr; first moments' worst "
               "leaf error over its limit, share of params past lr / 10 (limit 1%): "
               + ", ".join(f"{k} {r:.3f} {100 * o:.3f}%" for k, (r, o) in worst.items()))
         sync_first_stage(card, cpu)
@@ -1258,7 +1311,7 @@ def phase_third_stage_kernels(dev):
     """(j1) K2 without conditioning rows at the bridge's unit shapes, and
     K3 in fp32 at the flow-to-video decode's levels: each against its plain
     version, two calls bitwise equal, device times, bound and share."""
-    from ipoke_tpu_torch.ops import _build, masked_conv, spade_gn
+    from ipoke_tpu_torch.ops import _build, masked_conv
 
     gen = torch.Generator(device=dev).manual_seed(6)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -1297,24 +1350,9 @@ def phase_third_stage_kernels(dev):
         x = randn(n, s, s, ch) * 2.0 + 0.5
         gamma = randn(K3_VIDEO_CLIPS, s, s, ch) * 0.5
         beta = randn(K3_VIDEO_CLIPS, s, s, ch) * 0.5
-        name = f"K3 fp32 video decode N={n} clips={K3_VIDEO_CLIPS} S={s} Ch={ch}"
-        got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
-        err = check_close(name, got, spade_gn.spade_gn_plain(x, gamma, beta, 16), tol, tol)
-        if not torch.equal(got, spade_gn.spade_gn_cuda(x, gamma, beta, 16)):
-            raise AssertionError(f"{name}: two calls differ")
-        del got
-        ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 20)
-        plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 5)
-        bound_ms, bound_by = bound(*spade_work(n, K3_VIDEO_CLIPS, s, ch, 4), FP32_FLOPS)
-        k, resident = spade_gn.spade_gn_plan(s * s, ch, 4)
-        print(f"{name} G=16: max_abs_err {err:.3e} (tol {tol} abs+rel), two calls "
-              f"bitwise equal, kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it); "
-              f"clusters of {k}, slices {'kept in' if resident else 'streamed past'} "
-              f"shared memory")
-        rows["spade_gn"].append({"N": n, "clips": K3_VIDEO_CLIPS, "S": s, "Ch": ch,
-                                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                 "bound_ms": bound_ms, "bound_by": bound_by})
+        rows["spade_gn"].append(k3_row(
+            f"K3 fp32 video decode N={n} clips={K3_VIDEO_CLIPS} S={s} Ch={ch}",
+            x, gamma, beta, tol))
         del x, gamma, beta
     return rows
 
@@ -1508,26 +1546,36 @@ CLI_KERNELS = ("nice_net", "nice_net_train", "macow_unit_inverse",
                "masked_conv_inverse", "spade_gn")
 
 
+def _decode_levels(cfg) -> int:
+    """The SPADE levels of a second stage's frozen first stage."""
+    from ipoke_tpu_torch.core.config import load_config
+
+    return len(load_config(cfg["first_stage"]["config"])["architecture"]
+               ["dec_channels"]) - 1
+
+
 def expected_cli_launches(name, cfg, n_train, n_val):
     """Per CLI run of ``name`` with ``n_train`` steps and ``n_val`` val
-    batches: the first stage's K3 (60 a train step at T = 10, one per decode
-    level a val batch); the second stage's bf16 steps (K1 in each step's
-    no-grad pass, K4 in its recompute and the priors; its fp32 DDI runs no
-    kernel), its validation's no-grad density (K1 in every coupling) and
-    sampling pass (K1, K2 in every unit, K3 per decode level); flow_motion's
-    validation, the bridge's units in the hallucinated flow (K2).  The
-    image AEs, the flow VAE and the bridge's steps run no kernel."""
+    batches: the first stage's K3, conv or FC (60 a train step at T = 10,
+    one per decode level a val batch); the second stage's bf16 steps (K1 in
+    each step's no-grad pass, K4 in its recompute and the priors; its fp32
+    DDI runs no kernel), its validation's no-grad density (K1 in every
+    coupling) and sampling pass (K1, K2 in every unit, K3 per decode level);
+    the FC second stage's validation pass, K3 per decode level (its flat
+    flows and steps run no kernel); flow_motion's validation, the bridge's
+    units in the hallucinated flow (K2).  The image AEs, the FC encoders,
+    the BigAE, the flat INN, the flow VAE and the bridge's steps run no
+    kernel."""
     want = dict.fromkeys(CLI_KERNELS, 0)
     arch = cfg["architecture"]
-    if name == "first_stage":
+    if name in ("first_stage", "first_stage_fc"):
         levels = len(arch["dec_channels"]) - 1
         want["spade_gn"] = n_train * 2 * cfg["data"]["max_frames"] * levels + n_val * levels
+    elif name == "second_stage_fc":
+        want["spade_gn"] = n_val * _decode_levels(cfg)
     elif name == "second_stage":
         steps, levels = sum(arch["num_steps"]), len(arch["num_steps"])
-        from ipoke_tpu_torch.core.config import load_config
-
-        dec = len(load_config(cfg["first_stage"]["config"])["architecture"]
-                  ["dec_channels"]) - 1
+        dec = _decode_levels(cfg)
         want["nice_net"] = n_train * 4 * steps + n_val * 2 * (4 * steps + levels)
         want["nice_net_train"] = n_train * (4 * steps + levels)
         want["macow_unit_inverse"] = n_val * 4 * steps
@@ -1568,6 +1616,107 @@ def cli_tree():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def host_probe(dev, n=2000):
+    """us per launch of a one-element add queued back to back: the host's
+    dispatch speed just before a run (the small nets' steps are bound by
+    it)."""
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t) / n
+
+
+def release():
+    """Collect what a finished run left in reference cycles (an experiment
+    and its trainer refer to each other), so that the next run's peak
+    memory is its own."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_cli(argv):
+    """``main.run(argv)`` with both TF32 switches turned on before it: the
+    run must leave them off (the precision every record assumes)."""
+    from ipoke_tpu_torch import main as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    out = cli.run(argv)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError(f"main.run({argv}) left TF32 on")
+    return out
+
+
+def drive_cli(dev, smi, data_root, exp, path, *extra):
+    """One CLI run of ``exp`` from the config at ``path``, with the launch
+    counts zeroed before and read after (the path's run, held against
+    ``expected_cli_launches``); returns the experiment and its record."""
+    from ipoke_tpu_torch import ops
+
+    probe_us = host_probe(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30  # before the run
+    stats0 = torch.cuda.memory_stats()
+    ops.reset_launches()  # this CLI run
+    t_run = time.perf_counter()
+    e = run_cli(["--config", path, "--model_name", "smoke", "--data_root", data_root,
+                 *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    got = dict(ops.LAUNCHES)
+    tm = e.timings
+    n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
+    want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
+    label = f"CLI {exp}{' --resume' if extra else ''}"
+    print(f"{label} kernel launches: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    with open(e.metrics_logger.path) as f:
+        val = [json.loads(line) for line in f if '"val/' in line][-1]
+    val = {k[4:]: v for k, v in val.items() if k.startswith("val/")}
+    if not val or not all(map(math.isfinite, val.values())):
+        raise AssertionError(f"{label}: validation metrics {val}")
+    steps_ms = [1e3 * t for t in tm["step_s"]]
+    ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
+    wait = [1e3 * t for t in tm["loader_wait_s"]]
+    drain = [1e3 * t for t in tm["drain_s"]]
+    # cudaMalloc calls in each step (the first from the run's start)
+    counts = [stats0.get("num_device_alloc", 0)] + tm["device_allocs"]
+    allocs = [b - a for a, b in zip(counts, counts[1:])]
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+        - stats0.get("num_alloc_retries", 0)
+    per_step = {k: v / n_train for k, v in got.items() if v}
+    out = {"ms_per_step": ms, "steps_ms": steps_ms,
+           "loader_wait_ms": wait, "drain_ms": drain,
+           "host_probe_us": probe_us, "device_allocs": allocs,
+           "alloc_retries": retries,
+           "val_s": tm["val_s"], "val": val,
+           "save_s": tm["save_s"], "save_bytes": tm["save_bytes"],
+           "restore_s": tm["restore_s"], "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "held_before_gib": held,
+           "launches": got, "launches_per_step": per_step}
+    print(f"{label} B={e.batch_size}: {n_train} steps, "
+          f"{ms:.1f} ms/step after the first ({', '.join(f'{t:.1f}' for t in steps_ms)}); "
+          f"loader wait {', '.join(f'{t:.1f}' for t in wait)} ms; "
+          f"wait in the closing sync {', '.join(f'{t:.1f}' for t in drain)} ms; "
+          f"cudaMallocs {allocs}, {retries} retries; "
+          f"host probe {probe_us:.2f} us a launch; "
+          f"validation {', '.join(f'{t:.2f}' for t in tm['val_s'])} s "
+          f"{json.dumps(val)}; checkpoint {tm['save_bytes']} bytes in "
+          f"{', '.join(f'{t:.2f}' for t in tm['save_s'])} s; restore "
+          f"{tm['restore_s']} s; peak {out['peak_gib']:.2f} GiB "
+          f"({held:.2f} held before the run); "
+          f"launches per step {per_step}; run {wall:.1f} s on {smi}")
+    return e, out
+
+
 def phase_cli(dev, smi, tree):
     """(k) ``ipoke_tpu_torch.main`` through the conv pipeline on a synthetic
     tree: k1 img_encoder, k2 poke_encoder, k3 first_stage, k4 second_stage
@@ -1580,17 +1729,14 @@ def phase_cli(dev, smi, tree):
     its closing synchronize and its cudaMalloc calls, and a host probe
     before each run, which tell a host-bound step from an allocator-bound
     one."""
-    import gc
     import os
 
     import yaml
 
     from ipoke_tpu_torch import main as cli
-    from ipoke_tpu_torch import ops
     from ipoke_tpu_torch.core.config import load_config
 
-    gc.collect()  # what earlier phases left in reference cycles
-    torch.cuda.empty_cache()
+    release()  # what earlier phases left in reference cycles
     root, data_root, base = tree["root"], tree["data_root"], tree["base"]
     t0 = time.perf_counter()
 
@@ -1617,83 +1763,7 @@ def phase_cli(dev, smi, tree):
             yaml.safe_dump(cfg, f)
         return path
 
-    def host_probe(n=2000):
-        # us per launch of a one-element add queued back to back: the
-        # host's dispatch speed just before the run (the small nets'
-        # steps are bound by it)
-        x = torch.zeros(1, device=dev)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            x.add_(1)
-        torch.cuda.synchronize()
-        return 1e6 * (time.perf_counter() - t) / n
-
-    def drive(exp, path, *extra):
-        probe_us = host_probe()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated() / 2 ** 30  # before the run
-        stats0 = torch.cuda.memory_stats()
-        ops.reset_launches()  # this CLI run
-        t_run = time.perf_counter()
-        e = cli.run(["--config", path, "--model_name", "smoke",
-                     "--data_root", data_root, *extra])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_run
-        got = dict(ops.LAUNCHES)
-        tm = e.timings
-        n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
-        want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
-        label = f"CLI {exp}{' --resume' if extra else ''}"
-        print(f"{label} kernel launches: {got} (expected {want})")
-        if got != want:
-            raise AssertionError(f"{label}: launches {got} != {want}")
-        with open(e.metrics_logger.path) as f:
-            val = [json.loads(line) for line in f if '"val/' in line][-1]
-        val = {k[4:]: v for k, v in val.items() if k.startswith("val/")}
-        if not val or not all(map(math.isfinite, val.values())):
-            raise AssertionError(f"{label}: validation metrics {val}")
-        steps_ms = [1e3 * t for t in tm["step_s"]]
-        ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
-        wait = [1e3 * t for t in tm["loader_wait_s"]]
-        drain = [1e3 * t for t in tm["drain_s"]]
-        # cudaMalloc calls in each step (the first from the run's start)
-        counts = [stats0.get("num_device_alloc", 0)] + tm["device_allocs"]
-        allocs = [b - a for a, b in zip(counts, counts[1:])]
-        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
-            - stats0.get("num_alloc_retries", 0)
-        per_step = {k: v / n_train for k, v in got.items() if v}
-        out = {"ms_per_step": ms, "steps_ms": steps_ms,
-               "loader_wait_ms": wait, "drain_ms": drain,
-               "host_probe_us": probe_us, "device_allocs": allocs,
-               "alloc_retries": retries,
-               "val_s": tm["val_s"], "val": val,
-               "save_s": tm["save_s"], "save_bytes": tm["save_bytes"],
-               "restore_s": tm["restore_s"], "wall_s": wall,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "held_before_gib": held,
-               "launches": got, "launches_per_step": per_step}
-        print(f"{label} B={e.batch_size}: {n_train} steps, "
-              f"{ms:.1f} ms/step after the first ({', '.join(f'{t:.1f}' for t in steps_ms)}); "
-              f"loader wait {', '.join(f'{t:.1f}' for t in wait)} ms; "
-              f"wait in the closing sync {', '.join(f'{t:.1f}' for t in drain)} ms; "
-              f"cudaMallocs {allocs}, {retries} retries; "
-              f"host probe {probe_us:.2f} us a launch; "
-              f"validation {', '.join(f'{t:.2f}' for t in tm['val_s'])} s "
-              f"{json.dumps(val)}; checkpoint {tm['save_bytes']} bytes in "
-              f"{', '.join(f'{t:.2f}' for t in tm['save_s'])} s; restore "
-              f"{tm['restore_s']} s; peak {out['peak_gib']:.2f} GiB "
-              f"({held:.2f} held before the run); "
-              f"launches per step {per_step}; run {wall:.1f} s on {smi}")
-        return e, out
-
-    def release():
-        # an experiment and its trainer refer to each other (the trainer
-        # holds the experiment's grad-accumulation wrapper): collect the
-        # cycle so that the next run's peak memory is its own
-        gc.collect()
-        torch.cuda.empty_cache()
+    drive = lambda exp, path, *extra: drive_cli(dev, smi, data_root, exp, path, *extra)
 
     results, launches = {}, {}
     for exp in ("img_encoder", "poke_encoder", "first_stage"):
@@ -1777,28 +1847,28 @@ TEST_MODES = ("samples", "fvd", "accuracy", "diversity", "control_sensitivity",
 
 
 def test_mode_passes(mode, cfg):
-    s = int(cfg["testing"]["n_samples_per_data_point"])
-    return {"samples": (s, 0), "fvd": (2, 0), "accuracy": (2 * s, 0),
-            "diversity": (s, 0), "control_sensitivity": (1 + 4, 0),
+    """Without ``testing.n_samples_per_data_point`` (second_stage_fc.yaml)
+    each mode takes its default: 3 in samples, 5 in accuracy and
+    diversity, as in the JAX package."""
+    s = cfg.get("testing", {}).get("n_samples_per_data_point")
+    s3, s5 = (3, 5) if s is None else (int(s), int(s))
+    return {"samples": (s3, 0), "fvd": (2, 0), "accuracy": (2 * s5, 0),
+            "diversity": (s5, 0), "control_sensitivity": (1 + 4, 0),
             "transfer": (2, 1), "kps_acc": (2, 0)}[mode]
 
 
 def expected_test_launches(mode, cfg):
-    """A sampling pass runs K1 in every NICE coupling of the inverse
-    (4 a step and one a level's prior), K2 in every unit (4 a step) and K3
-    once a decode level; the no-grad density pass (transfer) K1 in every
-    coupling; no K4 (no grad) and no K5 (every latent 8x8)."""
-    from ipoke_tpu_torch.core.config import load_config
-
-    arch = cfg["architecture"]
-    steps, levels = sum(arch["num_steps"]), len(arch["num_steps"])
-    dec = len(load_config(cfg["first_stage"]["config"])["architecture"]
-              ["dec_channels"]) - 1
-    passes, density = test_mode_passes(mode, cfg)
+    """The modes sample in fp32, on the mixed second stage too (its bf16
+    weights upcast, the batch uncast: the JAX package's modes): a sampling
+    pass runs K2 in every unit of the cINN inverse (4 a step) and K3 once
+    a decode level, and no K1 (its family is bf16), in the density pass
+    (transfer) neither; no K4 (no grad) and no K5 (every latent 8x8).  The
+    FC second stage's pass runs K3 alone (its flat flows run no kernel)."""
+    passes, _ = test_mode_passes(mode, cfg)
     want = dict.fromkeys(CLI_KERNELS, 0)
-    want["nice_net"] = (passes + density) * (4 * steps + levels)
-    want["macow_unit_inverse"] = passes * 4 * steps
-    want["spade_gn"] = passes * dec
+    if cfg["general"]["experiment"] == "second_stage":
+        want["macow_unit_inverse"] = passes * 4 * sum(cfg["architecture"]["num_steps"])
+    want["spade_gn"] = passes * _decode_levels(cfg)
     return want
 
 
@@ -1910,27 +1980,35 @@ def check_test_artifacts(mode, d, result):
         raise AssertionError(f"--test {mode}: artifacts {sorted(files)}, metrics {result}")
 
 
-def phase_test_modes(dev, smi, tree):
+def phase_test_modes(dev, smi, tree, fc=False):
     """(l2) ``ipoke_tpu_torch.main --test <mode> --debug`` on phase (k)'s
-    second-stage run, each mode with the launch counts zeroed before and
-    read after (this path's run): artifacts, finite metrics, launches
-    against ``expected_test_launches``, seconds per mode, its build, its
-    restore and each sampling pass (each closed by a synchronize), peak
-    memory; then ``realism`` raises the JAX package's assertion."""
-    import gc
+    second-stage run (with ``fc``, (m4): phase (m3)'s ``second_stage_fc``
+    run), each mode with the launch counts zeroed before and read after
+    (this path's run, ``test_<mode>`` / ``test_fc_<mode>``): artifacts,
+    finite metrics, launches against ``expected_test_launches``, seconds per
+    mode, its build, its restore and each sampling pass (each closed by a
+    synchronize), peak memory; then ``realism`` raises the JAX package's
+    assertion."""
     import os
 
     import yaml
 
-    from ipoke_tpu_torch import main as cli
     from ipoke_tpu_torch import ops
-    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
     from ipoke_tpu_torch.core.config import load_config
-    from ipoke_tpu_torch.models.second_stage import SecondStageModel
 
-    cfg = load_config(tree["second_stage"]).to_dict()
+    if fc:
+        from ipoke_tpu_torch.cli.fc_experiments import (
+            SecondStageFCExperiment as SecondStageExperiment)
+        from ipoke_tpu_torch.models.fc_baseline import (
+            SecondStageModelFC as SecondStageModel)
+    else:
+        from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+        from ipoke_tpu_torch.models.second_stage import SecondStageModel
+    exp_name = "second_stage_fc" if fc else "second_stage"
+    prefix, tag = ("test_fc_", "(m4)") if fc else ("test_", "(l2)")
+    cfg = load_config(tree[exp_name]).to_dict()
     cfg["data"]["test_batch_size"] = cfg["data"]["batch_size"]
-    path = os.path.join(tree["root"], "second_stage_test.yaml")
+    path = os.path.join(tree["root"], f"{exp_name}_test.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     passes, density, builds = [], [], []
@@ -1947,7 +2025,7 @@ def phase_test_modes(dev, smi, tree):
             return out
         return wrapper
 
-    gen = os.path.join(tree["base"], "second_stage", "generated", "smoke")
+    gen = os.path.join(tree["base"], exp_name, "generated", "smoke")
     launches, results = {}, {}
     t_phase = time.perf_counter()
     SecondStageModel.forward_sample = timed(sample, passes)
@@ -1956,15 +2034,14 @@ def phase_test_modes(dev, smi, tree):
     SecondStageExperiment.restore = timed(restore, builds)
     try:
         for mode in TEST_MODES:
-            gc.collect()
-            torch.cuda.empty_cache()
+            release()
             torch.cuda.reset_peak_memory_stats()
             passes.clear()
             density.clear()
             builds.clear()
             ops.reset_launches()  # this mode's run
             t0 = time.perf_counter()
-            result = cli.run(["--config", path, "--model_name", "smoke", "--data_root",
+            result = run_cli(["--config", path, "--model_name", "smoke", "--data_root",
                               tree["data_root"], "--test", mode, "--debug"])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -1973,7 +2050,7 @@ def phase_test_modes(dev, smi, tree):
             n_pass, n_dens = test_mode_passes(mode, cfg)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             rest = secs - sum(builds) - sum(passes) - sum(density)
-            print(f"(l2) --test {mode}: {json.dumps(result)}; {len(passes)} sampling passes "
+            print(f"{tag} --test {mode}: {json.dumps(result)}; {len(passes)} sampling passes "
                   f"({', '.join(f'{1e3 * t:.1f}' for t in passes)} ms), {len(density)} density "
                   f"passes; {secs:.2f} s the mode: build {builds[0]:.2f} s, restore "
                   f"{builds[1]:.2f} s, the passes {sum(passes) + sum(density):.2f} s, the rest "
@@ -1983,7 +2060,7 @@ def phase_test_modes(dev, smi, tree):
                 raise AssertionError(f"--test {mode}: launches {got} != {want} or passes "
                                      f"{len(passes)}/{len(density)} != {n_pass}/{n_dens}")
             check_test_artifacts(mode, os.path.join(gen, mode), result)
-            launches[f"test_{mode}"] = got
+            launches[f"{prefix}{mode}"] = got
             results[mode] = {"s": secs, "build_s": builds[0], "restore_s": builds[1],
                              "pass_ms": [1e3 * t for t in passes], "rest_s": rest,
                              "peak_gib": peak, "metrics": result}
@@ -1991,16 +2068,289 @@ def phase_test_modes(dev, smi, tree):
         SecondStageModel.forward_sample, SecondStageModel.forward_density = sample, dens
         SecondStageExperiment.build, SecondStageExperiment.restore = build, restore
     try:
-        cli.run(["--config", path, "--model_name", "smoke", "--data_root",
+        run_cli(["--config", path, "--model_name", "smoke", "--data_root",
                  tree["data_root"], "--test", "realism", "--debug"])
     except AssertionError as e:
         if "hallucinated-flow pipeline" not in str(e):
             raise
-        print(f"(l2) --test realism on the second stage raises: {e}")
+        print(f"{tag} --test realism on the {exp_name} run raises: {e}")
     else:
-        raise AssertionError("--test realism ran on a second-stage run")
-    print(f"(l2) the seven modes in {time.perf_counter() - t_phase:.1f} s")
+        raise AssertionError(f"--test realism ran on a {exp_name} run")
+    print(f"{tag} the seven modes in {time.perf_counter() - t_phase:.1f} s")
     return launches, results
+
+
+# (m) the FC tower.  (m1) K3 in fp32 at the FC generator's SPADE levels (S,
+# Ch) of config/first_stage_fc.yaml's dec_channels at 32 px: training, B =
+# 20 frames rendered one at a time (a modulation per frame, t = 1), and
+# sampling, 400 frames of 40 clips (the batched decode, t = 10); K3's
+# backward at the 32 px level in training
+K3_FC_CASES = ((8, 256), (16, 128), (32, 64))
+K3_FC_BATCHES = (("training", 20, 20), ("sampling", 400, 40))
+# (m2) FC_TINY card against the CPU port, fp32, TF32 off, the same weights
+# and draws: the (i2) rule for every step (FS_TINY_TOL on metrics, the
+# update rule on params and first moments, each step from the CPU's state);
+# the flat flow's forward (z, logdet) and inverse and the sampling pass's
+# frames within FC_TINY_TOL abs + rel (both fp32, summing in other orders)
+FC_TINY_TOL = 1e-3
+# (m3) the FC experiments from the shipped YAMLs, in pipeline order: (run,
+# YAML, experiment, 32 px cut).  The FC baseline's four dec_channels render
+# 32 px, not the 64 px its YAML asks for (the JAX package's step fails
+# there too), so the FC-baseline runs (its encoders, first and second
+# stage) run at 32 px; the BigAE runs and the flat INN at the YAMLs' 64 px
+FC_RUNS = (("flow_encoder_fc", "flow_encoder_fc", "flow_encoder_fc", False),
+           ("img_encoder_fc_bigae", "img_encoder_fc", "flow_encoder_fc", False),
+           ("inn_fcae", "inn_fcae", "inn_fcae", False),
+           ("img_encoder_fc", "img_encoder", "img_encoder_fc", True),
+           ("poke_encoder_fc", "poke_encoder", "poke_encoder_FC", True),
+           ("first_stage_fc", "first_stage_fc", "first_stage_fc", True),
+           ("second_stage_fc", "second_stage_fc", "second_stage_fc", True))
+FC_SIZE = 32
+
+
+def phase_fc_kernels(dev):
+    """(m1) K3 at the FC generator's training and sampling shapes, and its
+    backward at the 32 px level in training."""
+    from ipoke_tpu_torch.ops import spade_gn
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    tol, rows = K3_TOL[torch.float32], []
+    for label, n, clips in K3_FC_BATCHES:
+        for s, ch in K3_FC_CASES:
+            x = randn(n, s, s, ch) * 2.0 + 0.5
+            gamma, beta = randn(clips, s, s, ch) * 0.5, randn(clips, s, s, ch) * 0.5
+            rows.append(dict(k3_row(f"(m1) K3 fp32 FC {label} N={n} clips={clips} S={s} "
+                                    f"Ch={ch}", x, gamma, beta, tol), batch=label))
+    s, ch = K3_FC_CASES[-1]
+    n = K3_FC_BATCHES[0][1]
+    x, gamma, beta, r = (randn(n, s, s, ch) for _ in range(4))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        return torch.autograd.grad((fn(*leaves, 16) * r).sum(), leaves)
+
+    g_err = max(check_close(f"(m1) K3 FC grad {g} S={s} Ch={ch}", a, b, tol, tol)
+                for g, a, b in zip(("x", "gamma", "beta"), grads(spade_gn.spade_gn_modulate),
+                                   grads(spade_gn.spade_gn_plain)))
+    g_ms = cuda_ms(lambda: grads(spade_gn.spade_gn_modulate), 10)
+    g_plain = cuda_ms(lambda: grads(spade_gn.spade_gn_plain), 10)
+    print(f"(m1) K3 FC training backward N={n} t=1 S={s} Ch={ch}: gradients through K3 "
+          f"and the portable VJP against autograd of the plain version, max_abs_err "
+          f"{g_err:.3e}; forward + backward {g_ms:.4f} ms, plain {g_plain:.4f} ms")
+    rows[K3_FC_CASES.index((s, ch))].update(grad_max_abs_err=g_err, fwd_bwd_ms=g_ms,
+                                           plain_fwd_bwd_ms=g_plain)
+    return rows
+
+
+def phase_fc_tiny(dev):
+    """(m2) FC_TINY card against the CPU port: 2 FCAE steps, 2 first_stage_fc
+    steps, the flat flow's forward and inverse, a second_stage_fc sampling
+    pass and 2 of its train steps, each step from the CPU's state."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.core.optim import gan_adam
+    from ipoke_tpu_torch.models.fc_stack import FCAEStep
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    cfg = entry.FC_TINY
+    to = lambda d, dv: {k: v.to(dv) for k, v in d.items()}
+    zero = dict.fromkeys(CLI_KERNELS, 0)
+    # the BigAE VAE-GAN step
+    fe = cfg["flow_encoder"]
+    nets = entry.build_fcae(fe, "cpu", torch.Generator().manual_seed(0))
+    steps = []
+    for device, ns in ((dev, [copy.deepcopy(n).to(dev) for n in nets]), ("cpu", nets)):
+        txs = [gan_adam(list(n.parameters()), fe["training"]["lr"]) for n in ns[:2]]
+        steps.append(FCAEStep(fe, *ns, *txs))
+    card, cpu = steps
+    s = fe["data"]["spatial_size"][0]
+    gen = torch.Generator().manual_seed(1)
+    for i in range(2):
+        batch = {"flow": torch.tanh(torch.randn((2, s, s, 2), generator=gen))}
+        noise = torch.randn((2, fe["architecture"]["z_dim"]), generator=gen)
+        ops.reset_launches()
+        got = card(to(batch, dev), 1.0, noise.to(dev))
+        torch.cuda.synchronize()
+        check_launches(f"(m2) FCAE step {i}", zero)
+        check_metrics(f"(m2) FCAE step {i}", got, cpu(batch, 1.0, noise))
+        worst = [check_adam_update(f"(m2) FCAE step {i} {name}", a, b, fe["training"]["lr"])
+                 for name, a, b in (("BigAE", card.tx, cpu.tx), ("disc", card.tx_d, cpu.tx_d))]
+        print(f"(m2) FCAE step {i}: params within 2 lr; first moments' worst leaf error "
+              f"over its limit, share past lr / 10: {worst}")
+        for a, b, ta, tb in ((card.model, cpu.model, card.tx, cpu.tx),
+                             (card.disc, cpu.disc, card.tx_d, cpu.tx_d)):
+            a.load_state_dict(b.state_dict())
+            sync_moments(ta, tb)
+        card.prev_d_loss = cpu.prev_d_loss.clone()
+    # the FC first stage's step
+    phase_first_stage_tiny(dev, cfg["first_stage"], 2, "(m2) first_stage_fc TINY")
+    # the FC second stage: flat flow, sampling pass, train steps
+    model = entry.build_second_stage_fc(cfg, "cpu", torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(model).to(dev)
+    batch = entry.make_first_stage_batch(cfg["first_stage"], "cpu", seed=3)
+    batch["poke"] = torch.randn((2, s, s, 2), generator=gen) * 0.5
+    noise = torch.randn((2, model.flow_in_channels), generator=gen)
+    z, ld = model.forward_density(batch, noise=noise)
+    ops.reset_launches()
+    z_c, ld_c = card_model.forward_density(to(batch, dev), noise=noise.to(dev))
+    x_c = card_model.flow.inverse(card_model.flow_params.tree(), z_c,
+                                  card_model.embed_conditioning(to(batch, dev)))
+    torch.cuda.synchronize()
+    check_launches("(m2) flat flow forward and inverse", zero)
+    x = model.flow.inverse(model.flow_params.tree(), z, model.embed_conditioning(batch))
+    errs = [check_close(f"(m2) flat flow {w}", a.cpu(), b, FC_TINY_TOL, FC_TINY_TOL)
+            for w, a, b in (("z", z_c, z), ("logdet", ld_c, ld), ("inverse", x_c, x))]
+    print(f"(m2) flat flow card vs CPU: z, logdet, inverse max_abs_err "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {FC_TINY_TOL} abs+rel)")
+    T = cfg["first_stage"]["data"]["max_frames"]
+    ops.reset_launches()
+    video_c = card_model.forward_sample(to(batch, dev), T, z=z.to(dev))
+    torch.cuda.synchronize()
+    levels = len(cfg["first_stage"]["architecture"]["dec_channels"]) - 1
+    check_launches("(m2) second_stage_fc sampling pass", dict(zero, spade_gn=levels))
+    err = check_close("(m2) second_stage_fc sampling pass", video_c.cpu(),
+                      model.forward_sample(batch, T, z=z), FC_TINY_TOL, FC_TINY_TOL)
+    print(f"(m2) second_stage_fc sampling pass card vs CPU: frames max_abs_err "
+          f"{err:.3e} (tol {FC_TINY_TOL} abs+rel)")
+    lr = cfg["second_stage"]["training"]["lr"]
+    trainers = [SecondStageTrainer(m, lr) for m in (card_model, model)]
+    for t in trainers:
+        t.start()
+    for i in range(2):
+        ops.reset_launches()
+        got = trainers[0].train_step(to(batch, dev))  # motion = mu: no draw
+        torch.cuda.synchronize()
+        check_launches(f"(m2) second_stage_fc step {i}", zero)
+        check_metrics(f"(m2) second_stage_fc step {i}", got, trainers[1].train_step(batch))
+        worst = check_adam_update(f"(m2) second_stage_fc step {i}", trainers[0].tx,
+                                  trainers[1].tx, lr)
+        print(f"(m2) second_stage_fc step {i}: params within 2 lr; first moments' worst "
+              f"leaf error over its limit, share past lr / 10: {worst}")
+        sync_moments(trainers[0].tx, trainers[1].tx, params=True)
+
+
+def fc_cli_config(tree, run, yaml_name, exp, cut):
+    """(m3) the shipped YAML of ``run`` with the synthetic tree's dataset,
+    1 epoch of CLI_BATCHES train and 1 val batch, the frozen runs' dirs,
+    the experiment it runs, and the FC baseline's 32 px cut."""
+    import os
+
+    import yaml
+
+    from ipoke_tpu_torch.core.config import load_config
+
+    base = tree["base"]
+    run_dir = lambda exp_dir: {
+        "config": os.path.join(base, exp_dir, "config", "smoke", "0.yaml"),
+        "ckpt": os.path.join(base, exp_dir, "ckpt", "smoke", "0")}
+    cfg = load_config(os.path.join("config", f"{yaml_name}.yaml")).to_dict()
+    cfg["general"]["experiment"] = exp
+    cfg["data"]["dataset"] = "PlantDataset"
+    if cut:
+        cfg["data"]["spatial_size"] = [FC_SIZE, FC_SIZE]
+    cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES, max_val_batches=1)
+    if exp in ("img_encoder_fc", "poke_encoder_FC"):  # as second_stage_fc.yaml's nf_max
+        cfg["architecture"]["nf_max"] = 64
+    if exp == "inn_fcae":
+        cfg["flow_encoder"] = run_dir("flow_encoder_fc")
+    if exp == "second_stage_fc":
+        for sec, frozen in (("first_stage", "first_stage_fc"),
+                            ("conditioner", "img_encoder_fc"),
+                            ("poke_embedder", "poke_encoder_FC")):
+            cfg[sec].update(run_dir(frozen))
+    path = os.path.join(tree["root"], f"{run}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_fc_cli(dev, smi, tree):
+    """(m3) ``ipoke_tpu_torch.main`` through the FC tower from the shipped
+    YAMLs (``FC_RUNS``), each run with the launch counts zeroed before and
+    read after (path ``fc_<run>``), recorded as phase (k) records its runs;
+    then the restore check and ``--resume`` of ``second_stage_fc``."""
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch.cli.fc_experiments import SecondStageFCExperiment
+
+    release()
+    t0 = time.perf_counter()
+    data_root = tree["data_root"]
+    results, launches = {}, {}
+    for run, yaml_name, exp, cut in FC_RUNS:
+        # (img_encoder_fc.yaml's BigAE runs as flow_encoder_fc: its version 1)
+        path = fc_cli_config(tree, run, yaml_name, exp, cut)
+        e, results[run] = drive_cli(dev, smi, data_root, exp, path)
+        launches[f"fc_{run}"] = results[run]["launches"]
+        if run == "second_stage_fc":
+            tree["second_stage_fc"] = path
+            ss = e
+            continue
+        del e
+        release()
+    if ss.ddi_runs != 1:
+        raise AssertionError(f"CLI second_stage_fc: DDI ran {ss.ddi_runs} times")
+    args = cli.parse_args(["--config", tree["second_stage_fc"], "--model_name", "smoke",
+                           "--data_root", data_root, "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    check = SecondStageFCExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
+    check.build()
+    check.restore_last()
+    check.metrics_logger.close()
+    checks = {"step": check.step == ss.step, "lr count": check.tx.count == ss.tx.count,
+              "flow params bitwise": all(torch.equal(a, b) for a, b in zip(
+                  check.model.flow_params.parameters(), ss.model.flow_params.parameters())),
+              "moments bitwise": all(  # Adam keeps its step count on the CPU
+                  torch.equal(a, ss.tx.adam.state[r][k].to(a.device))
+                  for q, r in zip(check.tx.params, ss.tx.params)
+                  for k, a in check.tx.adam.state[q].items())}
+    print(f"(m3) CLI second_stage_fc restore check (step {check.step}): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"CLI second_stage_fc restore: {checks}")
+    step1, count1 = ss.step, ss.tx.count
+    del ss, check
+    release()
+    e, results["second_stage_fc_resume"] = drive_cli(
+        dev, smi, data_root, "second_stage_fc", tree["second_stage_fc"], "--resume")
+    launches["fc_second_stage_fc_resume"] = results["second_stage_fc_resume"]["launches"]
+    n = len(e.timings["step_s"])
+    if (e.step, e.tx.count, e.ddi_runs) != (step1 + n, count1 + n, 0):
+        raise AssertionError(f"CLI second_stage_fc --resume: step {e.step}, lr count "
+                             f"{e.tx.count}, DDI runs {e.ddi_runs}")
+    print(f"(m3) CLI second_stage_fc --resume: step {step1} -> {e.step}, DDI not rerun")
+    del e
+    release()
+    print(f"(m3) the FC CLI runs in {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
+def free_conv_runs(tree):
+    """Remove (k)'s run dirs (their checkpoints), which (m) does not read."""
+    import os
+    import shutil
+
+    for exp in ("img_encoder", "poke_encoder", "first_stage", "second_stage",
+                "flow_vae", "flow_motion"):
+        shutil.rmtree(os.path.join(tree["base"], exp), ignore_errors=True)
+
+
+def phase_fc_unported(tree):
+    """(m4) ``third_stage_fc`` still raises, naming ROADMAP queue 1 item 8."""
+    import os
+
+    import yaml
+
+    path = os.path.join(tree["root"], "third_stage_fc.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"general": {"experiment": "third_stage_fc"}}, f)
+    try:
+        run_cli(["--config", path, "--model_name", "smoke", "--data_root",
+                 tree["data_root"]])
+    except NotImplementedError as e:
+        if "ROADMAP queue 1 item 8" not in str(e):
+            raise
+        print(f"(m4) third_stage_fc raises: {e}")
+    else:
+        raise AssertionError("third_stage_fc ran")
 
 
 def main():
@@ -2069,6 +2419,16 @@ def main():
         phase_eval_nets(dev, smi)
         test_launches, _ = phase_test_modes(dev, smi, tree)
         paths.update(test_launches)
+        # (m) the FC tower: (m1) K3 at its shapes, (m2) FC_TINY card vs CPU,
+        # (m3) its CLI runs, (m4) the --test modes on its second stage
+        kernels["spade_gn"]["fc_shapes"] = phase_fc_kernels(dev)
+        phase_fc_tiny(dev)
+        free_conv_runs(tree)
+        fc_launches, _ = phase_fc_cli(dev, smi, tree)
+        paths.update(fc_launches)
+        fc_test_launches, _ = phase_test_modes(dev, smi, tree, fc=True)
+        paths.update(fc_test_launches)
+        phase_fc_unported(tree)
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

@@ -6,8 +6,10 @@ sampling pass (``models.second_stage.SecondStageModel.forward_sample``), the
 second-stage NLL train step (``train.SecondStageTrainer``), the first-stage
 VAE-GAN train step (``train.FirstStageTrainer``) and the conv third stage
 (``models.third_stage``: hallucinated flow and video from flow;
-``train.FlowVAETrainer``, ``train.FlowMotionTrainer``), and trains the conv
-pipeline stage by stage from the YAMLs through its own entry point,
+``train.FlowVAETrainer``, ``train.FlowMotionTrainer``) and the FC tower
+(``models.big_ae``, ``models.fc_stack``, ``models.fc_baseline``,
+``flows.fc``), and trains the conv pipeline and the FC tower stage by
+stage from the YAMLs through its own entry point,
 ``python -m ipoke_tpu_torch.main`` (``cli/``, ``data/``, ``eval/``).  The TPU
 kernels on those paths are hand-written Hopper kernels in ``ops/`` (CUDA C++
 sources in ``csrc/``), each beside a plain PyTorch version.  A CPU tensor

@@ -28,8 +28,9 @@ come from one ``torch.Generator`` on the device (``generator``), seeded by
 wait, the step closed by a synchronize and the wait in that synchronize,
 the device allocations so far, checkpoint bytes) for the caller.
 
-Registry names match the JAX package's; the FC experiments are not ported
-(ROADMAP queue 1 item 8).
+Registry names match the JAX package's; the FC experiments live in
+``cli/fc_experiments.py``, and ``third_stage_fc`` is not ported (ROADMAP
+queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -424,13 +425,14 @@ class FirstStageExperiment(Experiment):
 
         if not hasattr(self, "_fvd_net"):
             self._fvd_net = init_fvd_backbone(self.device)
-        arch = self.config["architecture"]
-        s, z = arch.get("min_spatial_size", 8), arch["z_dim"]
+        from ..models.first_stage import latent_shape
+
+        shape = latent_shape(self.config)
         ssims, psnrs, lpips_vals, reals, fakes = [], [], [], [], []
         for batch in self.val_batches(epoch):
             X = batch["images"]
             # the JAX validation samples the posterior (apply with an rng)
-            noise = torch.randn((X.shape[0], s, s, z), generator=self.generator,
+            noise = torch.randn((X.shape[0], *shape), generator=self.generator,
                                 device=X.device)
             X_hat = self.model(X, train=False, noise=noise)[0]
             a = X[:, 1:].reshape(-1, *X.shape[2:])
@@ -460,9 +462,17 @@ class _AEExperiment(Experiment):
     # reference's image AE, first_stage_image_conv.py:223-256)
     fid_val = False
 
+    def build_ae(self, config):
+        """The ``ImageAE`` to train (on ``meta``)."""
+        from ..models.image_ae import build_image_ae
+
+        return build_image_ae(config)
+
+    def weight_decay(self, config) -> float:
+        return float(config["training"].get("weight_decay", 1e-5))
+
     def build(self):
         from ..models.image_ae import (
-            build_image_ae,
             build_image_disc,
             create_image_ae_state,
             make_image_ae_train_step,
@@ -470,14 +480,14 @@ class _AEExperiment(Experiment):
 
         cfg = self.config
         with torch.device("meta"):
-            model, disc = build_image_ae(cfg), build_image_disc(cfg)
+            model, disc = self.build_ae(cfg), build_image_disc(cfg)
         self.model = self.materialize(model)
         with torch.no_grad():
             self.model.logvar.zero_()
         self.disc = self.materialize(disc) if self.use_disc else None
         self.vgg = entry.build_vgg(self.device)
         lr = float(cfg["training"].get("lr", 2e-4))
-        wd = float(cfg["training"].get("weight_decay", 1e-5))
+        wd = self.weight_decay(cfg)
         self.tx, self.tx_d = create_image_ae_state(
             self.model, self.disc,
             lambda params: self.accumulate(gan_adam(params, lr, wd)),
@@ -551,34 +561,41 @@ class PokeEncoderExperiment(_AEExperiment):
         super().__init__(config, dirs, **kw)
 
 
-def load_frozen(config, generator):
-    """The three frozen submodels (first stage, conditioner, poke embedder)
-    of a second- or third-stage config, on the CPU, each built from its own
-    config (``<section>.config``, a path or a tree), loaded from the best
-    ``*_weights`` of its run (``<section>.ckpt``; random weights from the
-    CPU ``generator`` without one), then frozen: spectral norms collapsed,
-    eval, no grad."""
-    from ..models import first_stage as fs
-    from ..models.image_ae import build_image_ae, freeze_spectral_norm
+def load_frozen_net(config, section: str, build, generator):
+    """The frozen net of ``config[section]``, on the CPU: built by
+    ``build(sub_config)`` from its own config (``<section>.config``, a path
+    or a tree), loaded from the best ``*_weights`` of its run
+    (``<section>.ckpt``; random weights from the CPU ``generator`` without
+    one), then frozen: spectral norms collapsed, eval, no grad."""
+    from ..models.image_ae import freeze_spectral_norm
     from ..models.pretrained_registry import resolve
 
-    def load_one(section, build):
-        sec = resolve(section, dict(config[section]))
-        sub_cfg = load_config(sec["config"]) if isinstance(
-            sec.get("config"), str) else Config(sec["config"])
-        with torch.device("meta"):
-            net = build(sub_cfg)
-        net = entry.materialize(net, "cpu", generator)
-        if sec.get("ckpt"):
-            net.load_state_dict(CheckpointStore(sec["ckpt"]).restore_best(weights=True))
-        return freeze_spectral_norm(net).eval().requires_grad_(False)
+    sec = resolve(section, dict(config[section]))
+    sub_cfg = load_config(sec["config"]) if isinstance(
+        sec.get("config"), str) else Config(sec.get("config", {}))
+    with torch.device("meta"):
+        net = build(sub_cfg)
+    net = entry.materialize(net, "cpu", generator)
+    if sec.get("ckpt"):
+        net.load_state_dict(CheckpointStore(sec["ckpt"]).restore_best(weights=True))
+    return freeze_spectral_norm(net).eval().requires_grad_(False)
+
+
+def load_frozen(config, generator):
+    """The three frozen submodels (first stage, conditioner, poke embedder)
+    of a second- or third-stage config (``load_frozen_net``)."""
+    from ..models import first_stage as fs
+    from ..models.image_ae import build_image_ae
 
     if not config.get_path("conditioner.use", True):
         raise NotImplementedError("a second stage without conditioner is not "
                                   "ported yet (ROADMAP queue 1 item 3)")
-    first = load_one("first_stage", lambda c: fs.build_first_stage(c)[0])
-    cond = load_one("conditioner", lambda c: build_image_ae(c).ae)
-    poke = load_one("poke_embedder", lambda c: build_image_ae(c).ae)
+    first = load_frozen_net(config, "first_stage",
+                            lambda c: fs.build_first_stage(c)[0], generator)
+    cond = load_frozen_net(config, "conditioner", lambda c: build_image_ae(c).ae,
+                           generator)
+    poke = load_frozen_net(config, "poke_embedder", lambda c: build_image_ae(c).ae,
+                           generator)
     return first, cond, poke
 
 
@@ -685,13 +702,12 @@ class SecondStageExperiment(Experiment):
         return {"FVD-val": float(fvd), "flow_loss-val": float(np.mean(nlls))}
 
 
-# the FC experiments (ROADMAP queue 1 item 8)
-_UNPORTED = ("img_encoder_fc", "poke_encoder_fc", "first_stage_fc",
-             "second_stage_fc", "flow_encoder_fc", "third_stage_fc", "inn_fcae")
+# the FC third stage (ROADMAP queue 1 item 8)
+_UNPORTED = ("third_stage_fc",)
 
 
 def _registry():
-    from .fc_experiments import FlowMotionExperiment, FlowVAEExperiment
+    from . import fc_experiments as fc
 
     return {
         # conv pipeline (reference experiments/__init__.py:14-24)
@@ -699,9 +715,16 @@ def _registry():
         "poke_encoder": PokeEncoderExperiment,
         "first_stage": FirstStageExperiment,
         "second_stage": SecondStageExperiment,
+        # the FC tower (architecture.fc_baseline selects the FC first stage)
+        "img_encoder_fc": fc.ImgEncoderFCExperiment,
+        "poke_encoder_fc": fc.PokeEncoderFCExperiment,
+        "first_stage_fc": FirstStageExperiment,
+        "second_stage_fc": fc.SecondStageFCExperiment,
+        "flow_encoder_fc": fc.FlowEncoderFCExperiment,
+        "inn_fcae": fc.INNFCAEExperiment,
         # the fork's conv third stage
-        "flow_motion": FlowMotionExperiment,
-        "flow_vae": FlowVAEExperiment,
+        "flow_motion": fc.FlowMotionExperiment,
+        "flow_vae": fc.FlowVAEExperiment,
     }
 
 

@@ -18,8 +18,12 @@ Each restores the run's best checkpoint (``last`` under ``--last_ckpt``)
 into the template ``--resume`` uses, draws from the experiment's
 ``generator`` and writes the JAX package's files and metric keys under
 ``<generated>/<mode>/``; ``--debug`` takes the JAX package's batch counts.
-Under ``mixed_prec_master`` the sampling pass runs on bf16 copies of the
-batch, as validation does; the metrics take its output in fp32.
+On a ``mixed_prec_master`` run the modes sample as the JAX package's do:
+it restores the bf16 params into its fp32 template (orbax upcasts them)
+and feeds the batch uncast, so the pass runs in fp32 from bf16-valued
+weights (the frozen nets too, which its build casts to bf16); here the
+restored bf16 model is upcast to fp32 (``_restore_trained``).  The modes
+run the same way on a ``second_stage_fc`` run (fp32).
 ``realism`` (and ``accuracy`` on a third-stage run) needs the fork's FC
 third stage, which is not ported (ROADMAP queue 1 item 8): on the ported
 experiments they fail with the JAX package's assertion.
@@ -33,8 +37,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-from ..core.optim import cast_floats
 
 
 def _out_dir(experiment, mode: str) -> str:
@@ -73,17 +75,17 @@ def _restore_trained(experiment, require_sampler: bool = True):
             f"(run them on second_stage/second_stage_fc runs)")
     experiment.restore(
         "last" if experiment.config.get_path("general.last_ckpt") else None)
+    if getattr(experiment, "_mixed", False):
+        experiment.model.float()  # fp32 activations, bf16-valued weights
 
 
 def _host(t) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
-def _sampling_batch(experiment, batch, keys=("images", "poke")):
-    """The keys the model reads, in bf16 under ``mixed_prec_master``."""
-    sub = {k: batch[k] for k in keys}
-    return cast_floats(sub, torch.bfloat16) if getattr(experiment, "_mixed", False) \
-        else sub
+def _sampling_batch(batch, keys=("images", "poke")):
+    """The keys the model reads."""
+    return {k: batch[k] for k in keys}
 
 
 def _sample_fn(experiment):
@@ -92,7 +94,7 @@ def _sample_fn(experiment):
     model = experiment.model
 
     def sample(batch):
-        return model.forward_sample(_sampling_batch(experiment, batch), T,
+        return model.forward_sample(_sampling_batch(batch), T,
                                     experiment.generator).float()
 
     return sample
@@ -433,7 +435,7 @@ def test_transfer(experiment) -> Dict[str, float]:
     for bi, batch in enumerate(_test_batches(experiment, n_batches)):
         vid, vid_rand = transfer_videos(
             experiment.model,
-            _sampling_batch(experiment, batch, ("images", "poke", "nn_images")),
+            _sampling_batch(batch, ("images", "poke", "nn_images")),
             T, experiment.generator)
         vid, vid_rand = _host(vid), _host(vid_rand)
         np.save(os.path.join(d, f"transfer_batch{bi}.npy"), vid)

@@ -18,7 +18,13 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   sigma.
 * The image AE's state, ``{'ae', 'logvar'}`` with its discriminator
   (``load_image_ae``); the FirstStageWrapper's decoder maps like any flax
-  net.  MotionFeatureNet reads the JAX package's flat npz keys itself
+  net.
+* The FC tower maps like any flax net, by name, through ``load_flax``:
+  the BigAE (its conditional batch norms' Dense layers, the attention's
+  ``gamma``), ``FirstStageFCWrapper`` and ``FCBaselineModel`` with every
+  spectral norm's ``u`` and ``sigma`` (``NormConv2d``'s ``v`` stays HWIO,
+  the GRU cells' ``ir`` .. ``hn`` are Dense layers); its flat flows'
+  trees through ``flow_params``.  MotionFeatureNet reads the JAX package's flat npz keys itself
   (``nn.motion_feat.load_motion_feat``).
 * The evaluation nets: I3D and PoseResNet map like any flax net, their
   inference BatchNorms taking ``scale``/``bias`` from ``params`` and

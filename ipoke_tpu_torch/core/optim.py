@@ -139,6 +139,20 @@ def gan_adam(params, lr_schedule: Schedule, weight_decay: float = 1e-5) -> _Adam
     return _Adam(params, lr_schedule, (0.5, 0.9), weight_decay, False)
 
 
+def gated_update(tx, gate) -> bool:
+    """The JAX package's ``gated_update``: ``tx.step()`` when ``gate`` > 0
+    (a float or a 0-dim tensor, read on the host); otherwise the grads are
+    dropped and neither params, Adam's moments nor its count move.  Zero
+    grads would not do: the coupled weight decay would still step the
+    params and the moments would decay.  Returns whether it stepped."""
+    if float(gate) > 0:
+        tx.step()
+        return True
+    for p in tx.params:
+        p.grad = None
+    return False
+
+
 class _MasterWeights:
     """bf16-resident ``params`` with fp32 masters: ``step`` hands the grads,
     upcast, to the inner optimizer over the masters, then copies

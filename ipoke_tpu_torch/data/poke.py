@@ -84,6 +84,10 @@ def simulate_poke(
         val_idx = np.stack(np.nonzero(amp_filt > mean + std), axis=-1)
         if val_idx.shape[0] == 0:
             val_idx = np.stack(np.nonzero(amp_filt > mean), axis=-1)
+        if val_idx.shape[0] == 0:
+            # a clip without motion has no value to poke with: the loader
+            # draws another (the JAX package fails here in numpy)
+            raise FlowError("Empty poke-value set: the flow has no motion")
         val_idx = val_idx + margin
         cand_idx = loc_idx
     else:

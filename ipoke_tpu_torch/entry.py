@@ -16,7 +16,9 @@ non-trivial values for runs whose outputs are compared.
 ``FIRST_STAGE`` is ``config/first_stage.yaml`` (64 px, B=20, T=10, fp32),
 copied as the reference-style tree the first stage is built from;
 ``FIRST_STAGE_TINY`` is the TINY config of the JAX package's first-stage
-tests.  ``build_first_stage`` makes the generator, both discriminators and
+tests; ``FC_TINY`` the FC tower at those widths, which ``build_fcae`` and
+``build_second_stage_fc`` make (with ``build_first_stage`` for its first
+stage).  ``build_first_stage`` makes the generator, both discriminators and
 VGG on a device from a generator (or on ``meta``).
 
 ``FLOW_MOTION`` is the conv third stage of ``config/flow_motion.yaml``
@@ -177,6 +179,10 @@ def _init_random(module: torch.nn.Module, generator) -> None:
             elif isinstance(sub, Dense):
                 sub.kernel.normal_(0.0, sub.kernel.shape[0] ** -0.5,
                                    generator=generator)
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif hasattr(sub, "init_random"):  # NormConv2d, SelfAttention
+                sub.init_random(generator)
             elif isinstance(sub, GroupNorm) and sub.scale is not None:
                 sub.scale.fill_(1.0)
                 sub.bias.zero_()
@@ -281,6 +287,63 @@ def build_vgg(device) -> VGG19Features:
     if path:
         load_torch_vgg19_npz(vgg, path)
     return vgg.to(device)
+
+
+# The FC tower at the widths of the JAX package's FC tests (32 px): the FC
+# first stage (``FIRST_STAGE_TINY`` with the FC baseline's architecture),
+# the BigAE flow encoder and the FC encoders and second stage over them
+FC_TINY = {
+    "first_stage": dict(FIRST_STAGE_TINY, architecture={
+        "fc_baseline": True, "z_dim": 8, "ENC_M_channels": [16, 16, 32, 32],
+        "dec_channels": [32, 32, 16, 16], "n_gru_layers": 2, "CN_content": "spade"}),
+    "flow_encoder": {
+        "data": {"spatial_size": (32, 32), "batch_size": 2},
+        "architecture": {"z_dim": 10, "n_out_channels": 2, "gen_ch": 8},
+        "training": {"lr": 1e-3, "perc_weight": 1.0, "kl_weight": 1e-3,
+                     "disc_weight": 1.0},
+        "disc": {"ndf": 8, "n_layers": 2}},
+    "encoders": {"nf_max": 16},
+    "second_stage": {
+        "architecture": {"flow_mid_channels_factor": 2, "flow_hidden_depth": 2,
+                         "n_flows": 3},
+        "training": {"lr": 1e-3, "base_distribution": "gaussian"}},
+}
+
+
+def build_fcae(cfg, device, generator: Optional[torch.Generator] = None):
+    """(BigAE, discriminator, VGG) of a ``flow_encoder_fc`` config
+    (``FC_TINY["flow_encoder"]``), fp32, with random weights made on
+    ``device`` from ``generator``."""
+    from .models.fc_stack import build_big_ae
+    from .nn.discriminators import PatchDiscriminator2D
+
+    dcfg = cfg.get("disc", {})
+    with torch.device("meta"):
+        model = build_big_ae(cfg)
+        disc = PatchDiscriminator2D(dcfg.get("ndf", 64), dcfg.get("n_layers", 3),
+                                    cin=model.in_channels)
+    return (materialize(model, device, generator), materialize(disc, device, generator),
+            build_vgg(device))
+
+
+def build_second_stage_fc(cfg, device, generator: Optional[torch.Generator] = None):
+    """The fp32 ``SecondStageModelFC`` of ``FC_TINY``-style ``cfg`` over a
+    random FC first stage (``cfg["first_stage"]``) and conditioner and poke
+    embedder (``nf_max`` of ``cfg["encoders"]``), frozen: spectral norms
+    collapsed, eval, no grad."""
+    from .models.fc_baseline import FirstStageFCWrapper, SecondStageModelFC
+    from .models.image_ae import freeze_spectral_norm
+
+    fs_cfg = cfg["first_stage"]
+    s, nf = fs_cfg["data"]["spatial_size"][0], cfg["encoders"]["nf_max"]
+    with torch.device("meta"):
+        nets = (_fs.build_first_stage(fs_cfg)[0], FirstStageFCWrapper(s, 3, nf),
+                FirstStageFCWrapper(s, 2, nf))
+    nets = [freeze_spectral_norm(materialize(n, "cpu", generator)).eval().requires_grad_(False)
+            for n in nets]
+    model = SecondStageModelFC(cfg["second_stage"], *nets)
+    model.flow_params = ParamTree(model.flow.init(generator, "cpu"))
+    return model.to(device)
 
 
 def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:

@@ -1,5 +1,11 @@
 """Flow NLL losses (counterpart of ``ipoke_tpu/flows/loss.py``): every
-reduction in fp32, so that a bf16 latent loses no digits in ||z||^2."""
+reduction in fp32, so that a bf16 latent loses no digits in ||z||^2.
+
+``radial`` is the FC second stage's radial base distribution (reference
+``loss.py:20-28``): the NLL ``dof * log r + r^2 / 2`` of the sample's norm
+r, with ``dof = sum(sample.shape[1:]) - 1`` on the (B, 1, 1, D) view of a
+vector latent (the sum of the dims, not their product: the reference's
+quirk, kept)."""
 
 from __future__ import annotations
 
@@ -8,37 +14,55 @@ from typing import Optional
 import torch
 
 
-def nll(sample, spatial_mean: bool = False):
-    """Per-sample negative log-likelihood under N(0, I), up to a constant.
-    ``sample``: (B, H, W, C) or (B, D)."""
+def nll(sample, spatial_mean: bool = False, radial: bool = False):
+    """Per-sample negative log-likelihood under N(0, I) (or the radial
+    base), up to a constant.  ``sample``: (B, H, W, C) or (B, D)."""
     sample = sample.float()
     if sample.ndim == 2:
         sample = sample[:, None, None, :]
+    if radial:
+        r = torch.linalg.vector_norm(sample.reshape(sample.shape[0], -1), dim=1)
+        dof = sum(sample.shape[1:]) - 1.0
+        return dof * torch.log(r) + 0.5 * r ** 2
     if spatial_mean:
         return 0.5 * torch.sum(torch.mean(sample ** 2, dim=(1, 2)), dim=-1)
     return 0.5 * torch.sum(sample.reshape(sample.shape[0], -1) ** 2, dim=1)
 
 
+def radial_sample(shape, generator: Optional[torch.Generator] = None,
+                  device=None, dtype=None):
+    """A draw of the radial base: a uniform direction (N(0, I) over its norm
+    plus 1e-12) times |N(0, 1)| per sample, the second draw after the
+    first (``SecondStageModelFC.sample_base`` of the JAX package)."""
+    z = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    flat = z.reshape(shape[0], -1)
+    r = torch.randn((shape[0], 1), generator=generator, device=device,
+                    dtype=dtype).abs()
+    flat = flat / (torch.linalg.vector_norm(flat, dim=1, keepdim=True) + 1e-12)
+    return (flat * r).reshape(shape)
+
+
 def flow_loss(sample, logdet, generator: Optional[torch.Generator] = None,
               spatial_mean: bool = False,
-              reference: Optional[torch.Tensor] = None):
+              reference: Optional[torch.Tensor] = None, radial: bool = False):
     """NLL + negative-logdet objective, both weighted 1 (the JAX package's
     defaults, which the trainer uses); returns (loss, log dict).
 
     ``generator`` enables the ``reference_nll_loss`` diagnostic: the NLL of a
-    fresh N(0, I) sample of the same shape, drawn from it; ``reference``
-    gives that sample instead."""
+    fresh sample of the base (N(0, I), or ``radial_sample``) of the same
+    shape, drawn from it; ``reference`` gives that sample instead."""
     logdet = logdet.float()
-    nll_loss = torch.mean(nll(sample, spatial_mean=spatial_mean))
+    nll_loss = torch.mean(nll(sample, spatial_mean=spatial_mean, radial=radial))
     nlogdet = -torch.mean(logdet)
     if spatial_mean and sample.ndim == 4:
         nlogdet = nlogdet / (sample.shape[1] * sample.shape[2])
     loss = nll_loss + nlogdet
     log = {"flow_loss": loss, "nlogdet_loss": nlogdet, "nll_loss": nll_loss}
     if reference is None and generator is not None:
-        reference = torch.randn(sample.shape, generator=generator,
-                                device=sample.device, dtype=sample.dtype)
+        draw = radial_sample if radial else torch.randn
+        reference = draw(sample.shape, generator=generator,
+                         device=sample.device, dtype=sample.dtype)
     if reference is not None:
-        log["reference_nll_loss"] = torch.mean(nll(reference,
-                                                   spatial_mean=spatial_mean))
+        log["reference_nll_loss"] = torch.mean(nll(
+            reference, spatial_mean=spatial_mean, radial=radial))
     return loss, log

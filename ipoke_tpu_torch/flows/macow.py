@@ -409,7 +409,7 @@ class ScannedSteps(Flow):
     inverse walks the steps in reverse.
 
     While autograd records, each step of ``forward`` runs in a reentrant
-    checkpoint (the JAX package's ``remat``, the scan under
+    checkpoint unless ``remat`` is off (the JAX package's ``remat``, the scan under
     ``jax.checkpoint``), so training stores only the step boundaries.  The
     checkpoint's first pass runs without grad; the step's parameter leaves
     are its explicit inputs, since the level-0 input (the stop-gradient
@@ -417,6 +417,7 @@ class ScannedSteps(Flow):
 
     step: Flow
     n: int
+    remat: bool = True
 
     def init(self, generator, device):
         return _stack([self.step.init(generator, device) for _ in range(self.n)])
@@ -426,7 +427,7 @@ class ScannedSteps(Flow):
         for i in range(self.n):
             p = tree_map(lambda a: a[i], params)
             leaves, unflatten = tree_flatten(p)
-            if torch.is_grad_enabled() and any(
+            if self.remat and torch.is_grad_enabled() and any(
                     t.requires_grad for t in [x, *leaves]):
                 def run(x, h, *leaves, unflatten=unflatten):
                     return self.step.forward(unflatten(leaves), x, h)

@@ -6,13 +6,16 @@ stays the JAX package's):
         [--data_root PATH] [--debug] [--device cuda|cpu]
 
 Trains ``img_encoder``, ``poke_encoder``, ``first_stage``, ``second_stage``,
-``flow_vae`` and ``flow_motion`` from the shipped YAMLs, with ``main.py``'s
+``flow_vae`` and ``flow_motion``, and the FC tower's ``flow_encoder_fc``,
+``img_encoder_fc``, ``poke_encoder_FC``, ``first_stage_fc``, ``inn_fcae``
+and ``second_stage_fc``, from the shipped YAMLs, with ``main.py``'s
 flags and run-directory layout (``$DATAPATH_BASE`` or ``general.base_dir``;
 the dataset from ``--data_root``, ``data.data_root`` or ``$DATAPATH``).
 ``--test <mode>`` evaluates the run's latest version instead
 (``cli.testing.run_test``: samples, fvd, accuracy, diversity,
-control_sensitivity, transfer, kps_acc on a second stage; realism needs the
-FC third stage, ROADMAP queue 1 item 8).  ``--device`` defaults to
+control_sensitivity, transfer, kps_acc on a second stage, conv or FC;
+realism needs the FC third stage, ROADMAP queue 1 item 8).  TF32 is off
+for the run.  ``--device`` defaults to
 ``cuda`` and raises without a card: only ``--device cpu`` runs on the CPU.
 ``--devices`` above 1 (ROADMAP queue 1 item 11) is not ported and raises;
 ``--gpus`` is accepted and ignored, as in ``main.py``.
@@ -107,6 +110,12 @@ def run(argv=None):
     ``--test`` run the mode and return its metrics."""
     args = parse_args(argv)
     check_args(args)
+    import torch
+
+    # fp32 matmuls and convolutions without TF32: the precision every
+    # measurement and parity tolerance of the port assumes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from ipoke_tpu_torch.cli.experiments import select_experiment
     from ipoke_tpu_torch.core.config import load_config
 

@@ -8,7 +8,9 @@ batched eval ``decode``); the first stage trains it (``forward`` with
 generator forward, then the temporal discriminator's update (hinge + R1
 penalty on a random window), the spatial discriminator's (random frames),
 and the generator's (hinge, feature matching, VGG, L1, KL), in the JAX
-package's order, with the discriminators gated by ``disc_gate``.
+package's order, with the discriminators gated by ``disc_gate``.  The
+same step trains the FC baseline (``models.fc_baseline.FCBaselineModel``,
+``architecture.fc_baseline``), whose motion latent is a vector.
 """
 
 from __future__ import annotations
@@ -110,16 +112,25 @@ def _dt_frames(config) -> int:
     return min(config["d_t"].get("max_frames", 8), config["data"]["max_frames"] + 1)
 
 
+def latent_shape(config) -> tuple:
+    """The motion latent's shape without the batch: (s, s, z_dim) maps, or
+    (z_dim,) vectors for the FC baseline."""
+    arch = config["architecture"]
+    if arch.get("fc_baseline", False):
+        return (arch["z_dim"],)
+    s = arch.get("min_spatial_size", 8)
+    return (s, s, arch["z_dim"])
+
+
 def sample_draws(generator: torch.Generator, config, batch_size: int) -> dict:
     """One step's random numbers, on ``generator``'s device: the encoder
-    noise (B, s, s, z_dim), shared by both generator forwards; the d_t
+    noise (B, *latent_shape), shared by both generator forwards; the d_t
     window's start in [0, max(1, T+1 - window)); and ``n_examples`` real and
     fake frame indices for d_s, drawn with replacement."""
-    arch, T = config["architecture"], config["data"]["max_frames"]
-    s, n_ex = arch.get("min_spatial_size", 8), config["d_s"].get("n_examples", 16)
+    T, n_ex = config["data"]["max_frames"], config["d_s"].get("n_examples", 16)
     kw = dict(generator=generator, device=generator.device)
     return {
-        "noise": torch.randn((batch_size, s, s, arch["z_dim"]), **kw),
+        "noise": torch.randn((batch_size, *latent_shape(config)), **kw),
         "offset": int(torch.randint(0, max(1, T + 1 - _dt_frames(config)), (),
                                     **kw)),
         "idx_t": torch.randint(0, batch_size * (T + 1), (n_ex,), **kw),
@@ -238,15 +249,34 @@ class FirstStageStep:
         return metrics
 
 
+def build_fc_baseline(config):
+    """The FC baseline first stage (``architecture.fc_baseline``).  Its
+    generator renders 4 * 2^(len(dec_channels) - 1) px whatever
+    ``data.spatial_size`` says; where the two differ, the JAX package's
+    step fails on the frames' shapes, so this raises at build."""
+    from .fc_baseline import FCBaselineModel
+
+    arch, size = config["architecture"], config["data"]["spatial_size"][0]
+    out = 4 * 2 ** (len(arch["dec_channels"]) - 1)
+    if out != size:
+        raise ValueError(
+            f"the FC baseline's generator renders {out} px from "
+            f"{len(arch['dec_channels'])} dec_channels, but data.spatial_size "
+            f"is {size}")
+    return FCBaselineModel(
+        size, z_dim=arch["z_dim"], enc_channels=tuple(arch["ENC_M_channels"]),
+        dec_channels=tuple(arch["dec_channels"]),
+        n_gru_layers=arch.get("n_gru_layers", 2),
+        use_spade=arch.get("CN_content", "spade") == "spade",
+        deterministic=arch.get("deterministic", False))
+
+
 def build_first_stage(config):
     """(model, disc_s, disc_t) of a reference-style config tree, on the
     current default device, fp32, weights uninitialised (``entry`` fills
-    them)."""
+    them); ``architecture.fc_baseline`` builds ``build_fc_baseline``'s."""
     arch, dcfg, tcfg = config["architecture"], config["data"], config["training"]
-    if arch.get("fc_baseline", False):
-        raise NotImplementedError(
-            "the FC baseline first stage is not ported yet (ROADMAP queue 1 item 8)")
-    if arch.get("baseline", False):
+    if arch.get("baseline", False) and not arch.get("fc_baseline", False):
         raise NotImplementedError(
             "the PokeVAE baseline is not ported yet (ROADMAP queue 1 item 5)")
     if tcfg.get("mixed_prec", False):
@@ -256,16 +286,19 @@ def build_first_stage(config):
             or arch.get("torch_compat", False):
         raise NotImplementedError("the port's first stage takes full_sequence, "
                                   "motion_bias and no torch_compat")
-    model = FirstStageModel(
-        dcfg["spatial_size"][0], z_dim=arch["z_dim"],
-        dec_channels=tuple(arch["dec_channels"]),
-        n_gru_layers=arch.get("n_gru_layers", 4),
-        min_spatial_size=arch.get("min_spatial_size", 8),
-        norm=arch.get("norm", "group"),
-        enc_channels=tuple(arch["ENC_M_channels"]),
-        max_frames=dcfg["max_frames"],
-        deterministic=arch.get("deterministic", False),
-        spectral_norm=arch.get("spectral_norm", True))
+    if arch.get("fc_baseline", False):
+        model = build_fc_baseline(config)
+    else:
+        model = FirstStageModel(
+            dcfg["spatial_size"][0], z_dim=arch["z_dim"],
+            dec_channels=tuple(arch["dec_channels"]),
+            n_gru_layers=arch.get("n_gru_layers", 4),
+            min_spatial_size=arch.get("min_spatial_size", 8),
+            norm=arch.get("norm", "group"),
+            enc_channels=tuple(arch["ENC_M_channels"]),
+            max_frames=dcfg["max_frames"],
+            deterministic=arch.get("deterministic", False),
+            spectral_norm=arch.get("spectral_norm", True))
     disc_s = PatchDiscriminator2D(ndf=config["d_s"].get("ndf", 64),
                                   n_layers=config["d_s"].get("n_layers", 3))
     disc_t = ResNet3DDiscriminator(

@@ -118,13 +118,14 @@ def make_second_stage_train_step(model: SecondStageModel, tx) -> Callable:
     tcfg = model.config.get("training", {})
     spatial_mean = bool(tcfg.get("spatial_mean", False))
     mixed = bool(tcfg.get("mixed_prec_master", False))
+    radial = bool(getattr(model, "radial", False))  # the FC second stage's option
 
     def step(batch, generator: Optional[torch.Generator] = None):
         if mixed:
             batch = cast_floats(batch, torch.bfloat16)
         z, logdet = model.forward_density(batch, generator)
         loss, log = flow_loss(z, logdet, generator=generator,
-                              spatial_mean=spatial_mean)
+                              spatial_mean=spatial_mean, radial=radial)
         loss.backward()
         tx.step()
         return {k: v.detach() for k, v in log.items()}

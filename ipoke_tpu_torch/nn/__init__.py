@@ -9,6 +9,7 @@ from .blocks import (
     ConvTranspose,
     ConvTransposeTK,
     GroupNorm,
+    NormConv2d,
     ResBlock,
     Spade,
     SpectralNormed,

@@ -263,6 +263,33 @@ class ResBlock(nn.Module):
         return h + residual
 
 
+class NormConv2d(nn.Module):
+    """The JAX package's ``NormConv2d`` on NHWC tensors: the kernel ``v``
+    (HWIO, as flax stores it) over its l2 norm per output channel plus
+    1e-12, then gamma * conv + beta, with explicit stride and symmetric
+    padding."""
+
+    def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 1,
+                 padding: int = 0):
+        super().__init__()
+        self.st, self.padding = st, padding
+        self.v = nn.Parameter(torch.empty(ks, ks, cin, out_dim))
+        self.gamma = nn.Parameter(torch.ones(out_dim))
+        self.beta = nn.Parameter(torch.zeros(out_dim))
+
+    def init_random(self, generator) -> None:
+        """flax's init: v ~ N(0, 0.05^2), gamma 1, beta 0."""
+        self.v.normal_(0.0, 0.05, generator=generator)
+        self.gamma.fill_(1.0)
+        self.beta.zero_()
+
+    def forward(self, x):
+        w = self.v / (torch.sqrt(torch.sum(self.v ** 2, dim=(0, 1, 2))) + 1e-12)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     stride=self.st, padding=self.padding)
+        return self.gamma * y.permute(0, 2, 3, 1) + self.beta
+
+
 def resize_bilinear(y, height: int, width: int):
     """``jax.image.resize(..., "bilinear")`` on NHWC: half-pixel centres and,
     when downscaling, an antialiasing (triangle) filter.  Computed in fp32

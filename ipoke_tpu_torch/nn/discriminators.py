@@ -28,23 +28,27 @@ def _gn(c: int, groups: int = None) -> GroupNorm:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` without bias; ``kernel`` is (in, out) as in flax."""
+    """flax ``nn.Dense``, with a bias when ``bias``; ``kernel`` is (in, out)
+    as in flax."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, bias: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return x @ self.kernel
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class PatchDiscriminator2D(nn.Module):
-    """k4/s2 spectral-norm conv PatchGAN on (N, H, W, 3) frames."""
+    """k4/s2 spectral-norm conv PatchGAN on (N, H, W, cin) frames (flow
+    maps: cin 2)."""
 
-    def __init__(self, ndf: int = 64, n_layers: int = 3):
+    def __init__(self, ndf: int = 64, n_layers: int = 3, cin: int = 3):
         super().__init__()
         self.n_layers = n_layers
-        self.Conv_0 = Conv(3, ndf, 4, 2, 1, snorm=True)
+        self.Conv_0 = Conv(cin, ndf, 4, 2, 1, snorm=True)
         nf = ndf
         for n in range(1, n_layers):
             nf_next = ndf * min(2 ** n, 8)

@@ -4,7 +4,7 @@ the six conv experiments runs one epoch of 2 batches on a synthetic tree
 and writes its run dir; ``--resume`` continues the step and the optimizer's
 count (bf16 params and fp32 masters under ``mixed_prec_master``, no second
 DDI); a NaN metric stops the run; what is not ported raises and names its
-ROADMAP item."""
+ROADMAP item (the FC experiments: ``tests/test_torch_cli_fc.py``)."""
 
 import copy
 import os
@@ -236,11 +236,10 @@ def test_nan_metric_raises(env, monkeypatch):
     assert real is ex.Experiment.train_step
 
 
-@pytest.mark.parametrize("name,item", [
-    ("img_encoder_fc", 8), ("poke_encoder_FC", 8), ("first_stage_fc", 8),
-    ("second_stage_fc", 8), ("flow_encoder_fc", 8), ("third_stage_fc", 8),
-    ("inn_fcae", 8)])
+@pytest.mark.parametrize("name,item", [("third_stage_fc", 8)])
 def test_unported_experiments_raise(env, name, item):
+    """The FC third stage is not ported (the rest of the FC tower runs:
+    ``tests/test_torch_cli_fc.py``)."""
     path = os.path.join(env.root, f"unported_{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump({"general": {"experiment": name}, "data": DATA,

@@ -134,3 +134,24 @@ def test_loader_raises_what_a_worker_raised():
         list(loader)
     got = list(tdm.ThreadedLoader(Broken(), tsamplers.FixedLengthSampler(3, 3, shuffle=False)))
     assert len(got) == 1 and got[0]["x"].shape == (3, 2)
+
+
+def test_zero_poke_on_a_still_clip_draws_another():
+    """A clip without motion has no poke value under ``zero_poke``: the
+    port raises ``FlowError`` there, which the dataset's retry loop turns
+    into another draw, where the JAX package fails in numpy; with motion
+    both give the same poke."""
+    from ipoke_tpu.data import poke as jpoke
+    from ipoke_tpu_torch.data import poke as tpoke
+
+    still = np.zeros((32, 32, 2), np.float32)
+    with pytest.raises(tpoke.FlowError, match="no motion"):
+        tpoke.simulate_poke(still, np.random.default_rng(0), 1, 5, zero_poke=True)
+    with pytest.raises(ValueError):
+        jpoke.simulate_poke(still, np.random.default_rng(0), 1, 5, zero_poke=True)
+    moving = still.copy()
+    moving[10:18, 12:20] = (4.0, -2.0)
+    got = tpoke.simulate_poke(moving, np.random.default_rng(1), 1, 5, zero_poke=True)
+    want = jpoke.simulate_poke(moving, np.random.default_rng(1), 1, 5, zero_poke=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

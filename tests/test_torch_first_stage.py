@@ -430,9 +430,9 @@ def test_gan_adam_matches_optax():
 
 
 def test_build_first_stage_refuses_unported_branches():
-    """The FC and PokeVAE branches and bf16 mixed_prec name their queue."""
-    for section, key in (("architecture", "fc_baseline"),
-                         ("architecture", "baseline"), ("training", "mixed_prec")):
+    """The PokeVAE branch and bf16 mixed_prec name their queue (the FC
+    baseline is ported: ``tests/test_torch_fc_baseline.py``)."""
+    for section, key in (("architecture", "baseline"), ("training", "mixed_prec")):
         cfg = copy.deepcopy(TINY)
         cfg[section][key] = True
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

@@ -7,9 +7,17 @@
   random-residual control from JAX's draw) matches the JAX mode's body
   within 2e-3: ``entry.FLOW_MOTION_TINY``'s second stage (deterministic
   first stage, motion encoder), the same weights carried by ``convert``;
-  both JAX sides are this file's one jitted program;
-* ``--test accuracy``, ``diversity`` and ``control_sensitivity`` of both
-  packages, run through their own mode functions on the same videos (a
+* on a ``mixed_prec_master`` run the modes sample as the JAX package's: its
+  ``--test`` restores the bf16 params into its fp32 template and feeds the
+  batch uncast, so it samples in fp32 from bf16-valued weights (its frozen
+  nets cast to bf16 at build); the port's restored bf16 model is upcast to
+  fp32 (``cli.testing._restore_trained``).  With weights that bf16 holds
+  exactly, one difference is left: JAX runs the frozen nets' spectral norm
+  on the bf16 weights in bf16, the port collapses it in fp32 when it loads
+  them and then rounds (ROADMAP §3);
+  all JAX sides are this file's one jitted program;
+* ``--test accuracy``, ``diversity``, ``control_sensitivity`` and ``fvd``
+  of both packages, run through their own mode functions on the same videos (a
   stub sampler hands both the same table of clips, in draw order) with the
   same VGG19 and LPIPS (random torch-layout npz files named by
   ``IPOKE_VGG_WEIGHTS`` and ``IPOKE_LPIPS_WEIGHTS``): the metrics within
@@ -64,12 +72,27 @@ def slice_ref():
                       (port.poke_embedder, "poke")):
         load_flax(sub, values[name]["params"], values[name].get("batch_stats"))
     batch = dict(_batch(0), nn_images=_batch(1)["images"])
+    # the JAX --test state of a mixed run, on weights that bf16 holds
+    # exactly: the frozen nets cast to bf16 at build, the checkpoint's bf16
+    # params restored into the fp32 template
+    values_b = jax.tree_util.tree_map(
+        lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+        if a.dtype.kind == "f" else a, values)
+    frozen_mixed = {k: FrozenBundle(_jnp(values_b[k]["params"], jnp.bfloat16),
+                                    _jnp(values_b[k].get("batch_stats", {}), jnp.bfloat16))
+                    for k in ("fs", "cond", "poke")}
+    port_b = entry.make_model(SS, flow_params(values_b["flow"]))
+    for sub, name in ((port_b.first_stage, "fs"), (port_b.conditioner, "cond"),
+                      (port_b.poke_embedder, "poke")):
+        load_flax(sub, values_b[name]["params"], values_b[name].get("batch_stats"))
 
     @jax.jit
-    def run(params, frozen, batch):
+    def run(params, frozen, batch, params_mixed, frozen_mixed):
         # forward_sample's own draw: z ~ N(0, I) from its key
         z_shape = jmodel.flow.output_shape((M, M, jmodel.flow_in_channels))
         out = {"video": jmodel.forward_sample(params, frozen, batch, SAMPLE_KEY, length=T),
+               "video_mixed": jmodel.forward_sample(params_mixed, frozen_mixed, batch,
+                                                    SAMPLE_KEY, length=T),
                "z": jax.random.normal(SAMPLE_KEY, (B, *z_shape), jnp.float32)}
         # the body of the JAX package's test_transfer
         r1, _ = jmodel.forward_density(params, frozen, batch, TRANSFER_KEY)
@@ -84,8 +107,11 @@ def slice_ref():
         out.update(transfer=decode(r1), transfer_rand=decode(z_rand), z_rand=z_rand)
         return out
 
-    ref = run({"flow": _jnp(values["flow"])}, frozen, _jnp(batch))
-    return port.eval(), batch, jax.tree_util.tree_map(_np, ref)
+    ref = run({"flow": _jnp(values["flow"])}, frozen, _jnp(batch),
+              {"flow": _jnp(values_b["flow"])}, frozen_mixed)
+    assert ref["video_mixed"].dtype == jnp.float32
+    ref = jax.tree_util.tree_map(_np, ref)
+    return port.eval(), batch, dict(ref, port_bf16_exact=port_b.eval())
 
 
 def test_forward_sample_with_jax_draw_matches_jax(slice_ref):
@@ -94,6 +120,35 @@ def test_forward_sample_with_jax_draw_matches_jax(slice_ref):
     got = port.forward_sample(tb, T, z=_t(ref["z"]))
     assert got.shape == (B, T, S, S, 3) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), ref["video"], atol=2e-3)
+
+
+def test_mixed_run_samples_as_jax(slice_ref):
+    """``--test`` on a mixed run: the restored model (bf16 params and frozen
+    nets, as ``SecondStageTrainer.start`` casts them) comes out of
+    ``_restore_trained`` in fp32 and samples from the uncast batch, as the
+    JAX package's modes do.  The frames' mean error stays within 5e-3 and
+    their largest within 5e-2 of JAX's (the spectral norm's rounding order;
+    the module docstring), half or less of what a bf16 pass on the same
+    model reads."""
+    import copy
+
+    port, batch, ref = slice_ref
+    port = ref["port_bf16_exact"]
+    mixed = copy.deepcopy(port).to(torch.bfloat16)
+    run = SimpleNamespace(_mixed=True, model=mixed, build=lambda: None,
+                          restore=lambda name=None: None,
+                          config=Config({"general": {}}))
+    ttesting._restore_trained(run)
+    assert all(p.dtype == torch.float32 for p in mixed.parameters())
+    tb = ttesting._sampling_batch({k: _t(v) for k, v in batch.items()})
+    got = mixed.forward_sample(tb, T, z=_t(ref["z"]))
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = np.abs(got.numpy() - ref["video_mixed"])
+    assert err.mean() < 5e-3 and err.max() < 5e-2, (err.mean(), err.max())
+    bf16 = copy.deepcopy(port).to(torch.bfloat16).forward_sample(
+        {k: v.to(torch.bfloat16) for k, v in tb.items()}, T,
+        z=_t(ref["z"], torch.bfloat16)).float()
+    assert np.abs(bf16.numpy() - ref["video_mixed"]).mean() > 2 * err.mean()
 
 
 def test_transfer_matches_jax(slice_ref):
@@ -225,7 +280,8 @@ def _with_keypoints(run, batches, seed):
 
 
 @pytest.mark.parametrize("mode,n_videos,n_batches", [
-    ("accuracy_keypoints", 4, 2), ("diversity", 2, 1), ("control_sensitivity", 5, 1)])
+    ("accuracy_keypoints", 4, 2), ("diversity", 2, 1), ("control_sensitivity", 5, 1),
+    ("fvd", 2, 2)])
 def test_mode_metrics_match_jax(mode, n_videos, n_batches, weights_env, tmp_path,
                                 monkeypatch):
     """Accuracy runs on a dataset with keypoints (the keypoint-free path is
