@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-first-stage VAE-GAN train step, conv third stage, CLI, ``--test`` modes and
-FC tower on one NVIDIA GPU.
+first-stage VAE-GAN train step, conv third stage, CLI, ``--test`` modes, FC
+tower and FC third stage on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -128,11 +128,32 @@ Phases, in order; any failure raises and exits non-zero:
       launches against ``expected_cli_launches`` (path ``fc_<run>``), then
       second_stage_fc's restore check and ``--resume``; (m4) the seven
       ``--test`` modes on (m3)'s second_stage_fc run (path
-      ``test_fc_<mode>``), then ``third_stage_fc`` raises.  The conv runs'
-      dirs are removed before (m3).  Alone: ``_build.load()``, then
-      ``phase_fc_kernels(dev)``, ``phase_fc_tiny(dev)``, and ``with
-      cli_tree() as tree:`` ``phase_fc_cli(dev, smi, tree)``,
-      ``phase_test_modes(dev, smi, tree, fc=True)``.
+      ``test_fc_<mode>``).  The conv runs' dirs are removed before (m3).
+      Alone: ``_build.load()``, then ``phase_fc_kernels(dev)``,
+      ``phase_fc_tiny(dev)``, and ``with cli_tree() as tree:``
+      ``phase_fc_cli(dev, smi, tree)``, ``phase_test_modes(dev, smi, tree,
+      fc=True)``.
+  (n) the FC third stage (config/third_stage_fc.yaml, fp32): (n1) K3 at its
+      sample_video decode's levels (320 frames of 32 clips) against its
+      plain version, bitwise repeated, with its bound; (n2)
+      ``entry.FC_THIRD_TINY`` card against the CPU port, unconditioned and
+      conditioned: 2 steps by the (i2) rule, the residual-seeded extract, a
+      base-sampled flow and sample_video's frames within FC_TINY_TOL; (n3)
+      ``main.run`` of the YAML at its width (the 0.69G-param flat INN, B =
+      32, 32 px as the FC second stage it sits on) on a 32 px
+      flow_encoder_fc run and (m3)'s runs, recorded as in (k) (paths
+      ``fc_third_<run>``), its restore check and ``--resume``; (n4)
+      ``--test realism`` and ``accuracy`` on it (paths
+      ``test_fc_third_<mode>``, no kernel), sample_video at B = 32, T = 10
+      with the launch counts zeroed before and read after (path
+      ``third_stage_fc_sample_video``: K3 once a decode level), 3 timed
+      calls and a ``torch.profiler`` table with K3's in-situ time; then the
+      YAML with ``general.conditional`` for one epoch.  (m3)'s 64 px BigAE
+      runs are removed before (n3), each third-stage run once read.  Alone:
+      ``_build.load()``, ``phase_fc_third_kernels(dev)``,
+      ``phase_fc_third_tiny(dev)``, and after (m3) in the same ``cli_tree``
+      ``phase_fc_third_cli(dev, smi, tree)``, ``phase_fc_third_test(dev,
+      smi, tree)``.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -1863,9 +1884,13 @@ def expected_test_launches(mode, cfg):
     pass runs K2 in every unit of the cINN inverse (4 a step) and K3 once
     a decode level, and no K1 (its family is bf16), in the density pass
     (transfer) neither; no K4 (no grad) and no K5 (every latent 8x8).  The
-    FC second stage's pass runs K3 alone (its flat flows run no kernel)."""
-    passes, _ = test_mode_passes(mode, cfg)
+    FC second stage's pass runs K3 alone (its flat flows run no kernel).
+    On the FC third stage, realism and accuracy decode no video: no
+    kernel."""
     want = dict.fromkeys(CLI_KERNELS, 0)
+    if cfg["general"]["experiment"] == "third_stage_fc":
+        return want
+    passes, _ = test_mode_passes(mode, cfg)
     if cfg["general"]["experiment"] == "second_stage":
         want["macow_unit_inverse"] = passes * 4 * sum(cfg["architecture"]["num_steps"])
     want["spade_gn"] = passes * _decode_levels(cfg)
@@ -2229,10 +2254,11 @@ def phase_fc_tiny(dev):
         sync_moments(trainers[0].tx, trainers[1].tx, params=True)
 
 
-def fc_cli_config(tree, run, yaml_name, exp, cut):
+def fc_cli_config(tree, run, yaml_name, exp, cut, arch=None):
     """(m3) the shipped YAML of ``run`` with the synthetic tree's dataset,
     1 epoch of CLI_BATCHES train and 1 val batch, the frozen runs' dirs,
-    the experiment it runs, and the FC baseline's 32 px cut."""
+    the experiment it runs, the FC baseline's 32 px cut, and ``arch``'s
+    architecture keys."""
     import os
 
     import yaml
@@ -2249,15 +2275,23 @@ def fc_cli_config(tree, run, yaml_name, exp, cut):
     if cut:
         cfg["data"]["spatial_size"] = [FC_SIZE, FC_SIZE]
     cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES, max_val_batches=1)
+    cfg["architecture"].update(arch or {})
     if exp in ("img_encoder_fc", "poke_encoder_FC"):  # as second_stage_fc.yaml's nf_max
         cfg["architecture"]["nf_max"] = 64
     if exp == "inn_fcae":
         cfg["flow_encoder"] = run_dir("flow_encoder_fc")
-    if exp == "second_stage_fc":
+    if exp in ("second_stage_fc", "third_stage_fc"):
         for sec, frozen in (("first_stage", "first_stage_fc"),
                             ("conditioner", "img_encoder_fc"),
                             ("poke_embedder", "poke_encoder_FC")):
             cfg[sec].update(run_dir(frozen))
+    if exp == "third_stage_fc":
+        # the encoders of the second stage it loads (second_stage_fc.yaml's
+        # nf_max 64; third_stage_fc.yaml names 128)
+        for sec in ("conditioner", "poke_embedder"):
+            cfg[sec]["nf_max"] = 64
+        cfg["second_stage"].update(run_dir("second_stage_fc"))
+        cfg["flow_encoder"].update(run_dir("flow_encoder_fc"))
     path = os.path.join(tree["root"], f"{run}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -2323,34 +2357,295 @@ def phase_fc_cli(dev, smi, tree):
     return launches, results
 
 
-def free_conv_runs(tree):
-    """Remove (k)'s run dirs (their checkpoints), which (m) does not read."""
+# (n) the FC third stage (config/third_stage_fc.yaml, fp32).  (n1) K3 in fp32
+# at its sample_video decode's levels (K3_FC_CASES): 320 frames of 32 clips
+# (the YAML's batch, T = 10); (n2) FC_THIRD_TINY card against the CPU port:
+# 2 steps by the (i2) rule, the residual-seeded extract, a base-sampled flow
+# and sample_video's frames within FC_TINY_TOL abs + rel, unconditioned and
+# conditioned; (n3) main.run of the YAML at its width (mid 2048, 20 blocks,
+# B = 32) on a 32 px flow_encoder_fc run and (m3)'s FC runs, recorded as (k)
+# records its runs, then its restore check and --resume; (n4) --test
+# realism and accuracy on it, and sample_video at the YAML's batch; then
+# the YAML with general.conditional for one epoch.  One cut: (n3)'s INN
+# runs FC_THIRD_FLOWS of the YAML's 20 blocks.  The card's machine lets a
+# call write 45 GiB to its disk, freed blocks included; at 20 blocks a
+# state (0.69G fp32 params and three AMSGrad buffers) is 11.1 GB, 13.9 GB an
+# epoch with its weights, and the script's earlier phases write ~20 GB.  At
+# 6 blocks (207.8M params) the three epochs write ~12.5 GB.  Width stays
+# (flow_in_channels 128, mid 2048, hidden depth 2, B = 32);
+# tools/torch_fc_third_stage.py runs the YAML's 20 blocks alone.  Each
+# run's dir goes once read.
+FC_THIRD_CLIPS, FC_THIRD_T, FC_THIRD_FLOWS = 32, 10, 6
+
+
+def phase_fc_third_kernels(dev):
+    """(n1) K3 at the FC third stage's sample_video decode levels."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    n, rows = FC_THIRD_CLIPS * FC_THIRD_T, []
+    for s, ch in K3_FC_CASES:
+        x = randn(n, s, s, ch) * 2.0 + 0.5
+        gamma, beta = (randn(FC_THIRD_CLIPS, s, s, ch) * 0.5 for _ in range(2))
+        rows.append(k3_row(f"(n1) K3 fp32 FC third stage sample_video N={n} "
+                           f"clips={FC_THIRD_CLIPS} S={s} Ch={ch}", x, gamma, beta,
+                           K3_TOL[torch.float32]))
+    return rows
+
+
+def phase_fc_third_tiny(dev):
+    """(n2) FC_THIRD_TINY card against the CPU port, unconditioned and
+    conditioned: 2 steps by the (i2) rule, each from the CPU's state; the
+    modes' residual-seeded extract, a base-sampled flow and sample_video's
+    frames from the same draws."""
+    from types import SimpleNamespace
+
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.cli.testing import _third_stage_fns
+    from ipoke_tpu_torch.train import ThirdStageFCTrainer
+
+    cfg = entry.FC_THIRD_TINY
+    fs = cfg["first_stage"]
+    s, T = fs["data"]["spatial_size"][0], fs["data"]["max_frames"]
+    levels = len(fs["architecture"]["dec_channels"]) - 1
+    zero = dict.fromkeys(CLI_KERNELS, 0)
+    lr = cfg["third_stage"]["training"]["lr"]
+    gen = torch.Generator().manual_seed(21)
+    randn = lambda *shape: torch.randn(shape, generator=gen)
+    batch = entry.make_first_stage_batch(fs, "cpu", seed=22)
+    B = batch["images"].shape[0]
+    batch.update(poke=0.5 * randn(B, s, s, 2), flow=randn(B, s, s, 2))
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    for conditional in (False, True):
+        tag = f"(n2) third_stage_fc TINY {'conditioned' if conditional else 'unconditioned'}"
+        cpu = entry.build_third_stage_fc(cfg, "cpu", torch.Generator().manual_seed(23),
+                                         conditional)
+        card = copy.deepcopy(cpu).to(dev)
+        z_ss, zt, zf = cpu.second_stage.flow_in_channels, cpu.z_total, cpu.z_flow
+        trainers = [ThirdStageFCTrainer(m, lr) for m in (card, cpu)]
+        for i in range(2):
+            noise = (randn(B, z_ss), randn(B, zf), randn(B, zt - zf), randn(B, zt))
+            ops.reset_launches()
+            got = trainers[0].train_step(to(batch), 0, noise=[n.to(dev) for n in noise])
+            torch.cuda.synchronize()
+            check_launches(f"{tag} step {i}", zero)
+            check_metrics(f"{tag} step {i}", got, trainers[1].train_step(batch, 0, noise=noise))
+            worst = check_adam_update(f"{tag} step {i}", trainers[0].state.tx,
+                                      trainers[1].state.tx, lr)
+            print(f"{tag} step {i}: params within 2 lr; first moments' worst leaf error over "
+                  f"its limit, share past lr / 10: {worst}")
+            sync_moments(trainers[0].state.tx, trainers[1].state.tx, params=True)
+        motion, z, eps, extra = randn(B, z_ss), randn(B, zt), randn(B, zf), randn(B, zt - zf)
+        outs = []
+        for model, device in ((card, dev), (cpu, "cpu")):
+            extract, sample, _ = _third_stage_fns(SimpleNamespace(model=model, generator=None))
+            b = to(batch) if device == dev else batch
+            ops.reset_launches()
+            out = (extract(b, motion=motion.to(device)), sample(b, z=z.to(device)),
+                   model.forward_video_from_flow(b, T, noise=(eps.to(device), extra.to(device))))
+            if device == dev:
+                torch.cuda.synchronize()
+                check_launches(f"{tag} extract, sample, sample_video",
+                               dict(zero, spade_gn=levels))
+            outs.append(out)
+        errs = [check_close(f"{tag} {w}", a.cpu(), b, FC_TINY_TOL, FC_TINY_TOL)
+                for w, a, b in zip(("extract", "sample", "sample_video"), *outs)]
+        print(f"{tag} card vs CPU: extract, base-sampled flow, sample_video frames "
+              f"max_abs_err " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {FC_TINY_TOL} abs+rel)")
+
+
+def free_runs(tree, runs):
+    """Remove the dirs (their checkpoints) of the experiments ``runs``,
+    which no later phase reads."""
     import os
     import shutil
 
-    for exp in ("img_encoder", "poke_encoder", "first_stage", "second_stage",
-                "flow_vae", "flow_motion"):
-        shutil.rmtree(os.path.join(tree["base"], exp), ignore_errors=True)
+    for run in runs:
+        shutil.rmtree(os.path.join(tree["base"], run), ignore_errors=True)
 
 
-def phase_fc_unported(tree):
-    """(m4) ``third_stage_fc`` still raises, naming ROADMAP queue 1 item 8."""
+def phase_fc_third_cli(dev, smi, tree, n_flows=FC_THIRD_FLOWS):
+    """(n3) ``ipoke_tpu_torch.main`` of config/third_stage_fc.yaml at its
+    width (``n_flows`` blocks) on a 32 px flow_encoder_fc run and (m3)'s FC
+    runs, each run with the launch counts zeroed before and read after
+    (path ``fc_third_<run>``), recorded as phase (k) records its runs; then
+    the restore check (the state a resume loads is the run's own, bit for
+    bit) and --resume."""
+    import os
+    import shutil
+
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch.cli.fc_experiments import ThirdStageFCExperiment
+    from ipoke_tpu_torch.flows import count_params
+
+    release()
+    free_runs(tree, ("flow_encoder_fc", "inn_fcae"))  # (m3)'s 64 px BigAE runs
+    usage = shutil.disk_usage(tree["root"])
+    print(f"(n3) disk: {usage.free / 2 ** 30:.1f} GiB free of {usage.total / 2 ** 30:.1f}")
+    t0 = time.perf_counter()
+    data_root = tree["data_root"]
+    results, launches = {}, {}
+    path = fc_cli_config(tree, "flow_encoder_fc_32", "flow_encoder_fc", "flow_encoder_fc", True)
+    e, results["flow_encoder_fc_32"] = drive_cli(dev, smi, data_root, "flow_encoder_fc", path)
+    launches["fc_third_flow_encoder_fc_32"] = results["flow_encoder_fc_32"]["launches"]
+    del e
+    release()
+    path = fc_cli_config(tree, "third_stage_fc", "third_stage_fc", "third_stage_fc", True,
+                         {"n_flows": n_flows})
+    tree["third_stage_fc"] = path
+    ts, results["third_stage_fc"] = drive_cli(dev, smi, data_root, "third_stage_fc", path)
+    launches["fc_third_third_stage_fc"] = results["third_stage_fc"]["launches"]
+    n_params = count_params(ts.model.inn_params.tree())
+    arch = ts.config["architecture"]
+    print(f"(n3) third_stage_fc INN: {n_params / 1e6:.2f}M fp32 params (flow_in_channels "
+          f"{arch['flow_in_channels']}, mid {arch['flow_mid_channels_factor']} x "
+          f"{arch['flow_in_channels']}, {arch['n_flows']} blocks), B = {ts.batch_size}")
+    results["third_stage_fc"]["inn_params"] = n_params
+    args = cli.parse_args(["--config", path, "--model_name", "smoke", "--data_root",
+                           data_root, "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    check = ThirdStageFCExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
+    check.build()
+    check.restore_last()
+    check.metrics_logger.close()
+    checks = {"step": check.step == ts.step, "lr count": check.tx.count == ts.tx.count,
+              "updates": check.trainer.state.step == ts.trainer.state.step,
+              "INN params bitwise": all(torch.equal(a, b) for a, b in zip(
+                  check.model.inn_params.parameters(), ts.model.inn_params.parameters())),
+              "moments bitwise": all(
+                  torch.equal(a, ts.tx.adam.state[r][k].to(a.device))
+                  for q, r in zip(check.tx.params, ts.tx.params)
+                  for k, a in check.tx.adam.state[q].items())}
+    print(f"(n3) CLI third_stage_fc restore check (step {check.step}, restore "
+          f"{check.timings['restore_s']:.2f} s): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"CLI third_stage_fc restore: {checks}")
+    step1, count1 = ts.step, ts.tx.count
+    del ts, check
+    release()
+    e, results["third_stage_fc_resume"] = drive_cli(dev, smi, data_root, "third_stage_fc",
+                                                    path, "--resume")
+    launches["fc_third_third_stage_fc_resume"] = results["third_stage_fc_resume"]["launches"]
+    n = len(e.timings["step_s"])
+    if (e.step, e.tx.count) != (step1 + n, count1 + n):
+        raise AssertionError(f"CLI third_stage_fc --resume: step {e.step}, lr count "
+                             f"{e.tx.count}")
+    print(f"(n3) CLI third_stage_fc --resume: step {step1} -> {e.step}, lr count "
+          f"{count1} -> {e.tx.count}")
+    del e
+    release()
+    print(f"(n3) the FC third stage's CLI runs in {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
+def phase_fc_third_test(dev, smi, tree, conditional=True):
+    """(n4) ``--test realism`` and ``--test accuracy`` with ``--debug`` on
+    (n3)'s run (the YAML's batch as data.test_batch_size), each with the
+    launch counts zeroed before and read after (path
+    ``test_fc_third_<mode>``; no kernel runs: no video is decoded), its
+    artifacts, finite metrics, seconds and peak memory; then sample_video
+    at the YAML's batch and T = 10: one call with the counts zeroed before
+    and read after (path ``third_stage_fc_sample_video``: K3 once a decode
+    level), 3 timed calls and one under ``torch.profiler``; then the YAML
+    with ``general.conditional`` trained one epoch (path
+    ``fc_third_third_stage_fc_conditional``)."""
     import os
 
     import yaml
 
-    path = os.path.join(tree["root"], "third_stage_fc.yaml")
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.cli.fc_experiments import ThirdStageFCExperiment
+    from ipoke_tpu_torch.core.config import load_config
+
+    zero = dict.fromkeys(CLI_KERNELS, 0)
+    cfg = load_config(tree["third_stage_fc"]).to_dict()
+    cfg["data"]["test_batch_size"] = cfg["data"]["batch_size"]
+    path = os.path.join(tree["root"], "third_stage_fc_test.yaml")
     with open(path, "w") as f:
-        yaml.safe_dump({"general": {"experiment": "third_stage_fc"}}, f)
-    try:
-        run_cli(["--config", path, "--model_name", "smoke", "--data_root",
-                 tree["data_root"]])
-    except NotImplementedError as e:
-        if "ROADMAP queue 1 item 8" not in str(e):
-            raise
-        print(f"(m4) third_stage_fc raises: {e}")
-    else:
-        raise AssertionError("third_stage_fc ran")
+        yaml.safe_dump(cfg, f)
+    gen = os.path.join(tree["base"], "third_stage_fc", "generated", "smoke")
+    n_pokes = cfg["data"]["n_pokes"]
+    want_files = {"realism": {"metrics.json"},
+                  "accuracy": {"metrics.json", f"error_result_{n_pokes}_pokes.yaml",
+                               f"samples_diversity_{n_pokes}_pokes.npy",
+                               f"pokes_diversity_{n_pokes}_pokes.npy",
+                               f"starting_frame_{n_pokes}_pokes.npy"}}
+    launches, results = {}, {}
+    for mode in ("realism", "accuracy"):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()  # this mode's run
+        t0 = time.perf_counter()
+        result = run_cli(["--config", path, "--model_name", "smoke", "--data_root",
+                          tree["data_root"], "--test", mode, "--debug"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got, want = dict(ops.LAUNCHES), expected_test_launches(mode, cfg)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        d = os.path.join(gen, mode)
+        files = set(os.listdir(d))
+        with open(os.path.join(d, "metrics.json")) as f:
+            written = json.load(f)
+        print(f"(n4) --test {mode}: {json.dumps(result)}; {secs:.2f} s; files "
+              f"{sorted(files)}; launches {got} (expected {want}); peak {peak:.2f} GiB "
+              f"on {smi}")
+        if got != want or files != want_files[mode] or written != result \
+                or not all(map(math.isfinite, result.values())):
+            raise AssertionError(f"--test {mode} on third_stage_fc: {result}, {files}, {got}")
+        launches[f"test_fc_third_{mode}"] = got
+        results[mode] = {"s": secs, "peak_gib": peak, "metrics": result}
+
+    release()
+    args = cli.parse_args(["--config", tree["third_stage_fc"], "--model_name", "smoke",
+                           "--data_root", tree["data_root"], "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    e = ThirdStageFCExperiment(cfg_r, dirs, data_root=tree["data_root"], device="cuda")
+    e.build()
+    e.restore_last()
+    e.metrics_logger.close()
+    batch = next(iter(e.val_batches(0)))
+    B, levels = batch["images"].shape[0], _decode_levels(cfg)
+    ops.reset_launches()  # the sample_video path's run
+    video = e.sample_video(batch, FC_THIRD_T)
+    torch.cuda.synchronize()
+    want = dict(zero, spade_gn=levels)
+    got = check_launches(f"(n4) third_stage_fc sample_video B={B} T={FC_THIRD_T}", want)
+    launches["third_stage_fc_sample_video"] = got
+    if video.shape != (B, FC_THIRD_T, FC_SIZE, FC_SIZE, 3) or not torch.isfinite(video).all():
+        raise AssertionError(f"(n4) sample_video: {tuple(video.shape)}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e.sample_video(batch, FC_THIRD_T)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    print(f"(n4) third_stage_fc sample_video B={B} T={FC_THIRD_T}: "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms (host clock, each closed by a "
+          f"synchronize) on {smi}")
+    events, kernels = profiled("(n4) third_stage_fc sample_video",
+                               lambda: e.sample_video(batch, FC_THIRD_T))
+    k3_ms = report_in_situ(kernels, "sample_video", "K3", "spade_gn_kernel", levels)
+    results["sample_video"] = {"ms": times, "k3_in_situ_ms": k3_ms, "B": B}
+    del e, video
+    release()
+    free_runs(tree, ("third_stage_fc",))
+    if not conditional:
+        return launches, results
+    cond = load_config(tree["third_stage_fc"]).to_dict()
+    cond["general"]["conditional"] = True
+    path = os.path.join(tree["root"], "third_stage_fc_conditional.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cond, f)
+    e, results["conditional"] = drive_cli(dev, smi, tree["data_root"], "third_stage_fc", path)
+    launches["fc_third_third_stage_fc_conditional"] = results["conditional"]["launches"]
+    print(f"(n4) third_stage_fc conditioned on the poke embedding "
+          f"({e.model.poke_cond_dim} entries): trained one epoch")
+    del e
+    release()
+    free_runs(tree, ("third_stage_fc",))
+    return launches, results
 
 
 def main():
@@ -2423,12 +2718,23 @@ def main():
         # (m3) its CLI runs, (m4) the --test modes on its second stage
         kernels["spade_gn"]["fc_shapes"] = phase_fc_kernels(dev)
         phase_fc_tiny(dev)
-        free_conv_runs(tree)
+        free_runs(tree, ("img_encoder", "poke_encoder", "first_stage", "second_stage",
+                         "flow_vae", "flow_motion"))  # (k)'s runs
         fc_launches, _ = phase_fc_cli(dev, smi, tree)
         paths.update(fc_launches)
         fc_test_launches, _ = phase_test_modes(dev, smi, tree, fc=True)
         paths.update(fc_test_launches)
-        phase_fc_unported(tree)
+        # (n) the FC third stage: (n1) K3 at its sample_video shapes, (n2)
+        # FC_THIRD_TINY card vs CPU, (n3) its CLI runs at the YAML's width,
+        # (n4) realism, accuracy, sample_video and the conditioned run
+        kernels["spade_gn"]["fc_third_stage_shapes"] = phase_fc_third_kernels(dev)
+        phase_fc_third_tiny(dev)
+        third_launches, _ = phase_fc_third_cli(dev, smi, tree)
+        paths.update(third_launches)
+        third_test_launches, third_times = phase_fc_third_test(dev, smi, tree)
+        paths.update(third_test_launches)
+        kernels["spade_gn"]["third_stage_fc_sample_video_in_situ_ms"] = \
+            third_times["sample_video"]["k3_in_situ_ms"]
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

@@ -8,9 +8,11 @@ VAE-GAN train step (``train.FirstStageTrainer``) and the conv third stage
 (``models.third_stage``: hallucinated flow and video from flow;
 ``train.FlowVAETrainer``, ``train.FlowMotionTrainer``) and the FC tower
 (``models.big_ae``, ``models.fc_stack``, ``models.fc_baseline``,
-``flows.fc``), and trains the conv pipeline and the FC tower stage by
-stage from the YAMLs through its own entry point,
-``python -m ipoke_tpu_torch.main`` (``cli/``, ``data/``, ``eval/``).  The TPU
+``flows.fc``) with its third stage (``models.third_stage.ThirdStageFC``,
+``train.ThirdStageFCTrainer``), and trains the conv pipeline and the FC
+tower stage by stage from the YAMLs through its own entry point,
+``python -m ipoke_tpu_torch.main`` (``cli/``, ``data/``, ``eval/``;
+``scripts/`` holds the FC root scripts' counterparts).  The TPU
 kernels on those paths are hand-written Hopper kernels in ``ops/`` (CUDA C++
 sources in ``csrc/``), each beside a plain PyTorch version.  A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises.

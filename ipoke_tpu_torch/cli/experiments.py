@@ -28,9 +28,8 @@ come from one ``torch.Generator`` on the device (``generator``), seeded by
 wait, the step closed by a synchronize and the wait in that synchronize,
 the device allocations so far, checkpoint bytes) for the caller.
 
-Registry names match the JAX package's; the FC experiments live in
-``cli/fc_experiments.py``, and ``third_stage_fc`` is not ported (ROADMAP
-queue 1 item 8).
+Registry names match the JAX package's; the FC experiments and both third
+stages live in ``cli/fc_experiments.py``.
 """
 
 from __future__ import annotations
@@ -108,9 +107,16 @@ class MetricsLogger:
             self.wandb = None
 
 
-def _dir_bytes(path: str) -> int:
-    return sum(os.path.getsize(os.path.join(d, f))
-               for d, _, files in os.walk(path) for f in files)
+def _written_bytes(paths) -> int:
+    """The bytes of the files under ``paths``, each file (inode) once: a
+    monitored checkpoint's hard links to ``last`` are not written again."""
+    seen = {}
+    for path in paths:
+        for d, _, files in os.walk(path):
+            for f in files:
+                st = os.stat(os.path.join(d, f))
+                seen[(st.st_dev, st.st_ino)] = st.st_size
+    return sum(seen.values())
 
 
 class Experiment:
@@ -363,8 +369,7 @@ class Experiment:
         paths = [self.store._path("last"), self.store._path("last_weights")]
         if saved is not None:
             paths += [saved, saved + "_weights"]
-        self.timings["save_bytes"].append(
-            sum(_dir_bytes(p) for p in paths if os.path.exists(p)))
+        self.timings["save_bytes"].append(_written_bytes(paths))
 
 
 def _start_profile(device):
@@ -702,10 +707,6 @@ class SecondStageExperiment(Experiment):
         return {"FVD-val": float(fvd), "flow_loss-val": float(np.mean(nlls))}
 
 
-# the FC third stage (ROADMAP queue 1 item 8)
-_UNPORTED = ("third_stage_fc",)
-
-
 def _registry():
     from . import fc_experiments as fc
 
@@ -722,7 +723,8 @@ def _registry():
         "second_stage_fc": fc.SecondStageFCExperiment,
         "flow_encoder_fc": fc.FlowEncoderFCExperiment,
         "inn_fcae": fc.INNFCAEExperiment,
-        # the fork's conv third stage
+        # the fork's third stages: FC (its namesake) and conv
+        "third_stage_fc": fc.ThirdStageFCExperiment,
         "flow_motion": fc.FlowMotionExperiment,
         "flow_vae": fc.FlowVAEExperiment,
     }
@@ -739,11 +741,8 @@ def select_experiment(config: Config):
     if name not in __experiments__ and isinstance(name, str):
         # the reference registry mixes key casings (`poke_encoder_FC`)
         lowered = name.lower()
-        if lowered in __experiments__ or lowered in _UNPORTED:
+        if lowered in __experiments__:
             name = lowered
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"experiment {name} is not ported yet (ROADMAP queue 1 item 8)")
     assert name in __experiments__, (
         f"unknown experiment {name!r}; choose from {sorted(__experiments__)}"
     )

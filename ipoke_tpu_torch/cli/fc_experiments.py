@@ -7,11 +7,12 @@
   and encoders; the FC first stage itself trains under
   ``FirstStageExperiment``) and ``INNFCAEExperiment`` (an unconditioned
   flat INN over the frozen flow encoder's latents);
+* the FC third stage, the fork's namesake: ``ThirdStageFCExperiment`` (a
+  flat INN from the frozen flow encoder's latents to the frozen FC second
+  stage's residual, over ``train.ThirdStageFCTrainer``), which the
+  ``--test realism`` and third-stage ``--test accuracy`` modes evaluate;
 * the conv third stage: ``FlowVAEExperiment`` and ``FlowMotionExperiment``,
-  over ``train.FlowVAETrainer`` and ``train.FlowMotionTrainer``.
-
-The FC third stage (``third_stage_fc``) is not ported (ROADMAP queue 1
-item 8)."""
+  over ``train.FlowVAETrainer`` and ``train.FlowMotionTrainer``."""
 
 from __future__ import annotations
 
@@ -257,6 +258,23 @@ class INNFCAEExperiment(Experiment):
         return {"flow_loss-val": float(np.mean(losses))}
 
 
+def load_flow_encoder(config, generator):
+    """The frozen flow encoder of ``config["flow_encoder"]``: the port's
+    BigAE of a ``flow_encoder_fc`` run (``load_frozen_net``), or with
+    ``torch_compat_npz`` the reference FCAE (``models/biggan_compat.py``)
+    at ``type`` (resnet101) and ``n_in_channels`` (2)."""
+    from ..models.fc_stack import build_big_ae
+
+    sec = config["flow_encoder"]
+    if sec.get("torch_compat_npz"):
+        from ..models.biggan_compat import load_torch_bigae_npz
+
+        return load_torch_bigae_npz(sec["torch_compat_npz"], int(sec["z_dim"]),
+                                    sec.get("type", "resnet101"),
+                                    int(sec.get("n_in_channels", 2)))
+    return load_frozen_net(config, "flow_encoder", build_big_ae, generator)
+
+
 class FlowVAEExperiment(Experiment):
     """Trainer for the conv ``ConvFlowVAE`` (reference FlowVAE/FlowVAE3,
     models/opticalFlow/models.py), the frozen flow encoder of
@@ -359,3 +377,58 @@ class FlowMotionExperiment(Experiment):
     @torch.no_grad()
     def validate(self, epoch):
         return self.trainer.validate(self.val_batches(epoch), self.generator)
+
+
+class ThirdStageFCExperiment(FlowMotionExperiment):
+    """The fork's namesake third stage (reference
+    ``experiments/third_stage_video_fc.py``): an unconditioned (or, with
+    ``general.conditional``, poke-conditioned) flat coupling INN aligns the
+    frozen flow encoder's latents with the frozen FC second stage's
+    residual; fp32, AMSGrad on the warmup / linear-decay schedule, the
+    recon-weight doubling under ``recon_scaling``, no DDI.  Monitored on
+    ``EE_R3-val``: the share of flow vectors more than 3 px off between
+    the residual-seeded hallucinated flow and the flow encoder's
+    reconstruction of the real flow.  Steps, checkpoints and validation
+    are ``FlowMotionExperiment``'s over its trainer."""
+
+    monitor = "EE_R3-val"
+    # the --test realism and third-stage accuracy modes (cli/testing.py)
+    evaluates_hallucinated_flow = True
+
+    def build(self):
+        from ..flows import ParamTree
+        from ..models.fc_baseline import SecondStageModelFC
+        from ..models.third_stage import ThirdStageFC
+        from ..train import ThirdStageFCTrainer
+
+        cfg, gen = self.config, self.init_generator
+        # the frozen FC second stage: its frozen nets from this config's
+        # sections, its flat cINN as second_stage.config builds it, with the
+        # best *_weights of the second_stage.ckpt run (random without one)
+        ss_sec = cfg["second_stage"]
+        ss_cfg = load_config(ss_sec["config"]) if isinstance(
+            ss_sec.get("config"), str) else Config(ss_sec["config"])
+        self.ss_model = SecondStageModelFC(ss_cfg, *load_frozen_fc(cfg, gen))
+        self.ss_model.flow_params = ParamTree(self.ss_model.flow.init(gen, "cpu"))
+        if ss_sec.get("ckpt"):
+            self.ss_model.flow_params.load_state_dict(CheckpointStore(
+                ss_sec["ckpt"]).restore_best(weights=True))
+        self.ss_model.eval().requires_grad_(False)
+        self.flow_encoder = load_flow_encoder(cfg, gen)
+        # the INN's dims default to the second stage's residual's
+        cfg["architecture"] = dict(cfg["architecture"])
+        cfg["architecture"].setdefault("flow_in_channels", self.ss_model.flow_in_channels)
+        conditional = bool(cfg.get("general", {}).get("conditional", False))
+        self.model = ThirdStageFC(cfg, self.flow_encoder, self.ss_model,
+                                  self.ss_model.poke_embedder.nf_max if conditional else 0)
+        self.model.inn_params = ParamTree(self.model.init(gen, "cpu"))
+        self.model.to(self.device).eval()
+        self.trainer = ThirdStageFCTrainer(self.model, wrap=self.accumulate)
+
+    @torch.no_grad()
+    def sample_video(self, batch, length: int):
+        """The composed fork capability: measured flow -> flow-encoder
+        latent -> INN -> second-stage residual -> motion latent -> video
+        (B, T, H, W, 3), with no ground-truth poke in the motion; the FC
+        first stage's decode runs K3 once a level."""
+        return self.model.forward_video_from_flow(batch, length, self.generator)

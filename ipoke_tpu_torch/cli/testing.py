@@ -24,9 +24,15 @@ and feeds the batch uncast, so the pass runs in fp32 from bf16-valued
 weights (the frozen nets too, which its build casts to bf16); here the
 restored bf16 model is upcast to fp32 (``_restore_trained``).  The modes
 run the same way on a ``second_stage_fc`` run (fp32).
-``realism`` (and ``accuracy`` on a third-stage run) needs the fork's FC
-third stage, which is not ported (ROADMAP queue 1 item 8): on the ported
-experiments they fail with the JAX package's assertion.
+
+On a ``third_stage_fc`` run (reference ``models/third_stage_video_fc.py``):
+
+* ``realism``: the FID of colorized residual-extracted flow against
+  colorized real flow;
+* ``accuracy``: the flow-error categories of the residual-extracted flow
+  against the flow encoder's reconstruction, and the diversity artifacts.
+
+On any other run they fail with the JAX package's assertion.
 """
 
 from __future__ import annotations
@@ -493,19 +499,109 @@ def _require_third_stage(experiment):
         f"{type(experiment).__name__} has no flow-hallucination pipeline")
 
 
+def _third_stage_fns(experiment):
+    """Closures over the third stage's pipeline, each on a batch (no grad;
+    draws from the experiment's ``generator`` unless given):
+
+    * ``extract(batch, motion=None)``: the INN inverse seeded with the
+      second stage's residual (its motion draw ``motion``), decoded: the
+      flow the second stage "saw" (reference ``forward_sample(None, 1,
+      None, out_hat)``, third_stage_video_fc.py:341,405);
+    * ``sample(batch, z=None)``: base-sampled hallucinated flow;
+    * ``recon(batch)``: the flow encoder's reconstruction (mu decoded) of
+      the real flow, the accuracy mode's target (``:389-395``)."""
+    model, gen = experiment.model, experiment.generator
+
+    def extract(batch, motion=None):
+        z = model.second_stage_density(batch, gen, motion)
+        return model.forward_sample_flow(batch, gen, model.condition(batch),
+                                         z=z.reshape(z.shape[0], -1))[0]
+
+    def sample(batch, z=None):
+        return model.forward_sample_flow(batch, gen, model.condition(batch), z=z)[0]
+
+    def recon(batch):
+        return model.decode_flow_latent(model.encode_flow(batch["flow"])[0])
+
+    return extract, sample, recon
+
+
+def _colorized(flows: np.ndarray) -> np.ndarray:
+    from ..utils.video import flow_to_rgb
+
+    return np.stack([flow_to_rgb(f) for f in flows])
+
+
 def test_realism(experiment) -> Dict[str, float]:
-    """The third stage's FID of hallucinated against real flow: only the FC
-    third stage evaluates hallucinated flow (ROADMAP queue 1 item 8)."""
+    """The third stage's ``realism`` (reference third_stage_video_fc.py:
+    61-67,404-415,448-453): the FID of residual-extracted against real flow
+    maps, colorized, over ``testing.n_samples_fid`` samples; VGG19 in place
+    of InceptionV3, as in the JAX package."""
+    from .. import entry
+    from ..eval.metrics import compute_fid
+
     _require_third_stage(experiment)
-    raise NotImplementedError("--test realism is not ported yet (ROADMAP "
-                              "queue 1 item 8)")
+    _restore_trained(experiment, require_sampler=False)
+    tcfg = experiment.config.get("testing", {})
+    n_batches = 2 if experiment.debug else max(
+        1, -(-int(tcfg.get("n_samples_fid", 1000)) // _test_batch_size(experiment)))
+    extract, _, _ = _third_stage_fns(experiment)
+    reals, fakes = [], []
+    for batch in _test_batches(experiment, n_batches):
+        fakes.append(_colorized(_host(extract(batch))))
+        reals.append(_colorized(_host(batch["flow"])))
+    real = np.concatenate(reals).astype(np.float32) / 127.5 - 1.0
+    fake = np.concatenate(fakes).astype(np.float32) / 127.5 - 1.0
+    fid = compute_fid(entry.build_vgg(experiment.device), real, fake,
+                      batch_size=min(32, real.shape[0]))
+    result = {"FID": float(fid), "n_samples": float(real.shape[0])}
+    d = _out_dir(experiment, "realism")
+    with open(os.path.join(d, "metrics.json"), "w") as f:
+        json.dump(result, f)
+    return result
 
 
 def test_accuracy_third_stage(experiment) -> Dict[str, float]:
-    """The third stage's flow-error categories (ROADMAP queue 1 item 8)."""
+    """The third stage's ``accuracy`` (reference third_stage_video_fc.py:
+    280-293,371-398,421-447): the error categories of the residual-
+    extracted flow against the flow encoder's reconstruction, and the
+    reference's diversity artifacts keyed by the poke count: the colorized
+    ``[ground truth | extracted | sample x n]`` stack (uint8 NHWC), the
+    pokes, the start frames and the per-batch error yaml."""
+    import yaml
+
+    from ..eval.metrics import optical_flow_metrics
+
     _require_third_stage(experiment)
-    raise NotImplementedError("third-stage --test accuracy is not ported yet "
-                              "(ROADMAP queue 1 item 8)")
+    _restore_trained(experiment, require_sampler=False)
+    tcfg = experiment.config.get("testing", {})
+    n_spp = int(tcfg.get("n_samples_per_data_point", 5))
+    n_log = int(experiment.config.get("logging", {}).get("n_log_images", 8))
+    n_batches = 2 if experiment.debug else 10
+    n_pokes = int(experiment.config["data"].get("n_pokes", 1))
+    extract, sample, recon = _third_stage_fns(experiment)
+    errs, cats, pokes, x0s = [], [], [], []
+    for batch in _test_batches(experiment, n_batches):
+        flow_ex = extract(batch)
+        # the reference caps the metric at 64 items a batch (:392)
+        errs.append({k: float(v) for k, v in
+                     optical_flow_metrics(flow_ex[:64], recon(batch)[:64]).items()})
+        samples = [_host(sample(batch)[:n_log]) for _ in range(n_spp)]
+        cat = [_host(batch["flow"][:n_log]), _host(flow_ex[:n_log])] + samples
+        cats.append(np.stack([_colorized(c) for c in cat]))
+        pokes.append(_host(batch["poke"][:n_log]))
+        x0s.append(_host(batch["images"][:n_log, 0]))
+    result = {k: float(np.mean([e[k] for e in errs])) for k in errs[0]}
+    d = _out_dir(experiment, "accuracy")
+    np.save(os.path.join(d, f"samples_diversity_{n_pokes}_pokes.npy"),
+            np.concatenate(cats, axis=1))
+    np.save(os.path.join(d, f"pokes_diversity_{n_pokes}_pokes.npy"), np.concatenate(pokes))
+    np.save(os.path.join(d, f"starting_frame_{n_pokes}_pokes.npy"), np.concatenate(x0s))
+    with open(os.path.join(d, f"error_result_{n_pokes}_pokes.yaml"), "w") as f:
+        yaml.safe_dump(errs, f)
+    with open(os.path.join(d, "metrics.json"), "w") as f:
+        json.dump(result, f)
+    return result
 
 
 _MODES = {

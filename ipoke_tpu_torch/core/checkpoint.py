@@ -16,7 +16,9 @@ The semantics are the JAX package's:
 Storage is ``torch.save`` of a state tree (module state dicts with their
 buffers, e.g. spectral-norm ``u``/``sigma``, optimizer states, step and
 counts) into ``<name>/state.pt``, in place of orbax directories; tensors are
-moved to the CPU first, so a checkpoint loads on any device.  Orbax
+moved to the CPU first, so a checkpoint loads on any device.  A monitored
+checkpoint saved with ``last`` holds ``last``'s file as a hard link (the
+same bytes, written once; a later ``last`` is a new file).  Orbax
 checkpoints of JAX runs are not readable here.
 """
 
@@ -107,6 +109,18 @@ class CheckpointStore:
         os.makedirs(path)
         torch.save(tree, os.path.join(path, _FILE))
 
+    @staticmethod
+    def _link_one(path: str, src: str):
+        """``path`` holding the file of ``src`` (saved just before) as a hard
+        link, or as a copy where the file system has none."""
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        try:
+            os.link(os.path.join(src, _FILE), os.path.join(path, _FILE))
+        except OSError:
+            shutil.copyfile(os.path.join(src, _FILE), os.path.join(path, _FILE))
+
     def save(self, state: Any, step: int, metric: Optional[float] = None,
              is_last: bool = True, weights: Any = None) -> Optional[str]:
         """Save ``last``; when ``metric`` is given also save a monitored
@@ -122,9 +136,13 @@ class CheckpointStore:
         if metric is not None:
             name = f"step={step}-{self.monitor}={metric:.3f}"
             saved = self._path(name)
-            self._save_one(saved, state)
-            if weights is not None:
-                self._save_one(saved + "_weights", weights)
+            for suffix, tree in (("", state), ("_weights", weights)):
+                if tree is None:
+                    continue
+                if is_last:  # the bytes of `last` (and its sidecar), just saved
+                    self._link_one(saved + suffix, self._path("last" + suffix))
+                else:
+                    self._save_one(saved + suffix, tree)
             m = self._load_manifest()
             m[saved] = float(metric)
             # prune

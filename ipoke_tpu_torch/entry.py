@@ -18,8 +18,11 @@ copied as the reference-style tree the first stage is built from;
 ``FIRST_STAGE_TINY`` is the TINY config of the JAX package's first-stage
 tests; ``FC_TINY`` the FC tower at those widths, which ``build_fcae`` and
 ``build_second_stage_fc`` make (with ``build_first_stage`` for its first
-stage).  ``build_first_stage`` makes the generator, both discriminators and
-VGG on a device from a generator (or on ``meta``).
+stage); ``FC_THIRD_TINY`` adds the FC third stage over them (a flow
+encoder of z_dim 6 below the residual's 8, so that the INN's input is
+padded), which ``build_third_stage_fc`` makes.  ``build_first_stage`` makes
+the generator, both discriminators and VGG on a device from a generator
+(or on ``meta``).
 
 ``FLOW_MOTION`` is the conv third stage of ``config/flow_motion.yaml``
 (the bridge INN, 64 px, B=32, T=10) over its frozen second stage, the
@@ -343,6 +346,38 @@ def build_second_stage_fc(cfg, device, generator: Optional[torch.Generator] = No
             for n in nets]
     model = SecondStageModelFC(cfg["second_stage"], *nets)
     model.flow_params = ParamTree(model.flow.init(generator, "cpu"))
+    return model.to(device)
+
+
+# FC_TINY with the FC third stage over it
+FC_THIRD_TINY = dict(
+    FC_TINY,
+    flow_encoder=dict(FC_TINY["flow_encoder"], architecture=dict(
+        FC_TINY["flow_encoder"]["architecture"], z_dim=6)),
+    third_stage={
+        "architecture": {"flow_mid_channels_factor": 2, "flow_hidden_depth": 2,
+                         "n_flows": 3},
+        "training": {"lr": 1e-3}})
+
+
+def build_third_stage_fc(cfg, device, generator: Optional[torch.Generator] = None,
+                         conditional: bool = False):
+    """The fp32 ``ThirdStageFC`` of ``FC_THIRD_TINY``-style ``cfg`` over
+    ``build_second_stage_fc(cfg)`` and a random frozen BigAE
+    (``cfg["flow_encoder"]``), its INN fresh (Glorot couplings, identity
+    ActNorms), conditioned on the poke embedding when ``conditional``."""
+    from .models.fc_stack import build_big_ae
+    from .models.image_ae import freeze_spectral_norm
+    from .models.third_stage import ThirdStageFC
+
+    ss = build_second_stage_fc(cfg, "cpu", generator)
+    with torch.device("meta"):
+        fe = build_big_ae(cfg["flow_encoder"])
+    fe = freeze_spectral_norm(materialize(fe, "cpu", generator)).eval().requires_grad_(False)
+    ts = cfg["third_stage"]
+    ts = dict(ts, architecture=dict(ts["architecture"], flow_in_channels=ss.flow_in_channels))
+    model = ThirdStageFC(ts, fe, ss, ss.poke_embedder.nf_max if conditional else 0)
+    model.inn_params = ParamTree(model.init(generator, "cpu"))
     return model.to(device)
 
 

@@ -8,9 +8,10 @@ vectors conditioned on (B, Dc), with the JAX package's parameter trees.
   the blocks, without the conv flows' activation checkpoints: the flat
   flows' activations are a few (B, D) vectors) and one leftover block when
   n_flows is odd;
-* ``build_unsupervised_transformer3`` (the JAX package's
-  ``UnconditionalFlatFlow``, the ``UnsupervisedTransformer3`` core of
-  ``inn_fcae``): n_flows unconditioned blocks, stacked;
+* ``unconditional_flat_flow`` (the JAX package's ``UnconditionalFlatFlow``,
+  the ``UnsupervisedTransformer3`` core of ``inn_fcae`` and of the FC third
+  stage; ``build_unsupervised_transformer3`` reads its dims from the arch
+  keys): n_flows unconditioned blocks, stacked;
 * a block (``flat_block``, the JAX package's ``FlatCouplingBlock``) is
   ActNorm -> [InvLeakyRelu] -> VectorCoupling -> Shuffle.
 
@@ -239,11 +240,18 @@ def build_supervised_transformer(arch) -> ConditionalFlatFlow:
     )
 
 
+def unconditional_flat_flow(in_channels: int, hidden_dim: int, depth: int = 2,
+                            n_flows: int = 20) -> ScannedSteps:
+    """n_flows unconditioned blocks without the leaky relu, stacked (the JAX
+    package's ``UnconditionalFlatFlow``, whose params are the stacked
+    block's): the core of ``inn_fcae`` and of the FC third stage."""
+    return ScannedSteps(flat_block(in_channels, hidden_dim, depth), n_flows,
+                        remat=False)
+
+
 def build_unsupervised_transformer3(arch) -> ScannedSteps:
-    """Reference ``UnsupervisedTransformer3`` (INN.py:250-297): n_flows
-    unconditioned blocks without the leaky relu, stacked (the JAX package's
-    ``UnconditionalFlatFlow``, whose params are the stacked block's)."""
+    """Reference ``UnsupervisedTransformer3`` (INN.py:250-297) from its
+    arch keys (``unconditional_flat_flow``)."""
     get = arch.get
-    block = flat_block(get("flow_in_channels"), get("flow_mid_channels"),
-                       get("flow_hidden_depth", 2))
-    return ScannedSteps(block, get("n_flows", 20), remat=False)
+    return unconditional_flat_flow(get("flow_in_channels"), get("flow_mid_channels"),
+                                   get("flow_hidden_depth", 2), get("n_flows", 20))

@@ -7,14 +7,15 @@ stays the JAX package's):
 
 Trains ``img_encoder``, ``poke_encoder``, ``first_stage``, ``second_stage``,
 ``flow_vae`` and ``flow_motion``, and the FC tower's ``flow_encoder_fc``,
-``img_encoder_fc``, ``poke_encoder_FC``, ``first_stage_fc``, ``inn_fcae``
-and ``second_stage_fc``, from the shipped YAMLs, with ``main.py``'s
+``img_encoder_fc``, ``poke_encoder_FC``, ``first_stage_fc``, ``inn_fcae``,
+``second_stage_fc`` and the FC third stage ``third_stage_fc``, from the
+shipped YAMLs, with ``main.py``'s
 flags and run-directory layout (``$DATAPATH_BASE`` or ``general.base_dir``;
 the dataset from ``--data_root``, ``data.data_root`` or ``$DATAPATH``).
 ``--test <mode>`` evaluates the run's latest version instead
 (``cli.testing.run_test``: samples, fvd, accuracy, diversity,
 control_sensitivity, transfer, kps_acc on a second stage, conv or FC;
-realism needs the FC third stage, ROADMAP queue 1 item 8).  TF32 is off
+realism and the third stage's accuracy on a ``third_stage_fc`` run).  TF32 is off
 for the run.  ``--device`` defaults to
 ``cuda`` and raises without a card: only ``--device cpu`` runs on the CPU.
 ``--devices`` above 1 (ROADMAP queue 1 item 11) is not ported and raises;

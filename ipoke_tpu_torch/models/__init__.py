@@ -1,5 +1,6 @@
-"""The first, second and (conv) third stage, and the FC tower
-(``big_ae``, ``fc_stack``, ``fc_baseline``)."""
+"""The first, second and third stages (conv and FC), the FC tower
+(``big_ae``, ``fc_stack``, ``fc_baseline``) and the reference FCAE
+(``biggan_compat``)."""
 
 from .first_stage import FirstStageModel
 from .second_stage import SecondStageModel

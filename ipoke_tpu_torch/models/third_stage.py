@@ -1,6 +1,6 @@
-"""Conv third stage (counterpart of ``ipoke_tpu/models/third_stage.py``, the
-conv half): predict the second stage's residual from encoded optical flow,
-so that flow can be hallucinated rather than measured.
+"""Third stage (counterpart of ``ipoke_tpu/models/third_stage.py``): predict
+the second stage's residual from encoded optical flow, so that flow can be
+hallucinated rather than measured.  Two variants, as in the fork:
 
 ``ConvFlowVAE`` encodes a flow map (B, H, W, 2) to a spatial latent; the
 bridge ``FlowMotionModel.inn``, an unconditioned multi-scale MaCow INN, maps
@@ -9,6 +9,16 @@ residual space.  Loss = flow NLL + weight_recon * smooth-L1(out, the second
 stage's ``forward_density``).  Composed: flow -> flow-VAE encode -> bridge
 -> residual -> second-stage inverse -> first-stage decode, video from flow
 with no measured motion latent.
+
+``ThirdStageFC`` (reference ``models/third_stage_video_fc.py`` and
+``..._conditional.py``): a frozen BigAE (``models/big_ae.py``, or the
+reference FCAE of ``models/biggan_compat.py``) encodes the flow map to a
+vector latent; a flat coupling INN (unconditioned, or conditioned on the
+poke embedding) maps ``[flow latent, N(0, I) entries]`` onto the frozen FC
+second stage's residual.  Loss = flow NLL + weight_recon * MSE(out, the
+second stage's ``forward_density``).  Composed: flow -> BigAE -> INN ->
+residual -> the FC second stage's inverse -> the FC first stage's decode.
+The INN runs no kernel (fp32 products); the decode runs K3 once a level.
 
 Every random draw is the caller's: a ``torch.Generator`` or explicit noise
 tensors (the JAX package draws from its keys inside the same functions).
@@ -27,8 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..flows import MultiScaleInternal, ParamTree, flow_loss
+from ..flows.fc import ConditionalFlatFlow, unconditional_flat_flow
 from ..nn.blocks import Conv
 from ..nn.encoders import ConvDecoder, ConvEncoder
+from .fc_baseline import SecondStageModelFC
 from .second_stage import SecondStageModel
 
 
@@ -85,19 +97,20 @@ def smooth_l1(a, b):
 
 @dataclasses.dataclass
 class ThirdStageState:
-    """The trainer's state: the optimizer over the bridge's params (which
-    live in ``FlowMotionModel.inn_params``), the updates made and the recon
-    weight."""
+    """The trainer's state: the optimizer over the INN's params (which live
+    in the model's ``inn_params``: ``FlowMotionModel``'s bridge or
+    ``ThirdStageFC``'s flat INN), the updates made and the recon weight."""
 
     tx: object
     step: int
     weight_recon: float
 
 
-def create_third_stage_state(model: "FlowMotionModel", make_tx: Callable,
+def create_third_stage_state(model, make_tx: Callable,
                              weight_recon: float = 1.0) -> ThirdStageState:
-    """Freeze every net but the bridge; ``make_tx`` builds the optimizer
-    over the bridge's trainable leaves."""
+    """Freeze every net but the INN (``FlowMotionModel`` or
+    ``ThirdStageFC``); ``make_tx`` builds the optimizer over its trainable
+    leaves."""
     model.requires_grad_(False)
     return ThirdStageState(make_tx(model.inn_params.trainable()), 0,
                            float(weight_recon))
@@ -217,6 +230,144 @@ def make_flow_motion_train_step(model: FlowMotionModel) -> Callable:
         loss, log = flow_loss(out, logdet, generator=generator,
                               spatial_mean=spatial_mean, reference=reference)
         recon = smooth_l1(out, target)
+        log["reconstruction_loss"] = recon
+        loss = loss + state.weight_recon * recon
+        log["flow_loss"] = loss
+        loss.backward()
+        state.tx.step()
+        return (dataclasses.replace(state, step=state.step + 1),
+                {k: v.detach() for k, v in log.items()})
+
+    return step
+
+
+class ThirdStageFC(nn.Module):
+    """The flat INN over a frozen FC second stage and a frozen flow encoder
+    (anything with ``encode(x) -> (mu, logvar)``, ``decode(z)`` and
+    ``z_dim``).  ``inn_params`` holds the JAX package's params, ``{"inn":
+    tree}``.  With ``poke_cond_dim`` > 0 the INN is the conditional flat
+    flow over the last ``poke_cond_dim`` entries of the second stage's
+    conditioning vector (the poke embedding)."""
+
+    def __init__(self, config, flow_encoder: nn.Module, second_stage: SecondStageModelFC,
+                 poke_cond_dim: int = 0, inn_params=None):
+        super().__init__()
+        self.config = config
+        arch = config["architecture"]
+        self.flow_encoder, self.second_stage = flow_encoder, second_stage
+        self.z_total = int(arch["flow_in_channels"])
+        self.z_flow = flow_encoder.z_dim
+        if self.z_total < self.z_flow:
+            raise ValueError(f"flow latent {self.z_flow} entries > the residual's "
+                             f"{self.z_total}")
+        self.poke_cond_dim = poke_cond_dim
+        mid = int(arch.get("flow_mid_channels",
+                           arch.get("flow_mid_channels_factor", 4) * self.z_total))
+        depth, n_flows = int(arch.get("flow_hidden_depth", 2)), int(arch.get("n_flows", 20))
+        if poke_cond_dim:
+            self.inn = ConditionalFlatFlow(self.z_total, poke_cond_dim, mid, depth, n_flows)
+        else:
+            self.inn = unconditional_flat_flow(self.z_total, mid, depth, n_flows)
+        self.inn_params = ParamTree(inn_params) if inn_params is not None else None
+
+    def init(self, generator, device):
+        """A new ``{"inn": tree}`` (Glorot couplings, identity ActNorms)."""
+        return {"inn": self.inn.init(generator, device)}
+
+    def _inn(self):
+        return self.inn_params.tree()["inn"]
+
+    @torch.no_grad()
+    def condition(self, batch):
+        """The INN's conditioning, the poke embedding slice of the second
+        stage's conditioning vector, or None when unconditioned."""
+        if not self.poke_cond_dim:
+            return None
+        return self.second_stage.embed_conditioning(batch)[:, -self.poke_cond_dim:]
+
+    @torch.no_grad()
+    def second_stage_density(self, batch, generator: Optional[torch.Generator] = None,
+                             noise: Optional[torch.Tensor] = None):
+        """The frozen second stage's residual (B, D) of the batch's clip, its
+        motion posterior's draw from ``generator`` (or ``noise``)."""
+        return self.second_stage.forward_density(batch, generator, noise)[0]
+
+    @torch.no_grad()
+    def encode_flow(self, x):
+        return self.flow_encoder.encode(x)
+
+    @torch.no_grad()
+    def decode_flow_latent(self, z_flow):
+        return self.flow_encoder.decode(z_flow)
+
+    @torch.no_grad()
+    def make_flow_input(self, batch, generator: Optional[torch.Generator] = None,
+                        noise=None, reverse: bool = False):
+        """Forward: mu + exp(logvar / 2) * eps of the encoded flow, then
+        N(0, 1) entries up to ``z_total``; ``noise`` is the pair (eps, the
+        extra entries), else both are drawn from ``generator``.  Reverse: z
+        (B, z_total) ~ N(0, I), ``noise`` itself if given.  Outside autograd
+        (the JAX package's stop-gradient)."""
+        flow = batch["flow"]
+        if reverse:
+            if noise is not None:
+                return noise
+            return _randn((flow.shape[0], self.z_total), generator, flow)
+        eps, extra = (None, None) if noise is None else noise
+        mu, logvar = self.encode_flow(flow)
+        if eps is None:
+            eps = _randn(mu.shape, generator, mu)
+        z = mu + torch.exp(0.5 * logvar) * eps
+        rest = self.z_total - self.z_flow
+        if rest:
+            if extra is None:
+                extra = _randn((z.shape[0], rest), generator, z)
+            z = torch.cat([z, extra], dim=-1)
+        return z
+
+    def forward_density(self, batch, generator: Optional[torch.Generator] = None,
+                        noise=None, h=None):
+        """(out, logdet) of the INN on the batch's encoded flow."""
+        return self.inn.forward(self._inn(), self.make_flow_input(batch, generator, noise), h)
+
+    @torch.no_grad()
+    def forward_sample_flow(self, batch, generator: Optional[torch.Generator] = None,
+                            h=None, z: Optional[torch.Tensor] = None):
+        """z ~ N(0, I) (or the given ``z``, e.g. a second-stage residual:
+        the INN keeps dims, so it is a whole seed) -> INN inverse -> the
+        flow decode of the first ``z_flow`` entries: (hallucinated flow (B,
+        H, W, 2), the other entries)."""
+        z = self.make_flow_input(batch, generator, z, reverse=True)
+        out = self.inn.inverse(self._inn(), z, h)
+        return self.decode_flow_latent(out[:, :self.z_flow]), out[:, self.z_flow:]
+
+    @torch.no_grad()
+    def forward_video_from_flow(self, batch, length: int,
+                                generator: Optional[torch.Generator] = None, noise=None):
+        """Measured flow -> BigAE latent -> INN -> second-stage residual ->
+        the second stage's inverse and first-stage decode (its
+        ``forward_sample`` from that residual): video (B, T, H, W, 3)."""
+        residual, _ = self.forward_density(batch, generator, noise, self.condition(batch))
+        return self.second_stage.forward_sample(batch, length, z=residual)
+
+
+def make_third_stage_fc_train_step(model: ThirdStageFC) -> Callable:
+    """``step(state, batch, generator=None, noise=None) -> (state, log)``:
+    the frozen second stage's residual as the target (no grad), the INN
+    forward under autograd, flow NLL + ``state.weight_recon`` * MSE,
+    backward, one step of ``state.tx``.  ``noise`` is the quadruple (the
+    second stage's motion draw, the flow encoder's eps, the extra entries,
+    the ``reference_nll_loss`` diagnostic's sample), else all are drawn
+    from ``generator``."""
+
+    def step(state: ThirdStageState, batch,
+             generator: Optional[torch.Generator] = None, noise=None):
+        motion, eps, extra, reference = (None,) * 4 if noise is None else noise
+        target = model.second_stage_density(batch, generator, motion)
+        out, logdet = model.forward_density(batch, generator, (eps, extra),
+                                            model.condition(batch))
+        loss, log = flow_loss(out, logdet, generator=generator, reference=reference)
+        recon = torch.mean((out - target.reshape(out.shape)) ** 2)
         log["reconstruction_loss"] = recon
         loss = loss + state.weight_recon * recon
         log["flow_loss"] = loss

@@ -30,13 +30,16 @@ Adam, every spectral norm's u advancing each step); ``FlowMotionTrainer``
 trains the bridge INN over the frozen second stage and flow VAE
 (``flow_adam`` on the warmup/linear-decay schedule, the recon-weight
 doubling).  Both ``validate`` on endpoint and angular error.  No DDI runs,
-as in the JAX trainer.
+as in the JAX trainer.  ``ThirdStageFCTrainer`` is the bridge trainer over
+the FC third stage's flat INN (MSE to the residual), validated on its NLL,
+its recon error and the flow-error categories of residual-seeded flow.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .core.optim import (
@@ -48,7 +51,8 @@ from .core.optim import (
     master_weights,
     warmup_linear_decay,
 )
-from .eval import angular_error, endpoint_error
+from .eval import angular_error, endpoint_error, optical_flow_metrics
+from .flows import flow_loss
 from .models.first_stage import (
     FirstStageStep,
     create_first_stage_state,
@@ -66,6 +70,7 @@ from .models.third_stage import (
     create_third_stage_state,
     double_recon_weight_schedule,
     make_flow_motion_train_step,
+    make_third_stage_fc_train_step,
 )
 
 
@@ -189,6 +194,8 @@ class FlowMotionTrainer:
     ``run_lr_schedule``), and with ``recon_scaling`` the recon weight
     doubled every 10 epochs."""
 
+    make_step = staticmethod(make_flow_motion_train_step)
+
     def __init__(self, model: FlowMotionModel, lr_schedule=None, wrap=_identity):
         tcfg = model.config["training"]
         if lr_schedule is None:
@@ -199,7 +206,7 @@ class FlowMotionTrainer:
         self.state = create_third_stage_state(
             model, lambda params: wrap(flow_adam(params, lr_schedule)),
             self.weight_recon)
-        self._step = make_flow_motion_train_step(model)
+        self._step = self.make_step(model)
 
     def train_step(self, batch, epoch: int,
                    generator: Optional[torch.Generator] = None, noise=None):
@@ -214,3 +221,30 @@ class FlowMotionTrainer:
         batch's flow."""
         return _flow_errors((b["flow"], self.model.forward_sample_flow(b, generator))
                             for b in batches)
+
+
+class ThirdStageFCTrainer(FlowMotionTrainer):
+    """``ThirdStageFCExperiment``'s build and step: ``FlowMotionTrainer``'s
+    optimizer, schedule and recon weight over the FC third stage's INN."""
+
+    make_step = staticmethod(make_third_stage_fc_train_step)
+
+    @torch.no_grad()
+    def validate(self, batches, generator: Optional[torch.Generator] = None):
+        """Per batch, then averaged (``<name>-val``): the INN's flow loss and
+        recon error against the second stage's residual, and the flow-error
+        categories of the residual-seeded hallucinated flow against the
+        flow encoder's reconstruction of the batch's flow (mu decoded)."""
+        model, agg = self.model, {}
+        for b in batches:
+            h = model.condition(b)
+            target = model.second_stage_density(b, generator)
+            out, logdet = model.forward_density(b, generator, h=h)
+            m = optical_flow_metrics(
+                model.forward_sample_flow(b, generator, h, z=target.reshape(out.shape))[0],
+                model.decode_flow_latent(model.encode_flow(b["flow"])[0]))
+            m["flow_loss"] = flow_loss(out, logdet)[0]
+            m["reconstruction_loss"] = torch.mean((out - target.reshape(out.shape)) ** 2)
+            for k, v in m.items():
+                agg.setdefault(k, []).append(float(v))
+        return {f"{k}-val": float(np.mean(v)) for k, v in agg.items()}

@@ -1,6 +1,8 @@
-"""The errorbar plot of the ``--test`` modes' artifacts (counterpart of
-``ipoke_tpu/utils/plots.py::make_errorbar_plot``; reference
-``utils/logging.py:979-1010``) and the CSV files beside it.
+"""The statistical plots of the ``--test`` modes' artifacts (counterpart of
+``ipoke_tpu/utils/plots.py``; reference ``utils/logging.py:979-1160``):
+per-frame errorbar lines grouped by poke count (``make_errorbar_plot``,
+``make_nn_var_plot`` with its CSV), the mean and std against the poke count
+(``make_two_axes_plot``) and violin distributions (``make_violin_plot``).
 
 matplotlib and pandas are not dependencies of the port: a frame is a dict
 of equal-length columns, ``to_csv`` writes it as pandas' ``to_csv`` does
@@ -179,3 +181,99 @@ def make_errorbar_plot(fname: str, data: Frame, xid: str, yid: str, hueid: str,
         label = g if isinstance(g, str) else f"{g} Pokes"
         series.append((label, sub[xid], sub[yid], band))
     save_figure(fname, draw_series(series, xid, yid))
+
+
+def make_nn_var_plot(n_pokes: int, nn_per_frame, savedir: str,
+                     std_per_frame=None, save_csv: bool = True) -> str:
+    """The per-frame nearest-neighbour MSE artifact set: its CSV and the
+    errorbar PDF (reference ``make_nn_var_plot``, utils/logging.py:
+    1013-1030); returns the PDF's path."""
+    import os
+
+    os.makedirs(savedir, exist_ok=True)
+    nn_per_frame = np.asarray(nn_per_frame)
+    n = nn_per_frame.shape[0]
+    data = {"frame_id": np.arange(n), "nn_mse_err": nn_per_frame,
+            "poke_indicator": [f"{n_pokes} poke vectors"] * n}
+    if std_per_frame is not None:
+        std_per_frame = np.asarray(std_per_frame)
+        assert std_per_frame.shape[0] == n
+        data["std_per_frame"] = std_per_frame
+    if save_csv:
+        to_csv(data, os.path.join(savedir, f"keypoint_err_data_{n_pokes}_pokes.csv"))
+    fig = os.path.join(savedir, f"keypoint_err_{n_pokes}_pokes.pdf")
+    make_errorbar_plot(fig, data, "frame_id", "nn_mse_err", "poke_indicator",
+                       "std_per_frame" if std_per_frame is not None else None)
+    return fig
+
+
+def make_two_axes_plot(data: Frame, savepath: str, key_y1: str = "Mean MSE",
+                       key_y2: str = "Std", x: str = "Number of Pokes",
+                       title: str = "") -> None:
+    """The per-poke-count mean of ``<key_y1> per Frame`` and of ``<key_y2>
+    per Frame`` (reference ``make_two_axes_plot``, utils/logging.py:
+    1052-1105, a twin-axis figure): here two panels, one above the other,
+    each on its own y axis."""
+    df = group_mean(data, x)
+    xs = df[x].astype(int)
+    panels = [draw_series([(key, xs, df[f"{key} per Frame"], None)], x, key,
+                          title=(title or None) if i == 0 else None)
+              for i, key in enumerate((key_y1, key_y2))]
+    save_figure(savepath, np.concatenate(panels, axis=0))
+
+
+def _kde(values: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """A Gaussian kernel density at Scott's bandwidth (matplotlib's
+    ``violinplot`` default)."""
+    bw = values.std(ddof=1) * values.size ** -0.2 or 1.0
+    d = (grid[:, None] - values[None, :]) / bw
+    return np.exp(-0.5 * d ** 2).sum(axis=1)
+
+
+def make_violin_plot(fname: str, data: Frame, xid: str = "Method",
+                     yid: str = "Mean Squared KP Error", order: Optional[Sequence[str]] = None,
+                     zscore_cut: float = 3.0, title: Optional[str] = None,
+                     size: Tuple[int, int] = (800, 400)) -> None:
+    """Per-group violins (kernel densities) with the group means as dots,
+    after a |z| < ``zscore_cut`` outlier filter over all values (the JAX
+    package's; the reference stubs it, utils/logging.py:1107-1108)."""
+    import cv2
+
+    cols = _columns(data)
+    y = cols[yid].astype(np.float64)
+    keep = np.abs((y - y.mean()) / (y.std() or 1.0)) < zscore_cut
+    groups = list(order) if order is not None else list(dict.fromkeys(cols[xid][keep].tolist()))
+    series = [y[keep & (cols[xid] == g)] for g in groups]
+    w, h = size
+    left, right, top, bottom = 70, 20, 30 if title else 15, 45
+    img = np.full((h, w, 3), 255, np.uint8)
+    present = np.concatenate([s for s in series if s.size]) if any(s.size for s in series) \
+        else np.zeros(1)
+    y0, y1 = float(present.min()), float(present.max())
+    pad = 0.05 * (y1 - y0) if y1 > y0 else 1.0
+    y0, y1 = y0 - pad, y1 + pad
+    step = (w - left - right) / max(1, len(groups))
+    u = lambda i: left + step * (i + 0.5)
+    v = lambda val: h - bottom - (np.asarray(val) - y0) / (y1 - y0) * (h - top - bottom)
+    grey, black, font = (200, 200, 200), (0, 0, 0), cv2.FONT_HERSHEY_SIMPLEX
+    for t in np.linspace(y0, y1, 5):
+        cv2.line(img, (left, int(v(t))), (w - right, int(v(t))), grey, 1)
+        cv2.putText(img, f"{t:.3g}", (5, int(v(t)) + 4), font, 0.4, black, 1)
+    cv2.rectangle(img, (left, top), (w - right, h - bottom), black, 1)
+    for i, (g, s) in enumerate(zip(groups, series)):
+        colour = PALETTE[i % len(PALETTE)]
+        if s.size > 1:
+            grid = np.linspace(s.min(), s.max(), 100)
+            dens = _kde(s, grid)
+            half = 0.4 * step * dens / dens.max()
+            poly = np.concatenate([np.stack([u(i) - half, v(grid)], -1),
+                                   np.stack([u(i) + half, v(grid)], -1)[::-1]])
+            cv2.fillPoly(img, [poly.round().astype(np.int32)], colour)
+        if s.size:
+            cv2.circle(img, (int(u(i)), int(v(s.mean()))), 4, black, -1)
+        cv2.putText(img, str(g), (int(u(i)) - 4 * len(str(g)), h - bottom + 18), font,
+                    0.45, black, 1)
+    cv2.putText(img, yid, (left + 4, top + 14), font, 0.4, black, 1)
+    if title:
+        cv2.putText(img, title, (left, 20), font, 0.5, black, 1)
+    save_figure(fname, img)

@@ -36,21 +36,13 @@ from ipoke_tpu_torch.nn import discriminators as td
 from ipoke_tpu_torch.nn import vgg as tv
 
 from test_torch_first_stage import _assert_moments, _assert_stats, _like
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill, _x
 
 K = jax.random.PRNGKey
 FE = entry.FC_TINY["flow_encoder"]
 S, B, LR = FE["data"]["spatial_size"][0], 2, FE["training"]["lr"]
 Z = FE["architecture"]["z_dim"]  # 10, padded to 12: 4 chunks of 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(channels):

@@ -18,6 +18,8 @@ from ipoke_tpu_torch import main as cli
 from ipoke_tpu_torch.cli import experiments as ex
 from ipoke_tpu_torch.data.prep import make_synthetic_dataset
 
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
+
 S = 32
 DATA = {"dataset": "PlantDataset", "poke_size": 3, "max_frames": 3,
         "batch_size": 2, "n_workers": 2, "spatial_size": [S, S],
@@ -66,16 +68,6 @@ FM = {"architecture": {
     "activation": "elu", "flow_vae_channels": 4, "flow_vae_nf_max": 16},
     "training": dict(TRAIN, lr=1e-3, lr_scaling_max_it=5, weight_recon=1.0,
                      recon_scaling=True, spatial_mean=False)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    """Toy nets: intra-op threads only add contention when the suite runs
-    files side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class Env:
@@ -236,14 +228,16 @@ def test_nan_metric_raises(env, monkeypatch):
     assert real is ex.Experiment.train_step
 
 
-@pytest.mark.parametrize("name,item", [("third_stage_fc", 8)])
+@pytest.mark.parametrize("name,item", [("pokevae_baseline", 5)])
 def test_unported_experiments_raise(env, name, item):
-    """The FC third stage is not ported (the rest of the FC tower runs:
+    """The PokeVAE baseline (a first stage with ``architecture.baseline``)
+    is not ported; every registered experiment is (the FC ones:
     ``tests/test_torch_cli_fc.py``)."""
     path = os.path.join(env.root, f"unported_{name}.yaml")
     with open(path, "w") as f:
-        yaml.safe_dump({"general": {"experiment": name}, "data": DATA,
-                        "training": TRAIN}, f)
+        yaml.safe_dump({"general": {"experiment": "first_stage"}, "data": DATA,
+                        "training": TRAIN, "architecture": dict(FS_ARCH, baseline=True)},
+                       f)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         env.run(path)
 

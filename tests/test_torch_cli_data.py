@@ -20,6 +20,8 @@ from ipoke_tpu_torch.data import datamodule as tdm
 from ipoke_tpu_torch.data import prep as tprep
 from ipoke_tpu_torch.data import samplers as tsamplers
 
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, ROOT) for p in
                glob.glob(os.path.join(ROOT, "config", "**", "*.yaml"), recursive=True))

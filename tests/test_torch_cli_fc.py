@@ -3,12 +3,15 @@
 ``tests/test_torch_cli.py``: ``flow_encoder_fc`` (the BigAE on flow maps,
 and on frames as ``config/img_encoder_fc.yaml`` sets it), ``img_encoder_fc``,
 ``poke_encoder_FC`` (the reference's casing), ``first_stage_fc``,
-``inn_fcae`` over the flow encoder and ``second_stage_fc`` over the FC
-first stage and encoders, one epoch of 2 batches each: each writes its run
-dir with finite train and validation metrics; ``second_stage_fc``
-resumes without a second DDI and runs the seven ``--test`` modes, whose
-FVD the JAX package's mode gives on the same clips; ``third_stage_fc``
-still raises; ``main.run`` leaves TF32 off."""
+``inn_fcae`` over the flow encoder, ``second_stage_fc`` over the FC
+first stage and encoders and ``third_stage_fc`` over the second stage and
+flow encoder (unconditioned and poke-conditioned), one epoch of 2 batches
+each: each writes its run dir with finite train and validation metrics;
+``second_stage_fc`` resumes without a second DDI and runs the seven
+``--test`` modes, whose FVD the JAX package's mode gives on the same clips;
+``third_stage_fc`` resumes, runs ``--test realism`` and ``accuracy`` and
+samples video from measured flow; the torch counterparts of the FC root
+scripts run on the tree; ``main.run`` leaves TF32 off."""
 
 import copy
 import json
@@ -23,6 +26,7 @@ from ipoke_tpu_torch import main as cli
 from ipoke_tpu_torch.cli import experiments as ex
 
 from test_torch_cli import CONFIGS, DATA, TRAIN, Env
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
 
 FC = {
     "flow_encoder_fc": {
@@ -48,6 +52,12 @@ FC = {
         "training": dict(TRAIN, lr=1e-3, lr_scaling_max_it=5,
                          base_distribution="gaussian"),
         "testing": {"n_samples_per_data_point": 2}},
+    "third_stage_fc": {
+        "architecture": {"flow_mid_channels_factor": 2, "flow_hidden_depth": 2,
+                         "n_flows": 3},
+        "training": dict(TRAIN, lr=1e-3, lr_scaling_max_it=5, weight_recon=1.0,
+                         recon_scaling=True),
+        "testing": {"n_samples_per_data_point": 2}, "logging": {"n_log_images": 2}},
 }
 # the frozen runs each experiment reads: (section, run, extra keys)
 FROZEN = {
@@ -55,31 +65,31 @@ FROZEN = {
     "second_stage_fc": [("first_stage", "first_stage_fc", {}),
                         ("conditioner", "img_encoder_fc", {"nf_max": 16}),
                         ("poke_embedder", "poke_encoder_FC", {"nf_max": 16})]}
+FROZEN["third_stage_fc"] = FROZEN["second_stage_fc"] + [
+    ("second_stage", "second_stage_fc", {}), ("flow_encoder", "flow_encoder_fc", {})]
 MONITOR = {"flow_encoder_fc": "lpips-val", "flow_encoder_fc_images": "lpips-val",
            "img_encoder_fc": "lpips-val", "poke_encoder_FC": "lpips-val",
            "first_stage_fc": "FVD-val", "inn_fcae": "flow_loss-val",
-           "second_stage_fc": "FVD-val"}
+           "second_stage_fc": "FVD-val", "third_stage_fc": "EE_R3-val",
+           "third_stage_fc_conditional": "EE_R3-val"}
 MODES = ("samples", "fvd", "accuracy", "diversity", "control_sensitivity", "transfer",
          "kps_acc")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class FCEnv(Env):
     def fc_config(self, exp, name=None):
-        body = FC["flow_encoder_fc" if exp == "flow_encoder_fc_images" else exp]
-        cfg = dict(copy.deepcopy(body), data=dict(DATA), general={
-            "experiment": "flow_encoder_fc" if exp == "flow_encoder_fc_images" else exp,
-            "seed": 1})
-        if exp == "flow_encoder_fc_images":  # config/img_encoder_fc.yaml's BigAE
+        """``exp``'s toy config (``flow_encoder_fc_images``: the BigAE on
+        frames, as config/img_encoder_fc.yaml; ``third_stage_fc_conditional``
+        with ``general.conditional``) with its frozen runs' dirs."""
+        base = {"flow_encoder_fc_images": "flow_encoder_fc",
+                "third_stage_fc_conditional": "third_stage_fc"}.get(exp, exp)
+        cfg = dict(copy.deepcopy(FC[base]), data=dict(DATA), general={
+            "experiment": base, "seed": 1})
+        if exp == "flow_encoder_fc_images":
             cfg["architecture"]["n_out_channels"] = 3
-        for sec, run, extra in FROZEN.get(exp, ()):
+        if exp == "third_stage_fc_conditional":
+            cfg["general"]["conditional"] = True
+        for sec, run, extra in FROZEN.get(base, ()):
             cfg[sec] = dict(self.run_dir(run), **extra)
         path = os.path.join(self.root, f"{name or exp}.yaml")
         with open(path, "w") as f:
@@ -103,10 +113,13 @@ def env(tmp_path_factory):
     for exp in ("flow_encoder_fc", "img_encoder_fc", "poke_encoder_FC", "first_stage_fc",
                 "inn_fcae", "second_stage_fc"):
         e.runs[exp] = e.run(e.fc_config(exp))
-    e.runs["flow_encoder_fc_images"] = e.run_named(
-        e.fc_config("flow_encoder_fc_images"), "images")
+    e.runs["third_stage_fc"] = e.run(e.fc_config("third_stage_fc"))
+    for exp, model_name in (("flow_encoder_fc_images", "images"),
+                            ("third_stage_fc_conditional", "conditional")):
+        e.runs[exp] = e.run_named(e.fc_config(exp), model_name)
     e.ss_path = os.path.join(e.root, "second_stage_fc.yaml")
     e.gen = os.path.join(e.base, "second_stage_fc", "generated", "tiny")
+    e.ts_path = os.path.join(e.root, "third_stage_fc.yaml")
     return e
 
 
@@ -215,13 +228,108 @@ def test_fc_fvd_matches_jax(env, tmp_path, monkeypatch):
     assert got["n_samples"] == want["n_samples"] == 4.0
 
 
-def test_third_stage_fc_still_raises(env):
-    path = os.path.join(env.root, "third_stage_fc.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump({"general": {"experiment": "third_stage_fc"}, "data": DATA,
-                        "training": TRAIN}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        env.run(path)
+def test_third_stage_fc_resume_continues(env):
+    """--resume of the FC third stage: the restored INN and optimizer are
+    the run's own, the step and the optimizer's count go on; the
+    conditioned run's INN sees the poke embedding (16 entries); each
+    samples video from measured flow through its model."""
+    from ipoke_tpu_torch.cli.fc_experiments import ThirdStageFCExperiment
+    from ipoke_tpu_torch.flows.fc import ConditionalFlatFlow
+
+    first = env.runs["third_stage_fc"]
+    path = env.fc_config("third_stage_fc", "third_stage_fc_resume")
+    os.environ["DATAPATH_BASE"] = env.base
+    try:
+        cfg, dirs, _ = cli.load_parameters(cli.parse_args(
+            ["--config", path, "--model_name", "tiny", "--resume", "--device", "cpu"]))
+    finally:
+        os.environ.pop("DATAPATH_BASE", None)
+    check = ThirdStageFCExperiment(cfg, dirs, data_root=env.data, device="cpu")
+    check.build()
+    check.restore_last()
+    check.metrics_logger.close()
+    assert (check.step, check.tx.count, check.trainer.state.step) == (2, 2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(check.model.inn_params.parameters(),
+                                                 first.model.inn_params.parameters()))
+    resumed = env.run(path, "--resume")
+    assert (resumed.version, resumed.step, resumed.tx.count) == (0, 4, 4)
+    assert first.tx.count == 2 and first.model.z_total == first.model.z_flow == 8
+    cond = env.runs["third_stage_fc_conditional"]
+    assert isinstance(cond.model.inn, ConditionalFlatFlow) and cond.model.poke_cond_dim == 16
+    batch = next(iter(first.val_batches(0)))
+    for e in (first, cond):
+        video = e.sample_video(batch, DATA["max_frames"])
+        assert video.shape == (2, DATA["max_frames"], 32, 32, 3) and torch.isfinite(video).all()
+
+
+@pytest.mark.parametrize("mode", ["realism", "accuracy"])
+def test_third_stage_fc_test_modes(env, mode):
+    """``--test realism`` and the third stage's ``--test accuracy`` on the
+    toy run: the JAX package's files and metric keys, finite metrics."""
+    result = env.run(env.ts_path, "--test", mode, "--debug")
+    assert result and all(np.isfinite(v) for v in result.values()), result
+    d = os.path.join(env.base, "third_stage_fc", "generated", "tiny", mode)
+    with open(os.path.join(d, "metrics.json")) as f:
+        assert json.load(f) == result
+    if mode == "realism":
+        assert set(result) == {"FID", "n_samples"} and result["n_samples"] == 4
+        return
+    assert set(result) == {f"AE_R{a}" for a in (5, 10, 15)} | {f"EE_R{p}" for p in (1, 2, 3, 5)}
+    n = DATA["n_pokes"]
+    assert sorted(os.listdir(d)) == sorted([
+        f"error_result_{n}_pokes.yaml", "metrics.json", f"pokes_diversity_{n}_pokes.npy",
+        f"samples_diversity_{n}_pokes.npy", f"starting_frame_{n}_pokes.npy"])
+    stack = np.load(os.path.join(d, f"samples_diversity_{n}_pokes.npy"))
+    assert stack.shape == (2 + 2, 2 * 2, 32, 32, 3) and stack.dtype == np.uint8
+
+
+@pytest.mark.parametrize("script,exp,toy", [
+    ("FlowAutoencoderFC", "flow_encoder_fc", "flow_encoder_fc"),
+    ("ImgAutoencoderFC", "flow_encoder_fc", "flow_encoder_fc_images"),
+    ("VidAutoencoderFC", "first_stage_fc", "first_stage_fc"),
+    ("INN_FCAE", "inn_fcae", "inn_fcae"),
+    ("INN_test", "flow_motion", None), ("opticalFlowINN", "flow_motion", None)])
+def test_root_script_counterparts(env, script, exp, toy, monkeypatch):
+    """Each torch counterpart of a root script: run as ``python -m`` it
+    hands ``main.run`` the argv of its default YAML (the root script's),
+    which names the experiment it trains; ``run`` trains the toy config on
+    the tree (the conv third stage's two scripts run ``flow_motion``, which
+    ``tests/test_torch_cli.py`` trains); ``FCAE_eval`` gives the trained
+    flow encoder's error categories."""
+    import importlib.util
+    import runpy
+
+    from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.scripts import run
+
+    default = {"ImgAutoencoderFC": "config/img_encoder_fc.yaml",
+               "INN_test": "config/flow_motion.yaml"}.get(
+        script, f"config/{ {'opticalFlowINN': 'flow_motion'}.get(script, exp)}.yaml")
+    assert load_config(default)["general"]["experiment"] == exp
+    with monkeypatch.context() as m:
+        calls = []
+        m.setattr(cli, "run", calls.append)
+        m.setattr("sys.argv", [script])
+        with pytest.raises(SystemExit) as stop:
+            # by path: pytest's import hook claims modules named like tests
+            runpy.run_path(importlib.util.find_spec(
+                f"ipoke_tpu_torch.scripts.{script}").origin, run_name="__main__")
+    assert stop.value.code == 0
+    assert calls == [["--config", default, "--model_name", "fcae", "--device", "cuda"]]
+    if toy is None:
+        return
+    monkeypatch.setenv("DATAPATH_BASE", env.base)
+    path = env.fc_config(toy, f"script_{script}")
+    assert run(exp, default, ["-c", path, "--model_name", script, "--data_root", env.data,
+                              "--device", "cpu"]) == 0
+    with open(os.path.join(env.base, exp, "log", script, "0", "metrics.jsonl")) as f:
+        assert any('"val/' in line for line in f)
+    if script == "FlowAutoencoderFC":
+        from ipoke_tpu_torch.scripts.FCAE_eval import evaluate
+
+        got = evaluate(path, script, env.data, n_batches=1, device="cpu")
+        assert set(got) == {f"AE_R{a}" for a in (5, 10, 15)} | {f"EE_R{p}" for p in (1, 2, 3, 5)}
+        assert all(0 <= v <= 1 for v in got.values())
 
 
 def test_main_turns_tf32_off(env):

@@ -28,6 +28,7 @@ from ipoke_tpu_torch.models import third_stage as tts
 from ipoke_tpu_torch.train import FirstStageTrainer, FlowMotionTrainer, run_lr_schedule
 
 from test_torch_image_ae import check_image_ae_steps
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
 
 K = jax.random.PRNGKey
 
@@ -80,6 +81,28 @@ def test_checkpoint_restore_is_bitwise(tmp_path):
                      (got["tx"]["master"][0], state["tx"]["master"][0])):
             assert a.dtype == b.dtype and torch.equal(a, b)
         assert got["tx"]["adam"]["param_groups"] == state["tx"]["adam"]["param_groups"]
+
+
+def test_monitored_checkpoint_is_written_once(tmp_path):
+    """A monitored checkpoint saved with ``last`` is ``last``'s file (and
+    sidecar) under a second name, counted once in the bytes a save wrote;
+    the next ``last`` is a new file and the monitored one keeps its state."""
+    from ipoke_tpu_torch.cli.experiments import _written_bytes
+
+    store = tckpt.CheckpointStore(str(tmp_path), monitor="loss")
+    first = store.save({"w": torch.ones(256)}, step=1, metric=1.0,
+                       weights={"w": torch.ones(2)})
+    paths = [store._path("last"), store._path("last_weights"), first, first + "_weights"]
+    for name in ("", "_weights"):
+        assert os.path.samefile(os.path.join(store._path("last" + name), "state.pt"),
+                                os.path.join(first + name, "state.pt"))
+    once = sum(os.path.getsize(os.path.join(p, "state.pt")) for p in paths[:2])
+    assert _written_bytes(paths) == once
+    store.save({"w": torch.zeros(256)}, step=2, metric=2.0)
+    assert not os.path.samefile(os.path.join(store._path("last"), "state.pt"),
+                                os.path.join(first, "state.pt"))
+    assert torch.equal(store.restore_best()["w"], torch.ones(256))
+    assert torch.equal(store.restore("last")["w"], torch.zeros(256))
 
 
 def test_run_dirs_match_jax(tmp_path):

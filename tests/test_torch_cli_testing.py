@@ -19,16 +19,9 @@ from ipoke_tpu_torch import main as cli
 from ipoke_tpu_torch.cli import testing
 
 from test_torch_cli import CONFIGS, SS, Env
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
 
 SS_TEST = dict(SS, testing={"n_samples_per_data_point": 2})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

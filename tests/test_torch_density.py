@@ -21,7 +21,7 @@ from ipoke_tpu_torch.flows import macow as tm
 from ipoke_tpu_torch.flows import primitives as tp
 from ipoke_tpu_torch.nn.motion import ResNetMotionEncoder
 
-from test_torch_ops import _jnp, _np, _perturb, _t
+from test_torch_ops import _few_threads, _jnp, _np, _perturb, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey

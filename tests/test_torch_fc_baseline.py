@@ -45,21 +45,13 @@ from ipoke_tpu_torch.nn import vgg as tv
 
 from test_torch_first_stage import (_assert_moments, _assert_stats, _jax_state, _like,
                                     _moments, _per_net)
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill, _x
 
 K = jax.random.PRNGKey
 CFG = entry.FC_TINY["first_stage"]
 S, T, B = CFG["data"]["spatial_size"][0], CFG["data"]["max_frames"], 2
 LR = CFG["training"]["lr"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, tol=1e-4, what=""):

@@ -23,7 +23,7 @@ from ipoke_tpu_torch.core.optim import gan_adam, gated_update
 from ipoke_tpu_torch.flows import fc as tfc
 from ipoke_tpu_torch.flows import loss as tloss
 
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill, _x
 
 K = jax.random.PRNGKey

@@ -35,7 +35,7 @@ from test_torch_first_stage import (
     _like,
     _step,
 )
-from test_torch_ops import _jnp, _t
+from test_torch_ops import _few_threads, _jnp, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill, _x
 
 K = jax.random.PRNGKey

@@ -18,7 +18,7 @@ from ipoke_tpu_torch.flows import macow as tm
 from ipoke_tpu_torch.flows import count_params, tree_leaves
 from ipoke_tpu_torch.ops import masked_conv
 
-from test_torch_ops import _jnp, _np, _perturb, _t
+from test_torch_ops import _few_threads, _jnp, _np, _perturb, _t  # noqa: F401 (_few_threads)
 
 B, H, W, C, HC = 2, 8, 8, 8, 6
 

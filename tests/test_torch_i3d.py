@@ -30,7 +30,7 @@ from ipoke_tpu_torch.eval import backbone as tbackbone
 from ipoke_tpu_torch.eval import i3d as ti3d
 from ipoke_tpu_torch.eval import metrics as tm
 
-from test_torch_ops import _jnp
+from test_torch_ops import _few_threads, _jnp  # noqa: F401 (_few_threads)
 
 K = jax.random.PRNGKey
 _jax_i3d = jax.jit(lambda v, x: ji3d.I3D().apply(v, x, return_features=True))

@@ -29,7 +29,7 @@ from ipoke_tpu_torch.models import image_ae as tae
 from ipoke_tpu_torch.nn.vgg import VGG19Features
 
 from test_torch_first_stage import _assert_moments, _assert_stats
-from test_torch_ops import _jnp
+from test_torch_ops import _few_threads, _jnp  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey

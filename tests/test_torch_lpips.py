@@ -28,7 +28,7 @@ from ipoke_tpu_torch.eval import metrics as tm
 from ipoke_tpu_torch.nn import lpips as tl
 from ipoke_tpu_torch.nn.vgg import VGG19Features
 
-from test_torch_ops import _jnp
+from test_torch_ops import _few_threads, _jnp  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey

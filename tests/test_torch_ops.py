@@ -77,6 +77,17 @@ def _t(a, dtype=torch.float32):
     return torch.as_tensor(np.array(a, np.float32)).to(dtype)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One torch thread in each test module that takes this fixture (it
+    imports it): the suite runs its files in parallel workers, where each
+    worker's default thread pool would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _zero_launches():
     ops.reset_launches()

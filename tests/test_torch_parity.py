@@ -4,6 +4,8 @@ converters (SURVEY.md §7 hard part 2)."""
 
 import numpy as np
 
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
+
 
 def test_conv2d_weight_transpose_matches_torch():
     import torch

@@ -24,7 +24,7 @@ from ipoke_tpu.eval import pose as jpose
 from ipoke_tpu_torch.convert import load_flax
 from ipoke_tpu_torch.eval import pose as tpose
 
-from test_torch_ops import _jnp
+from test_torch_ops import _few_threads, _jnp  # noqa: F401 (_few_threads)
 
 K = jax.random.PRNGKey
 LAYERS = (1, 2, 1, 1)

@@ -24,7 +24,7 @@ from ipoke_tpu_torch.convert import flow_params, load_flax, to_numpy_tree
 from ipoke_tpu_torch.data.synthetic import make_batch
 from ipoke_tpu_torch.nn import blocks as tb
 
-from test_torch_ops import _np, _t
+from test_torch_ops import _few_threads, _np, _t  # noqa: F401 (_few_threads)
 
 K = jax.random.PRNGKey
 # every coupling keeps at least one output channel: z_dim 16 under factor 16

@@ -40,7 +40,7 @@ from ipoke_tpu_torch.models import first_stage as tfs
 from ipoke_tpu_torch.models.second_stage import (create_second_stage_state,
                                                  make_second_stage_train_step)
 
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey
@@ -51,14 +51,6 @@ S, T, B = FS["data"]["spatial_size"][0], FS["data"]["max_frames"], 4
 NF = entry.FC_TINY["encoders"]["nf_max"]
 Z = FS["architecture"]["z_dim"]
 LR = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(base):

@@ -42,7 +42,7 @@ from ipoke_tpu_torch.convert import flow_params, load_flax
 from ipoke_tpu_torch.core.config import Config
 
 from test_torch_lpips import _torch_lpips_npz
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 from test_torch_train import _jax_model
 

@@ -31,7 +31,7 @@ from ipoke_tpu_torch.convert import flow_params, load_flax
 from ipoke_tpu_torch.eval import angular_error, endpoint_error
 from ipoke_tpu_torch.models import third_stage as tts
 
-from test_torch_ops import _jnp, _np, _t
+from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill, _x
 from test_torch_train import _jax_model
 

@@ -22,7 +22,7 @@ from ipoke_tpu_torch.train import FlowMotionTrainer, FlowVAETrainer
 
 from test_torch_density import leaves
 from test_torch_first_stage import _assert_metrics, _assert_moments, _step
-from test_torch_ops import _jnp, _t
+from test_torch_ops import _few_threads, _jnp, _t  # noqa: F401 (_few_threads)
 from test_torch_third_stage import (
     B,
     M,

@@ -26,7 +26,7 @@ from ipoke_tpu_torch.convert import flow_params, load_flax, to_numpy_tree
 from ipoke_tpu_torch.train import SecondStageTrainer
 
 from test_torch_density import leaves
-from test_torch_ops import _jnp, _np, _perturb, _t
+from test_torch_ops import _few_threads, _jnp, _np, _perturb, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey

@@ -24,6 +24,8 @@ from ipoke_tpu_torch.utils import latent_viz as tviz
 from ipoke_tpu_torch.utils import plots as tplots
 from ipoke_tpu_torch.utils import video as tvideo
 
+from test_torch_ops import _few_threads  # noqa: F401 (one torch thread)
+
 
 def _video(seed, shape=(4, 3, 16, 16, 3)):
     return np.random.default_rng(seed).uniform(-1.2, 1.2, shape).astype(np.float32)
