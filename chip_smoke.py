@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
 first-stage VAE-GAN train step, conv third stage, CLI, ``--test`` modes, FC
-tower and FC third stage on one NVIDIA GPU.
+tower, FC third stage, data prep, RAFT training and poke UI on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -114,6 +115,11 @@ Phases, in order; any failure raises and exits non-zero:
       K1 runs in none of them.  Every ``main.run`` of (k), (l) and (m)
       starts with both TF32 switches on and must leave them off
       (``run_cli``).
+  (l') the UI's ``main`` route (``ui.server.load_experiment``) on (k)'s
+      second-stage run: TF32 on before and off after, the restored flow
+      params equal to the best checkpoint's weights, one ``/poke`` over
+      HTTP with the launch counts zeroed before and read after (path
+      ``ui_restored_poke``, against ``expected_ui_launches``).
   (m) the FC tower (fp32): (m1) K3 at the FC generator's levels (8x8x256,
       16x16x128, 32x32x64) in training (20 frames, one modulation each)
       and sampling (400 frames of 40 clips), against its plain version,
@@ -154,6 +160,41 @@ Phases, in order; any failure raises and exits non-zero:
       ``phase_fc_third_tiny(dev)``, and after (m3) in the same ``cli_tree``
       ``phase_fc_third_cli(dev, smi, tree)``, ``phase_fc_third_test(dev,
       smi, tree)``.
+  (o) data prep, RAFT training and the poke UI: (o1) two synthetic MJPG
+      clips (written, then read back: an unreadable format fails) prepared
+      by ``data.prep.run`` from config/data_preparation/iper.yaml (raw and
+      processed dirs and video_format changed): frames and RAFT flows at
+      256 px, lags 5 and 10, the full-width ``RAFTConfig()``, then
+      PoseResNet-50 pose prep, with the launch counts zeroed before and read
+      after (path ``prep``: no kernel); every file, shape and value checked;
+      ms per RAFT pair and per pose batch; one pair card against CPU
+      (``RAFT_CARD_*_TOL``), its forward's device time, a
+      ``torch.profiler`` table of one pair and its fp32 bound from the
+      operations ``torch.utils.flop_counter`` counts; (o2)
+      ``train_raft_synthetic`` (400 steps, EPE < RAFT_EPE_GATE) and
+      ``finetune_raft_selfsup`` (160 steps, epe1 < SELFSUP_GATE epe0) on
+      the small ``SYNTHETIC_CFG`` net at 32 px, as the JAX package's slow
+      tests gate it, then ``finetune_raft_selfsup`` of the full-width
+      ``init_raft()`` on (o1)'s 256 px frame pairs (lag 5,
+      RAFT_FULL_BATCH a step, RAFT_FULL_STEPS timed after one), loss
+      finite and every parameter finite and moved; ms per step and peak
+      memory for each (paths ``raft_train_synthetic``, ``raft_selfsup``,
+      ``raft_selfsup_full``: no kernel); (o3) config/second_stage.yaml's
+      experiment at its width and
+      depth (1054.43M params, fp32, frozen nets drawn) on (o1)'s tree,
+      served: ``GET /``, ``/frame``, UI_POKES ``POST /poke`` (10 PNG frames
+      each; path ``ui_poke``) and one ``POST /save`` (its 3 ground-truth
+      pokes; path ``ui_save``), each with the launch counts zeroed before
+      and read after and held against ``expected_ui_launches`` (K2 200 and
+      K3 3 a pass), ms per ``/poke``; then one poke of a session of its own
+      with every K2 and K3 call's inputs and output kept, each held against
+      its plain version on those inputs (K2 at B = 1, K3 at 10 frames of one
+      clip; ``poke_kernel_check``), each distinct shape timed with its
+      bound; and a ``torch.profiler`` table of one poke.  (l') runs the same
+      check at (k)'s widths.  Alone: ``_build.load()``, then ``with
+      prep_root() as root:`` ``phase_prep(dev, smi, root)``,
+      ``phase_raft_train(dev, smi, processed)``, ``phase_ui(dev, smi, root,
+      processed)``.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -2648,6 +2689,575 @@ def phase_fc_third_test(dev, smi, tree, conditional=True):
     return launches, results
 
 
+# (o) data prep, RAFT training and the poke UI.  (o1) two synthetic raw
+# clips (MJPG .avi: OpenCV's own writer, no ffmpeg) prepared by the port's
+# ``data.prep.run`` from config/data_preparation/iper.yaml (raw_dir,
+# processed_dir and video_format changed): frames and flows at 256 px, lags
+# 5 and 10, the full-width RAFTConfig() (fixed-seed weights), then
+# PoseResNet-50 pose prep; RAFT card against CPU on one pair.  (o2) RAFT
+# trained from scratch on synthetic translations and fine-tuned
+# self-supervised, with the JAX package's slow tests' gates
+# (tests/test_raft.py:173-184, :256-293).  (o3) the UI over
+# config/second_stage.yaml at its width and depth (fp32, frozen nets drawn
+# from the seed) on (o1)'s tree: ``/poke`` and ``/save`` over HTTP.
+PREP_CLIPS, PREP_FRAMES, PREP_RAW_SIZE = 2, 32, 320
+RAFT_EPE_GATE, SELFSUP_GATE = 2.0, 0.93
+# (o2) the full-width net's self-supervised steps: a batch of 8 pairs at
+# 256 px, one untimed step, then RAFT_FULL_STEPS timed
+RAFT_FULL_BATCH, RAFT_FULL_STEPS = 8, 5
+UI_POKES = 3
+# (o1) RAFT at 256 px, card against CPU from the same fixed-seed weights,
+# fp32, TF32 off (cuDNN's implicit-GEMM convs vs oneDNN's, summing in other
+# orders, carried through 12 GRU iterations): the largest error over the
+# flow's largest magnitude and the mean error over its mean magnitude read
+# 9.3e-7 and 5.7e-7 on an NVIDIA H100 80GB HBM3 at 700 W (6.5e-5 px of a
+# 69.5 px flow); the bounds are ten times that.  A wrong layout, lookup or
+# crop moves the flow by O(its size).
+RAFT_CARD_MAX_TOL, RAFT_CARD_MEAN_TOL = 1e-5, 6e-6
+
+
+@contextlib.contextmanager
+def prep_root():
+    """A temporary directory for phase (o), removed on exit."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def write_raw_clips(raw_dir):
+    """PREP_CLIPS MJPG .avi clips of PREP_FRAMES textured frames, each
+    shifting a blurred random texture by a few pixels a frame; each read
+    back (frame count and size), so an unreadable format fails here."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    os.makedirs(raw_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    s = PREP_RAW_SIZE
+    for v in range(PREP_CLIPS):
+        tex = cv2.GaussianBlur(rng.uniform(0, 255, (2 * s, 2 * s, 3)).astype(np.float32),
+                               (0, 0), 4.0)
+        tex = cv2.normalize(tex, None, 0, 255, cv2.NORM_MINMAX).astype(np.uint8)
+        path = os.path.join(raw_dir, f"clip_{v}.avi")
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (s, s))
+        if not wr.isOpened():
+            raise AssertionError(f"cv2 cannot write MJPG .avi ({path})")
+        vx, vy = (2, 1) if v == 0 else (-1, 3)
+        for t in range(PREP_FRAMES):
+            y0, x0 = s // 2 + vy * t, s // 2 + vx * t
+            wr.write(np.ascontiguousarray(tex[y0:y0 + s, x0:x0 + s]))
+        wr.release()
+        cap = cv2.VideoCapture(path)
+        n, shape = 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n, shape = n + 1, frame.shape
+        cap.release()
+        if n != PREP_FRAMES or shape != (s, s, 3):
+            raise AssertionError(f"{path}: read back {n} frames of {shape}, wrote "
+                                 f"{PREP_FRAMES} of {(s, s, 3)}")
+
+
+def raft_flops(net, x1, x2):
+    """The fp32 multiply-adds x 2 of one RAFT pair (its convolutions and
+    products), counted by ``torch.utils.flop_counter`` on the CPU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        net(x1, x2)
+    return fc.get_total_flops()
+
+
+def phase_prep(dev, smi, root):
+    """(o1) ``data.prep.run`` of the iPER YAML on the card: extraction with
+    full-width RAFT, ``meta.p``, pose prep; every file, shape and value
+    checked; ms per RAFT pair and per pose batch; RAFT card against CPU on
+    one pair, with its operations' bound."""
+    import os
+    import pickle
+
+    import cv2
+    import numpy as np
+
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.data import prep
+    from ipoke_tpu_torch.eval.pose import PoseEstimator
+    from ipoke_tpu_torch.nn import raft
+
+    raw, out = os.path.join(root, "raw"), os.path.join(root, "processed")
+    t0 = time.perf_counter()
+    write_raw_clips(raw)
+    print(f"(o1) {PREP_CLIPS} MJPG clips of {PREP_FRAMES} frames at {PREP_RAW_SIZE} px "
+          f"written and read back in {time.perf_counter() - t0:.1f} s")
+    cfg = prep.load_prep_config(os.path.join("config", "data_preparation", "iper.yaml"))
+    cfg.update(raw_dir=raw, processed_dir=out, video_format="avi")
+    size, lags = cfg["spatial_size"], list(range(cfg["flow_delta"], cfg["flow_max"] + 1,
+                                                 cfg["flow_delta"]))
+    if (size, lags, cfg["flow_estimator"], cfg["data"]["dataset"]) != \
+            (256, [5, 10], "raft", "IperDataset"):
+        raise AssertionError(f"(o1) iper.yaml: {size}, {lags}, {cfg['flow_estimator']}")
+    pair_s, pose_s = [], []
+    est, pose_call = prep._FLOW_ESTIMATORS["raft"], PoseEstimator.__call__
+
+    def timed_est(a, b, device):
+        t = time.perf_counter()
+        flow = est(a, b, device)  # on the host: the call synchronized
+        pair_s.append(time.perf_counter() - t)
+        return flow
+
+    def timed_pose(self, frames):
+        t = time.perf_counter()
+        kps = pose_call(self, frames)
+        pose_s.append(time.perf_counter() - t)
+        return kps
+
+    prep._FLOW_ESTIMATORS["raft"], PoseEstimator.__call__ = timed_est, timed_pose
+    ops.reset_launches()  # the prep path's run
+    t0 = time.perf_counter()
+    try:
+        prep.run(cfg, device=dev)
+    finally:
+        prep._FLOW_ESTIMATORS["raft"], PoseEstimator.__call__ = est, pose_call
+    wall = time.perf_counter() - t0
+    launches = check_launches("(o1) prep", dict.fromkeys(CLI_KERNELS, 0))
+    n_rows = PREP_CLIPS * (PREP_FRAMES - lags[-1])
+    for v in range(PREP_CLIPS):
+        d = os.path.join(out, f"clip_{v}")
+        frames = [cv2.imread(os.path.join(d, f"frame_{i}.png")) for i in range(PREP_FRAMES)]
+        if any(f is None or f.shape != (size, size, 3) for f in frames):
+            raise AssertionError(f"(o1) {d}: frames")
+        for i in range(PREP_FRAMES - lags[-1]):
+            for lag in lags:
+                flow = np.load(os.path.join(d, f"prediction_{i}_{i + lag}.flow.npy"))
+                if flow.shape != (2, size, size) or flow.dtype != np.float32 \
+                        or not np.isfinite(flow).all():
+                    raise AssertionError(f"(o1) {d} flow {i}->{i + lag}: {flow.shape}")
+    for name in ("meta.p", "meta_kp_nn.p"):
+        with open(os.path.join(out, name), "rb") as f:
+            meta = pickle.load(f)
+        kps = meta["keypoints"]
+        if len(meta["img_path"]) != n_rows or meta["flow_paths"].shape != (n_rows, 2) \
+                or kps.shape != (n_rows, 17, 2) or not np.isfinite(kps).all() \
+                or meta["kp_nn"].shape != (n_rows,):
+            raise AssertionError(f"(o1) {name}: {len(meta['img_path'])} rows, keypoints "
+                                 f"{kps.shape}")
+    if len(pair_s) != PREP_CLIPS * (PREP_FRAMES - lags[-1]) * len(lags):
+        raise AssertionError(f"(o1) {len(pair_s)} RAFT pairs")
+    pair_ms = 1e3 * sum(pair_s[1:]) / (len(pair_s) - 1)
+    pose_ms = 1e3 * sum(pose_s[1:]) / max(1, len(pose_s) - 1)
+    print(f"(o1) prep of {PREP_CLIPS} clips in {wall:.1f} s: {len(pair_s)} RAFT pairs at "
+          f"{size} px, {pair_ms:.2f} ms a pair after the first ({1e3 * pair_s[0]:.1f} ms; "
+          f"min {1e3 * min(pair_s):.2f}, max {1e3 * max(pair_s[1:]):.2f}); {len(pose_s)} "
+          f"pose batches (PoseResNet-50, {cfg.get('pose_input_size', 64)} px), "
+          f"{pose_ms:.2f} ms a batch after the first ({1e3 * pose_s[0]:.1f} ms); "
+          f"{n_rows} rows with keypoints; launches {launches} on {smi}")
+    # one pair card against CPU, the same fixed-seed weights, fp32, TF32 off
+    a, b = (cv2.cvtColor(cv2.imread(os.path.join(out, "clip_0", f"frame_{i}.png")),
+                         cv2.COLOR_BGR2RGB) for i in (0, lags[0]))
+    got = raft.raft_estimator(a, b, dev)
+    t0 = time.perf_counter()
+    want = raft.raft_estimator(a, b, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = np.abs(got - want)
+    mx, mean = err.max() / np.abs(want).max(), err.mean() / np.abs(want).mean()
+    _, kernels = profiled(f"(o1) one RAFT pair at {size} px (the estimator's call)",
+                          lambda: raft.raft_estimator(a, b, dev))
+    fwd_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    x1, x2 = (torch.from_numpy(im.astype(np.float32).transpose(2, 0, 1)[None] / 127.5 - 1.0)
+              for im in (a, b))
+    flops = raft_flops(raft.init_raft(), x1, x2)
+    bound_ms = 1e3 * flops / FP32_FLOPS
+    print(f"(o1) RAFT at {size} px card vs CPU (fp32, TF32 off): max abs err {err.max():.3e} "
+          f"({mx:.2e} of the largest |flow| {np.abs(want).max():.2f}; tolerance "
+          f"{RAFT_CARD_MAX_TOL:g}), mean {err.mean():.3e} ({mean:.2e} of the mean |flow| "
+          f"{np.abs(want).mean():.3f}; tolerance {RAFT_CARD_MEAN_TOL:g}); the CPU "
+          f"{1e3 * cpu_s:.0f} ms a pair; the pair's device time {fwd_ms:.2f} ms (profiled); "
+          f"{flops / 1e9:.2f} GFLOP a pair, fp32 bound {bound_ms:.2f} ms "
+          f"({100 * bound_ms / fwd_ms:.1f}% of the device time, "
+          f"{100 * bound_ms / pair_ms:.1f}% of the prep's "
+          f"{pair_ms:.2f} ms a pair) on {smi}")
+    if mx > RAFT_CARD_MAX_TOL or mean > RAFT_CARD_MEAN_TOL or not np.isfinite(got).all():
+        raise AssertionError(f"(o1) RAFT card vs CPU: {err.max()} / {err.mean()}")
+    return {"prep": launches}, {"processed": out, "pair_ms": pair_ms, "pose_ms": pose_ms,
+                                "forward_ms": fwd_ms, "bound_ms": bound_ms,
+                                "gflop": flops / 1e9}
+
+
+def phase_raft_train(dev, smi, processed):
+    """(o2) On the small ``SYNTHETIC_CFG`` net at 32 px,
+    ``train_raft_synthetic(400 steps)`` to EPE < RAFT_EPE_GATE and
+    ``finetune_raft_selfsup`` for 160 steps to ``epe1 < SELFSUP_GATE
+    epe0``, as the JAX package's slow tests; then the full-width net on
+    (o1)'s frame pairs (``raft_full_width_steps``).  ms per step on the
+    host clock (the synthetic batches' cv2 work on the host included)."""
+    import numpy as np
+
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.nn import raft
+
+    paths = {}
+    ops.reset_launches()  # the supervised training path's run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, epe = raft.train_raft_synthetic(steps=400, seed=0, log_every=100, device=dev)
+    torch.cuda.synchronize()
+    sup_ms = 1e3 * (time.perf_counter() - t0) / 400
+    paths["raft_train_synthetic"] = check_launches("(o2) RAFT synthetic training",
+                                                   dict.fromkeys(CLI_KERNELS, 0))
+    print(f"(o2) RAFT from scratch, small net (SYNTHETIC_CFG), 400 steps (B = 8, 32 px): "
+          f"final EPE {epe:.3f} (gate < {RAFT_EPE_GATE}), {sup_ms:.2f} ms a step on {smi}")
+    if not epe < RAFT_EPE_GATE:
+        raise AssertionError(f"(o2) RAFT EPE {epe}")
+    net = raft.init_raft(raft.SYNTHETIC_CFG, 0, dev)
+    rng = np.random.default_rng(5)
+    held = raft.synthetic_flow_batch(rng, 8, 32, 3.0, dev)
+
+    def epe_of():
+        with torch.no_grad():
+            final = net.eval()(held["image1"], held["image2"])
+        net.train()
+        return float(torch.linalg.vector_norm(final - held["flow"], dim=1).mean())
+
+    def batches(i):
+        b = raft.synthetic_flow_batch(rng, 8, 32, 3.0, dev)
+        return {"image1": b["image1"], "image2": b["image2"]}
+
+    epe0 = epe_of()
+    ops.reset_launches()  # the self-supervised path's run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log = raft.finetune_raft_selfsup(net, batches, steps=160, lr=1e-3)
+    torch.cuda.synchronize()
+    self_ms = 1e3 * (time.perf_counter() - t0) / 160
+    paths["raft_selfsup"] = check_launches("(o2) RAFT self-supervised fine-tune",
+                                           dict.fromkeys(CLI_KERNELS, 0))
+    epe1 = epe_of()
+    print(f"(o2) RAFT self-supervised, small net, 160 steps (B = 8, 32 px): EPE on held "
+          f"pairs {epe0:.3f} -> {epe1:.3f} ({epe1 / epe0:.3f}; gate < {SELFSUP_GATE}), "
+          f"loss {float(log['loss']):.4f}, {self_ms:.2f} ms a step on {smi}")
+    if not epe1 < SELFSUP_GATE * epe0:
+        raise AssertionError(f"(o2) self-supervised EPE {epe0} -> {epe1}")
+    del net, held
+    paths["raft_selfsup_full"], full = raft_full_width_steps(dev, smi, processed)
+    return paths, {"synthetic_ms": sup_ms, "selfsup_ms": self_ms, "epe": epe,
+                   "selfsup_ratio": epe1 / epe0, **full}
+
+
+def raft_full_width_steps(dev, smi, processed):
+    """``finetune_raft_selfsup`` of the full-width ``init_raft()`` (base 64,
+    256-d features, 12 iterations, 4 levels, radius 4) on (o1)'s 256 px
+    frame pairs at lag 5, RAFT_FULL_BATCH pairs a step: one untimed step,
+    then RAFT_FULL_STEPS timed; the loss and every parameter finite and
+    every parameter tensor moved; ms per step and peak memory."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.nn import raft
+
+    def frame(v, i):
+        im = cv2.cvtColor(cv2.imread(os.path.join(processed, f"clip_{v}", f"frame_{i}.png")),
+                          cv2.COLOR_BGR2RGB)
+        return torch.from_numpy(im.astype(np.float32).transpose(2, 0, 1) / 127.5 - 1.0)
+
+    lag = 5
+    pairs = [(v, i) for v in range(PREP_CLIPS) for i in range(PREP_FRAMES - lag)]
+    x1 = torch.stack([frame(v, i) for v, i in pairs]).to(dev)
+    x2 = torch.stack([frame(v, i + lag) for v, i in pairs]).to(dev)
+    net = raft.init_raft(device=dev)
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    n, B = x1.shape[0], RAFT_FULL_BATCH
+    marks = {}
+
+    def batches(i):
+        torch.cuda.synchronize()
+        marks[i] = time.perf_counter()
+        idx = torch.arange(i * B, (i + 1) * B, device=dev) % n
+        return {"image1": x1[idx], "image2": x2[idx]}
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # the full-width self-supervised path's run
+    log = raft.finetune_raft_selfsup(net, batches, steps=1 + RAFT_FULL_STEPS)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - marks[1]) / RAFT_FULL_STEPS
+    launches = check_launches("(o2) full-width RAFT self-supervised",
+                              dict.fromkeys(CLI_KERNELS, 0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(log["loss"])
+    finite = all(bool(torch.isfinite(p).all()) for p in net.parameters())
+    moved = sum(not torch.equal(p.detach(), before[k]) for k, p in net.named_parameters())
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"(o2) RAFT self-supervised, full width (RAFTConfig(), {n_params / 1e6:.2f}M "
+          f"params), B = {B} pairs at {x1.shape[-1]} px, lag {lag}: "
+          f"{RAFT_FULL_STEPS} steps after one, {step_ms:.2f} ms a step, peak "
+          f"{peak:.2f} GiB allocated, last loss {loss:.4f}, {moved} of {len(before)} "
+          f"parameter tensors moved on {smi}")
+    if not np.isfinite(loss) or not finite or moved != len(before) \
+            or not torch.isfinite(log["final"]).all():
+        raise AssertionError(f"(o2) full-width RAFT: loss {loss}, params finite {finite}, "
+                             f"{moved} of {len(before)} moved")
+    del net, x1, x2, before
+    release()
+    return launches, {"full_selfsup_ms": step_ms, "full_peak_gib": peak}
+
+
+def expected_ui_launches(cfg, passes):
+    """Per ``passes`` sampling passes of the UI (a ``/poke`` is one; a first
+    ``/save`` of a frame runs one a ground-truth poke): in fp32, K2 in every
+    unit of the cINN inverse and K3 once a decode level, no K1 (bf16 only),
+    K4 (no grad) or K5 (8x8 latents), as in ``expected_test_launches``."""
+    want = dict.fromkeys(CLI_KERNELS, 0)
+    want["macow_unit_inverse"] = passes * 4 * sum(cfg["architecture"]["num_steps"])
+    want["spade_gn"] = passes * _decode_levels(cfg)
+    return want
+
+
+def poke_kernel_check(experiment, tag):
+    """K2 and K3 at the shapes a poke gives them: one poke of a session of
+    its own with every launch's inputs and output kept, then each kept
+    output held against the plain version on the same inputs (K2 at K2_TOL,
+    K3 at K3_TOL of its dtype, abs + rel), and each distinct shape timed,
+    kernel and plain, with its bound.  Returns the rows by kernel."""
+    from ipoke_tpu_torch.ops import masked_conv, spade_gn
+    from ipoke_tpu_torch.ui import server
+
+    launch = {"macow_unit_inverse": masked_conv.macow_unit_inverse_cuda,
+              "spade_gn": spade_gn.spade_gn_cuda}
+    kept = {name: [] for name in launch}
+
+    def keeping(name):
+        def call(*args):
+            out = launch[name](*args)
+            kept[name].append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                               out.clone()))
+            return out
+        return call
+
+    masked_conv.macow_unit_inverse_cuda = keeping("macow_unit_inverse")
+    spade_gn.spade_gn_cuda = keeping("spade_gn")
+    try:
+        server.PokeSession(experiment, 256).poke(0.4, 0.6, -0.1, 0.05)
+    finally:
+        masked_conv.macow_unit_inverse_cuda = launch["macow_unit_inverse"]
+        spade_gn.spade_gn_cuda = launch["spade_gn"]
+    want = expected_ui_launches(experiment.config, 1)
+    rows = {}
+    for name, plain in (("macow_unit_inverse", masked_conv.macow_unit_inverse_plain),
+                        ("spade_gn", spade_gn.spade_gn_plain)):
+        if len(kept[name]) != want[name]:
+            raise AssertionError(f"{tag} {name}: {len(kept[name])} launches kept, "
+                                 f"{want[name]} expected")
+        by_shape = {}
+        for i, (args, out) in enumerate(kept[name]):
+            tol = K2_TOL if name == "macow_unit_inverse" else K3_TOL[args[0].dtype]
+            rel = 0.0 if name == "macow_unit_inverse" else tol
+            shape = tuple(tuple(a.shape) for a in args[:3])
+            err = check_close(f"{tag} {name} launch {i} {shape[0]}", out, plain(*args), tol,
+                              rel)
+            row = by_shape.setdefault(shape, {"launches_a_poke": 0, "max_abs_err": 0.0,
+                                              "args": args, "tol": tol})
+            row["launches_a_poke"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        rows[name] = []
+        for shape, row in by_shape.items():
+            args = row.pop("args")
+            ms = cuda_ms(lambda: launch[name](*args), 20)
+            plain_ms = cuda_ms(lambda: plain(*args), 3)
+            if name == "macow_unit_inverse":
+                b, s, _, c = args[0].shape
+                work, dims = unit_work(b, s, c, args[1].shape[-1]), \
+                    {"B": b, "S": s, "C": c, "hid": args[1].shape[-1]}
+            else:
+                n, s, _, ch = args[0].shape
+                work = spade_work(n, args[1].shape[0], s, ch, args[0].element_size())
+                dims = {"N": n, "clips": args[1].shape[0], "S": s, "Ch": ch}
+            bound_ms, bound_by = bound(*work, FP32_FLOPS)
+            rows[name].append({**dims, **row, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None})
+            print(f"{tag} {name} at a poke's shape {dims} ({row["launches_a_poke"]} launches a "
+                  f"poke): every launch against its plain version on its inputs, max_abs_err "
+                  f"{row['max_abs_err']:.3e} (tol {row['tol']:g}"
+                  f"{' abs+rel' if rel else ''}), kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by})")
+        del kept[name]
+    return rows
+
+
+def drive_ui(experiment, smi, tag, n_pokes, save=True, profile_poke=False):
+    """Serve ``experiment`` on a free port and drive ``GET /``, ``/frame``,
+    ``n_pokes`` ``POST /poke`` and (``save``) one ``POST /save`` over HTTP,
+    each with the launch counts zeroed before and read after, then
+    ``poke_kernel_check``; returns (launches by path, ms per poke, K2 and
+    K3 rows at the poke's shapes)."""
+    import base64
+    import os
+    import urllib.request
+
+    import cv2
+    import numpy as np
+
+    from ipoke_tpu_torch import ops
+    from ipoke_tpu_torch.ui import server
+
+    cfg = experiment.config
+    T = cfg["data"]["max_frames"]
+    httpd = server.serve(experiment, port=0, display_size=256, background=True)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(), method="POST")
+        return json.loads(urllib.request.urlopen(req, timeout=600).read())
+
+    def png(b64):
+        return cv2.imdecode(np.frombuffer(base64.b64decode(b64), np.uint8), cv2.IMREAD_COLOR)
+
+    paths, poke_ms = {}, []
+    try:
+        page = urllib.request.urlopen(url + "/", timeout=60).read().decode()
+        frame = json.loads(urllib.request.urlopen(url + "/frame", timeout=600).read())
+        if "drag on the image to poke" not in page or png(frame["frame"]).shape != (256, 256, 3):
+            raise AssertionError(f"{tag}: GET / or /frame")
+        total = dict.fromkeys(CLI_KERNELS, 0)
+        for i in range(n_pokes):
+            torch.cuda.synchronize()
+            ops.reset_launches()  # this /poke
+            t0 = time.perf_counter()
+            out = post("/poke", {"x": 0.3 + 0.2 * i, "y": 0.5, "dx": 0.1, "dy": -0.05 * i})
+            poke_ms.append(1e3 * (time.perf_counter() - t0))
+            got = check_launches(f"{tag} /poke {i + 1}", expected_ui_launches(cfg, 1))
+            total = {k: total[k] + got[k] for k in total}
+            frames = [png(f) for f in out["frames"]]
+            if len(frames) != T or any(f is None or f.shape != (256, 256, 3) for f in frames):
+                raise AssertionError(f"{tag} /poke: {len(frames)} frames")
+        paths["ui_poke"] = total
+        if save:
+            n_gt = 3
+            ops.reset_launches()  # the /save with its ground-truth pokes
+            t0 = time.perf_counter()
+            files = post("/save", {})["files"]
+            save_s = time.perf_counter() - t0
+            paths["ui_save"] = check_launches(f"{tag} /save", expected_ui_launches(cfg, n_gt))
+            names = {os.path.basename(f) for f in files}
+            want = {"vid_0.mp4", "gt_vid.mp4", *(f"gt_poke_vid_{i}.mp4" for i in range(n_gt))}
+            if not want <= names or not all(os.path.getsize(f) > 0 for f in files):
+                raise AssertionError(f"{tag} /save: {sorted(names)}")
+            print(f"{tag} /save: {len(files)} files ({n_gt} ground-truth pokes sampled) in "
+                  f"{save_s:.2f} s")
+        shape_rows = poke_kernel_check(experiment, tag)
+        if profile_poke:  # a session of its own, outside the HTTP round trip
+            session = server.PokeSession(experiment, 256)
+            profiled(f"{tag} one poke (its sampling pass and {T} PNGs)",
+                     lambda: session.poke(0.5, 0.5, 0.1, 0.1))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    print(f"{tag} {n_pokes} /poke at B = 1, T = {T}, "
+          f"{cfg['data']['spatial_size'][0]} px: "
+          f"{', '.join(f'{t:.1f}' for t in poke_ms)} ms (HTTP round trip, {T} PNGs) on {smi}")
+    return paths, poke_ms, shape_rows
+
+
+def ui_experiment(cfg, root, processed, dev):
+    """A second-stage experiment of the config tree ``cfg`` on ``processed``,
+    built (its weights drawn from the seed, fp32), couplings perturbed."""
+    import os
+
+    import yaml
+
+    from ipoke_tpu_torch import entry
+    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+    from ipoke_tpu_torch.core.checkpoint import create_dir_structure
+    from ipoke_tpu_torch.core.config import load_config
+
+    path = os.path.join(root, "second_stage_ui.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    dirs = create_dir_structure(os.path.join(root, "logs"), "second_stage", "ui")
+    e = SecondStageExperiment(load_config(path), dirs, data_root=processed, device=dev)
+    e.build()
+    entry.perturb(e.model.flow_params, torch.Generator(device=dev).manual_seed(0))
+    return e
+
+
+def phase_ui(dev, smi, root, processed):
+    """(o3) config/second_stage.yaml's experiment at its width and depth
+    (the 1054.43M-param cINN drawn from the seed, couplings perturbed, fp32;
+    its frozen nets from the shipped first-stage and encoder YAMLs, drawn)
+    on (o1)'s tree, served: ``/poke`` and ``/save`` against
+    ``expected_ui_launches``."""
+    import os
+
+    from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.flows import count_params
+
+    release()
+    cfg = load_config(os.path.join("config", "second_stage.yaml")).to_dict()
+    cfg["first_stage"] = {"config": os.path.join("config", "first_stage.yaml")}
+    cfg["conditioner"] = {"use": True, "config": os.path.join("config", "img_encoder.yaml")}
+    cfg["poke_embedder"] = {"config": os.path.join("config", "poke_encoder.yaml")}
+    t0 = time.perf_counter()
+    e = ui_experiment(cfg, root, processed, dev)
+    n = count_params(e.model.flow_params.tree())
+    dtypes = {p.dtype for p in e.model.parameters()}
+    print(f"(o3) config/second_stage.yaml built in {time.perf_counter() - t0:.1f} s: flow "
+          f"params {n / 1e6:.2f}M, {dtypes}")
+    if round(n / 1e6, 2) != 1054.43 or dtypes != {torch.float32}:
+        raise AssertionError(f"(o3) flow params {n}, {dtypes}")
+    paths, poke_ms, shape_rows = drive_ui(e, smi, "(o3) UI", UI_POKES, profile_poke=True)
+    e.metrics_logger.close()
+    del e
+    release()
+    return paths, {"poke_ms": poke_ms, "kernel_shapes": shape_rows}
+
+
+def phase_ui_restore(dev, smi, tree):
+    """(l') the UI's ``main`` route (``ui.server.load_experiment``) on phase
+    (k)'s second-stage run: TF32 turned on before and off after, the flow
+    params equal to the best checkpoint's weights (bf16, upcast), then one
+    ``/poke`` over HTTP against ``expected_ui_launches``."""
+    from ipoke_tpu_torch.ui import server
+
+    release()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    e = server.load_experiment(server.parse_args(
+        ["--config", tree["second_stage"], "--model_name", "smoke", "--data_root",
+         tree["data_root"]]))
+    secs = time.perf_counter() - t0
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("(l') ui.server.load_experiment left TF32 on")
+    saved = e.store.restore_best(weights=True, map_location=dev)
+    got = e.model.flow_params.state_dict()
+    same = set(got) == set(saved) and all(
+        (got[k].dtype == torch.float32 or not v.is_floating_point())
+        and torch.equal(got[k], v.to(got[k].dtype)) for k, v in saved.items())
+    print(f"(l') the UI's main route restored (k)'s second stage in {secs:.2f} s: "
+          f"{len(saved)} flow leaves equal to the best checkpoint's weights "
+          f"(fp32 from bf16): {same}")
+    if not same:
+        raise AssertionError("(l') restored params differ from the checkpoint's")
+    paths, poke_ms, shape_rows = drive_ui(e, smi, "(l') UI restored", 1, save=False)
+    e.metrics_logger.close()
+    del e
+    release()
+    return {"ui_restored_poke": paths["ui_poke"]}, {"poke_ms": poke_ms,
+                                                    "kernel_shapes": shape_rows}
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -2714,6 +3324,11 @@ def main():
         phase_eval_nets(dev, smi)
         test_launches, _ = phase_test_modes(dev, smi, tree)
         paths.update(test_launches)
+        # (l') the UI's main route on (k)'s second-stage run
+        ui_launches, ui_out = phase_ui_restore(dev, smi, tree)
+        paths.update(ui_launches)
+        for name, rows in ui_out["kernel_shapes"].items():
+            kernels[name]["ui_restored_poke_shapes"] = rows
         # (m) the FC tower: (m1) K3 at its shapes, (m2) FC_TINY card vs CPU,
         # (m3) its CLI runs, (m4) the --test modes on its second stage
         kernels["spade_gn"]["fc_shapes"] = phase_fc_kernels(dev)
@@ -2735,6 +3350,16 @@ def main():
         paths.update(third_test_launches)
         kernels["spade_gn"]["third_stage_fc_sample_video_in_situ_ms"] = \
             third_times["sample_video"]["k3_in_situ_ms"]
+    # (o) data prep with full-width RAFT and pose prep, RAFT training, the UI
+    with prep_root() as root:
+        prep_launches, prep_out = phase_prep(dev, smi, root)
+        paths.update(prep_launches)
+        train_launches, _ = phase_raft_train(dev, smi, prep_out["processed"])
+        paths.update(train_launches)
+        ui_launches, ui_out = phase_ui(dev, smi, root, prep_out["processed"])
+        paths.update(ui_launches)
+        for name, rows in ui_out["kernel_shapes"].items():
+            kernels[name]["ui_poke_shapes"] = rows
 
     meta = {
         "nice_net": ("cuda", "ipoke_tpu_torch/csrc/nice_net.cu",

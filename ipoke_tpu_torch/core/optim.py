@@ -73,6 +73,22 @@ def cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+@torch.no_grad()
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` on the ``.grad`` of ``params``: where the
+    global norm (summed in fp32 or wider) reaches ``max_norm``, every gradient
+    becomes ``g / norm * max_norm`` (``torch.nn.utils.clip_grad_norm_``
+    scales by ``max_norm / (norm + 1e-6)`` instead).  Returns the norm."""
+    params = [p for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((p.grad.to(torch.promote_types(p.grad.dtype, torch.float32)) ** 2)
+                          .sum() for p in params))
+    keep = norm < max_norm  # no host sync
+    for p in params:
+        g = p.grad
+        p.grad = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+    return norm
+
+
 WEIGHT_DECAY = 1e-5  # the JAX package's flow_adam default, which the trainer uses
 
 
@@ -101,11 +117,7 @@ class _Adam:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip > 0:
-            norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in self.params))
-            keep = norm < self.clip  # no host sync
-            for p in self.params:
-                g = p.grad
-                p.grad = torch.where(keep, g, g / norm.to(g.dtype) * self.clip)
+            clip_by_global_norm_(self.params, self.clip)
         for group in self.adam.param_groups:
             group["lr"] = float(self.schedule(self.count))
         self.adam.step()

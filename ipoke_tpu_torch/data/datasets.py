@@ -14,7 +14,7 @@ design:
 * images come out (T+1, H, W, 3) float32 in [-1, 1]; flow (H, W, 2); poke
   (H, W, 2) + centers — the exact batch contract of the reference collate.
 
-On-disk artifact contract (produced by ``ipoke_tpu.data.prep``):
+On-disk artifact contract (produced by ``ipoke_tpu_torch.data.prep``):
   <root>/<video_dir>/frame_<i>.png
   <root>/<video_dir>/prediction_<i>_<i+lag>.flow.npy     # (2, H, W)
   <root>/meta.p   # pickle: img_path, flow_paths, fid, vid, object_id, train
@@ -31,23 +31,6 @@ import numpy as np
 
 from .augment import ColorAugment, GeometricAugment
 from .poke import FlowError, resize_flow, scale_flow_to_res, simulate_poke
-
-def keypoint_nearest_neighbors(kps: np.ndarray, exclude_same: np.ndarray,
-                               chunk: int = 1024) -> np.ndarray:
-    """For each sample, the index of its keypoint-space nearest neighbor with
-    a different group id (a copy of ``ipoke_tpu/eval/pose.py``'s, row-chunked:
-    O(chunk * n) memory)."""
-    flat = kps.reshape(kps.shape[0], -1).astype(np.float64)
-    n = flat.shape[0]
-    sq = np.sum(flat**2, axis=1)
-    out = np.empty(n, np.int64)
-    groups = np.asarray(exclude_same)
-    for i0 in range(0, n, chunk):
-        i1 = min(i0 + chunk, n)
-        d2 = sq[i0:i1, None] + sq[None, :] - 2.0 * (flat[i0:i1] @ flat.T)
-        d2[groups[i0:i1, None] == groups[None, :]] = np.inf
-        out[i0:i1] = np.argmin(d2, axis=1)
-    return out
 
 
 DATAKEYS = (
@@ -621,13 +604,16 @@ class IperDataset(VideoDataset):
         # race to compute it on the hot path).
         self.kp_nn = None
         if self.keypoints is not None and "nn" in self.datakeys:
+            from ..eval.pose import keypoint_nearest_neighbors
+
             self.kp_nn = keypoint_nearest_neighbors(
                 np.asarray(self.keypoints, np.float32),
                 np.asarray(self.datadict["vid"]))
 
     def _get_keypoints(self, ids, rng, abs=True, **kw):
         if self.keypoints is None:
-            raise NotImplementedError("meta has no keypoints (run pose prep)")
+            raise NotImplementedError(
+                "meta has no keypoints (run ipoke_tpu_torch.data.prep's pose_estimation)")
         frame_ids = [
             min(ids[0] + i * self.subsample_step, int(self.seq_end_id[ids[0]]))
             for i in range(self.max_frames + 1)
@@ -669,7 +655,7 @@ class IperDataset(VideoDataset):
         if self.keypoints is None:
             return super()._get_nn_index(ids, rng)
         if self.kp_nn is None:
-            import threading
+            from ..eval.pose import keypoint_nearest_neighbors
 
             lock = self.__dict__.setdefault("_nn_lock", threading.Lock())
             with lock:

@@ -25,7 +25,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..data.datasets import keypoint_nearest_neighbors  # noqa: F401  (eval surface)
 from ..nn.blocks import BatchNorm, Conv, ConvTransposeTK
 
 _BN_EPS = 1e-5
@@ -117,6 +116,24 @@ class PoseEstimator:
         hm = self.net(x)
         coords, _ = get_max_preds(hm)
         return coords.cpu().numpy() * (x.shape[1] / hm.shape[1])
+
+
+def keypoint_nearest_neighbors(kps: np.ndarray, exclude_same: np.ndarray,
+                               chunk: int = 1024) -> np.ndarray:
+    """For each sample, the index of its keypoint-space nearest neighbour
+    with a different group id (reference data prep ``meta_kp_nn.p``,
+    prepare_dataset.py:461-516), row-chunked: O(chunk * n) memory."""
+    flat = kps.reshape(kps.shape[0], -1).astype(np.float64)
+    n = flat.shape[0]
+    sq = np.sum(flat**2, axis=1)
+    out = np.empty(n, np.int64)
+    groups = np.asarray(exclude_same)
+    for i0 in range(0, n, chunk):
+        i1 = min(i0 + chunk, n)
+        d2 = sq[i0:i1, None] + sq[None, :] - 2.0 * (flat[i0:i1] @ flat.T)
+        d2[groups[i0:i1, None] == groups[None, :]] = np.inf
+        out[i0:i1] = np.argmin(d2, axis=1)
+    return out
 
 
 def keypoint_mse(kps_a: np.ndarray, kps_b: np.ndarray,

@@ -94,16 +94,22 @@ def maybe_prompt_resume(config, dirs):
         print("Invalid answer! Try again! (y/n)")
 
 
-def check_args(args):
-    """Raise for what the port does not run (before any file is written)."""
+def check_device(device) -> None:
+    """Raise when ``device`` is the card and there is none: no entry point
+    of the port falls back to the CPU."""
     import torch
 
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+
+
+def check_args(args):
+    """Raise for what the port does not run (before any file is written)."""
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet (ROADMAP queue 1 item 11)")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
+    check_device(args.device)
 
 
 def run(argv=None):

@@ -1,5 +1,5 @@
 """Conv building blocks, GRU, encoders, decoder, motion encoder,
-discriminators and VGG."""
+discriminators, VGG and the RAFT flow estimator."""
 
 from .blocks import (
     BatchNorm,
@@ -34,4 +34,5 @@ from .encoders import (
 )
 from .gru import ConvGRU, ConvGRUCell
 from .motion import BasicBlock3d, Conv3d, ResNetMotionEncoder
+from .raft import RAFT, RAFTConfig, load_torch_raft_npz, raft_estimator
 from .vgg import VGG19Features, vgg_loss
