@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-first-stage VAE-GAN train step, conv third stage, CLI, ``--test`` modes, FC
-tower, FC third stage, data prep, RAFT training and poke UI on one NVIDIA
-GPU.
+reproduction recipes, first-stage VAE-GAN train step (fp32 and bf16), conv
+third stage, CLI, ``--test`` modes, FC tower, FC third stage, data prep,
+RAFT training and poke UI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -58,6 +58,17 @@ Phases, in order; any failure raises and exits non-zero:
       device launches, device time against the inverse's wall time, and
       K1's and K5's device time per call; then the SMALL-width flow inverse
       at 8x16 in bf16, card against CPU.
+  (p) the reproduction recipes of config/pretrained_models/ (fp32,
+      Adafactor): (p1) plants_64.yaml at its width and depth (the
+      1054.43M-param cINN, B=40, 64 px), frozen nets from the shipped
+      first-stage and encoder YAMLs drawn from the seed, through
+      ``SecondStageTrainer``: fp32 DDI, one step with the launch counts
+      zeroed before and read after (no kernel: K1/K4 are bf16 only), 3
+      steps timed with CUDA events (ms/step, peak memory, the Adafactor
+      state's bytes beside AMSGrad's), then one full-depth
+      ``forward_sample`` (200 K2, 3 K3) with every launch held against its
+      plain version; (p2) SMALL, fp32, 3 steps card against CPU under
+      Adafactor and under AdaBelief: losses and optimizer states.
   (i) the first-stage VAE-GAN train step (config/first_stage.yaml: 64 px,
       B=20, T=10, fp32): (i1) K3 at the decoder's training shapes (fp32,
       20 frames, one modulation per frame, 16/32/64 px) against its plain
@@ -67,6 +78,12 @@ Phases, in order; any failure raises and exits non-zero:
       every net checked to move, 3 steps timed with CUDA events (ms/step,
       clips/s, peak memory), a host split of one step and a
       ``torch.profiler`` table of one step with K3's in-situ time.
+      Under ``training.mixed_prec`` (bf16 compute over fp32 params): (q3)
+      K3 in bf16 at the training shapes, forward and backward; (q1) TINY 3
+      steps card against CPU, both bf16, by a rule fixed against the CPU
+      port in float64 in the same run, and one ``full_sequence: false``
+      step by the (i2) rule; (q2) the yaml config's step as (i3), beside
+      (i3)'s fp32 step.
   (j) the conv third stage (config/flow_motion.yaml and flow_vae.yaml, fp32):
       (j1) K2 without conditioning rows at the bridge's units (B=32, 8x8,
       C=32 and 28) and K3 at the flow-to-video decode's levels (320 frames
@@ -120,6 +137,12 @@ Phases, in order; any failure raises and exits non-zero:
       params equal to the best checkpoint's weights, one ``/poke`` over
       HTTP with the launch counts zeroed before and read after (path
       ``ui_restored_poke``, against ``expected_ui_launches``).
+  (p3) plants_64.yaml through ``main.run`` at (k)'s depth cut, its frozen
+      nets (k)'s first_stage, img_encoder and poke_encoder runs named
+      plants_64 by a registry file (``IPOKE_TPU_REGISTRY``): one epoch, a
+      restore check (the Adafactor state and params bit for bit), then
+      --resume for one more, each run against ``expected_cli_launches``.
+      (k)'s second-stage and third-stage runs are removed first (disk).
   (m) the FC tower (fp32): (m1) K3 at the FC generator's levels (8x8x256,
       16x16x128, 32x32x64) in training (20 frames, one modulation each)
       and sampling (400 frames of 40 clips), against its plain version,
@@ -1111,18 +1134,22 @@ def phase_nonsquare(dev, smi):
     return launches
 
 
-def phase_k3_train(dev):
-    """(i1) K3 at the decoder's training shapes: forward against the plain
-    version, two calls bitwise equal, device times, bound and share; the
-    backward (K3 + the portable VJP) against autograd of the plain version."""
+def phase_k3_train(dev, dtype=torch.float32):
+    """(i1) K3 at the decoder's training shapes in ``dtype`` ((q3): bf16):
+    forward against the plain version, two calls bitwise equal, device
+    times, bound and share; the backward (K3 + the portable VJP) against
+    autograd of the plain version, its gradients in ``dtype``."""
     from ipoke_tpu_torch.ops import _build, spade_gn
 
     gen = torch.Generator(device=dev).manual_seed(5)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    lib, n, tol, rows = _build.load(), K3_TRAIN_FRAMES, K3_TOL[torch.float32], []
+    lib, n, tol, rows = _build.load(), K3_TRAIN_FRAMES, K3_TOL[dtype], []
+    size = torch.empty((), dtype=dtype).element_size()
+    word = "bf16" if dtype == torch.bfloat16 else "fp32"
     for s, ch in K3_TRAIN_CASES:
-        x = randn(n, s, s, ch) * 2.0 + 0.5
-        gamma, beta = randn(n, s, s, ch) * 0.5, randn(n, s, s, ch) * 0.5
+        x = (randn(n, s, s, ch) * 2.0 + 0.5).to(dtype)
+        gamma = (randn(n, s, s, ch) * 0.5).to(dtype)
+        beta = (randn(n, s, s, ch) * 0.5).to(dtype)
         got = spade_gn.spade_gn_cuda(x, gamma, beta, 16)
         want = spade_gn.spade_gn_plain(x, gamma, beta, 16)
         err = check_close(f"K3 train S={s} Ch={ch}", got, want, tol, tol)
@@ -1130,29 +1157,33 @@ def phase_k3_train(dev):
             raise AssertionError(f"K3 train S={s} Ch={ch}: two calls differ")
         ms = cuda_ms(lambda: spade_gn.spade_gn_cuda(x, gamma, beta, 16), 50)
         plain = cuda_ms(lambda: spade_gn.spade_gn_plain(x, gamma, beta, 16), 20)
-        bound_ms, bound_by = bound(*spade_work(n, n, s, ch, 4), FP32_FLOPS)
-        k, resident = spade_gn.spade_gn_plan(s * s, ch, 4)
-        clusters = lib.spade_gn_max_clusters(s * s, ch, 16, 0, k, int(resident))
-        r = randn(n, s, s, ch)
+        bound_ms, bound_by = bound(*spade_work(n, n, s, ch, size), FP32_FLOPS)
+        k, resident = spade_gn.spade_gn_plan(s * s, ch, size)
+        clusters = lib.spade_gn_max_clusters(s * s, ch, 16, int(dtype == torch.bfloat16),
+                                             k, int(resident))
+        r = randn(n, s, s, ch).to(dtype)
 
         def grads(fn):
             leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
             return torch.autograd.grad((fn(*leaves, 16) * r).sum(), leaves)
 
-        g_err = max(check_close(f"K3 train grad {g} S={s} Ch={ch}", a, b, tol, tol)
-                    for g, a, b in zip(("x", "gamma", "beta"),
-                                       grads(spade_gn.spade_gn_modulate),
+        got_g = grads(spade_gn.spade_gn_modulate)
+        if any(g.dtype != dtype for g in got_g):
+            raise AssertionError(f"K3 train {word} S={s}: gradients in "
+                                 f"{[g.dtype for g in got_g]}")
+        g_err = max(check_close(f"K3 train grad {g} S={s} Ch={ch} {word}", a, b, tol, tol)
+                    for g, a, b in zip(("x", "gamma", "beta"), got_g,
                                        grads(spade_gn.spade_gn_plain)))
         g_ms = cuda_ms(lambda: grads(spade_gn.spade_gn_modulate), 10)
         g_plain = cuda_ms(lambda: grads(spade_gn.spade_gn_plain), 10)
-        print(f"K3 spade_gn train N={n} t=1 S={s} Ch={ch} G=16 fp32: max_abs_err "
+        print(f"K3 spade_gn train N={n} t=1 S={s} Ch={ch} G=16 {word}: max_abs_err "
               f"{err:.3e} (tol {tol} abs+rel), two calls bitwise equal, kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {100 * bound_ms / ms:.1f}% of it); clusters of {k}, "
               f"slices {'kept in' if resident else 'streamed past'} shared memory, "
               f"{clusters} clusters resident at once; backward: gradients max_abs_err "
               f"{g_err:.3e}, forward + backward {g_ms:.4f} ms, plain {g_plain:.4f} ms")
-        rows.append({"S": s, "Ch": ch, "frames": n, "max_abs_err": err, "ms": ms,
+        rows.append({"S": s, "Ch": ch, "frames": n, "dtype": word, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
                      "cluster": k, "resident": resident, "grad_max_abs_err": g_err,
                      "fwd_bwd_ms": g_ms, "plain_fwd_bwd_ms": g_plain})
@@ -1215,7 +1246,7 @@ def check_metrics(name, got, ref, tol=FS_TINY_TOL):
     ``tol``, and finite."""
     diffs = {k: abs(got[k].item() - ref[k].item()) / (1.0 + abs(ref[k].item()))
              for k in ref}
-    print(f"{name}, card vs CPU fp32 from the same state, |diff| / (1 + |CPU|) "
+    print(f"{name}, card vs CPU from the same state, |diff| / (1 + |CPU|) "
           f"(tol {tol}): " + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items()))
     if not all(math.isfinite(got[k].item()) for k in got) or max(diffs.values()) > tol:
         raise AssertionError(f"{name}: card disagrees with CPU")
@@ -1271,14 +1302,16 @@ def phase_first_stage_tiny(dev, cfg=None, n_steps=3, label="first-stage TINY"):
         sync_first_stage(card, cpu)
 
 
-def phase_first_stage(dev, smi):
-    """(i3) config/first_stage.yaml on the card: the path's run with launch
+def phase_first_stage(dev, smi, cfg=None, label="FIRST_STAGE"):
+    """(i3) config/first_stage.yaml on the card ((q2): ``cfg``
+    FIRST_STAGE_BF16, under ``mixed_prec``): the path's run with launch
     counts, every net moved, 3 timed steps, a host split and a profile."""
     from ipoke_tpu_torch import entry, ops
     from ipoke_tpu_torch.models.first_stage import sample_draws
     from ipoke_tpu_torch.train import FirstStageTrainer
 
-    cfg = entry.FIRST_STAGE
+    cfg = cfg or entry.FIRST_STAGE
+    word = "bf16 (fp32 params)" if cfg["training"].get("mixed_prec") else "fp32"
     B = cfg["data"]["batch_size"]
     t0 = time.perf_counter()
     nets = entry.build_first_stage(cfg, dev, torch.Generator(device=dev).manual_seed(0))
@@ -1287,22 +1320,22 @@ def phase_first_stage(dev, smi):
     draw_gen = torch.Generator(device=dev).manual_seed(1)
     before = [[p.detach().clone() for p in net.parameters()] for net in nets[:3]]
     torch.cuda.synchronize()
-    print(f"FIRST_STAGE built in {time.perf_counter() - t0:.1f} s: params "
+    print(f"{label} built in {time.perf_counter() - t0:.1f} s: params "
           + ", ".join(f"{name} {sum(p.numel() for p in net.parameters()) / 1e6:.2f}M"
                       for name, net in zip(("generator", "d_s", "d_t", "vgg"), nets)))
 
     ops.reset_launches()  # the first-stage path's run
     metrics = trainer.train_step(batch, 0, draw_gen)
     torch.cuda.synchronize()
-    launches = check_launches("FIRST_STAGE train step", expected_first_stage_launches(cfg))
+    launches = check_launches(f"{label} train step", expected_first_stage_launches(cfg))
     metrics = {k: v.item() for k, v in metrics.items()}
     if not all(map(math.isfinite, metrics.values())):
-        raise AssertionError(f"FIRST_STAGE metrics {metrics}")
+        raise AssertionError(f"{label} metrics {metrics}")
     for name, net, p0 in zip(("generator", "d_s", "d_t"), nets[:3], before):
         still = sum(torch.equal(a, b) for a, b in zip(p0, net.parameters()))
         if still:
-            raise AssertionError(f"FIRST_STAGE: {still} {name} params did not move")
-    print("FIRST_STAGE step 1: every param of generator, d_s and d_t moved; "
+            raise AssertionError(f"{label}: {still} {name} params did not move")
+    print(f"{label} step 1: every param of generator, d_s and d_t moved; "
           + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()))
     del before
 
@@ -1317,10 +1350,11 @@ def phase_first_stage(dev, smi):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     ms = sum(times) / len(times)
-    print(f"FIRST_STAGE train fp32 B={B} T={cfg['data']['max_frames']} "
+    print(f"{label} train {word} B={B} T={cfg['data']['max_frames']} "
           f"{cfg['data']['spatial_size'][0]}px: {ms:.1f} ms/step "
           f"({', '.join(f'{t:.1f}' for t in times)}), {B / (ms / 1e3):.2f} clips/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # one step split into its phases on the host clock, each closed by a
     # synchronize
@@ -1342,15 +1376,16 @@ def phase_first_stage(dev, smi):
     mark("d_s update")
     step.update_g(X, draws, 1.0)
     mark("generator update (forward, discs, VGG, backward, Adam)")
-    print("FIRST_STAGE step parts, host clock: " + "; ".join(
+    print(f"{label} step parts, host clock: " + "; ".join(
         f"{name} {1e3 * (t - t_prev):.1f} ms"
         for (_, t_prev), (name, t) in zip(marks, marks[1:])))
 
-    _, kernels = profiled("FIRST_STAGE train step",
+    _, kernels = profiled(f"{label} train step",
                           lambda: trainer.train_step(batch, 0, draw_gen))
     per_call = report_in_situ(kernels, "the step", "K3", "spade_gn_kernel",
                               launches["spade_gn"])
-    return launches, {"ms_per_step": ms, "in_situ_ms_per_call": per_call}
+    return launches, {"ms_per_step": ms, "in_situ_ms_per_call": per_call,
+                      "peak_gib": peak}
 
 
 def expected_third_stage_launches(cfg, path):
@@ -1611,9 +1646,10 @@ CLI_KERNELS = ("nice_net", "nice_net_train", "macow_unit_inverse",
 def _decode_levels(cfg) -> int:
     """The SPADE levels of a second stage's frozen first stage."""
     from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.models.pretrained_registry import resolve
 
-    return len(load_config(cfg["first_stage"]["config"])["architecture"]
-               ["dec_channels"]) - 1
+    sec = resolve("first_stage", dict(cfg["first_stage"]))
+    return len(load_config(sec["config"])["architecture"]["dec_channels"]) - 1
 
 
 def expected_cli_launches(name, cfg, n_train, n_val):
@@ -1623,6 +1659,7 @@ def expected_cli_launches(name, cfg, n_train, n_val):
     each step's no-grad pass, K4 in its recompute and the priors; its fp32
     DDI runs no kernel), its validation's no-grad density (K1 in every
     coupling) and sampling pass (K1, K2 in every unit, K3 per decode level);
+    an fp32 second stage (the recipes) runs no K1 or K4;
     the FC second stage's validation pass, K3 per decode level (its flat
     flows and steps run no kernel); flow_motion's validation, the bridge's
     units in the hallucinated flow (K2).  The image AEs, the FC encoders,
@@ -1638,8 +1675,9 @@ def expected_cli_launches(name, cfg, n_train, n_val):
     elif name == "second_stage":
         steps, levels = sum(arch["num_steps"]), len(arch["num_steps"])
         dec = _decode_levels(cfg)
-        want["nice_net"] = n_train * 4 * steps + n_val * 2 * (4 * steps + levels)
-        want["nice_net_train"] = n_train * (4 * steps + levels)
+        if cfg["training"].get("mixed_prec_master", False):  # K1/K4: bf16 only
+            want["nice_net"] = n_train * 4 * steps + n_val * 2 * (4 * steps + levels)
+            want["nice_net_train"] = n_train * (4 * steps + levels)
         want["macow_unit_inverse"] = n_val * 4 * steps
         want["spade_gn"] = n_val * dec
     elif name == "flow_motion":
@@ -3025,13 +3063,23 @@ def expected_ui_launches(cfg, passes):
 
 
 def poke_kernel_check(experiment, tag):
-    """K2 and K3 at the shapes a poke gives them: one poke of a session of
-    its own with every launch's inputs and output kept, then each kept
-    output held against the plain version on the same inputs (K2 at K2_TOL,
-    K3 at K3_TOL of its dtype, abs + rel), and each distinct shape timed,
-    kernel and plain, with its bound.  Returns the rows by kernel."""
-    from ipoke_tpu_torch.ops import masked_conv, spade_gn
+    """K2 and K3 at the shapes a poke gives them: ``launch_check`` of one
+    poke of a session of its own."""
     from ipoke_tpu_torch.ui import server
+
+    return launch_check(
+        tag, lambda: server.PokeSession(experiment, 256).poke(0.4, 0.6, -0.1, 0.05),
+        expected_ui_launches(experiment.config, 1))
+
+
+def launch_check(tag, run, want):
+    """K2 and K3 at the shapes ``run()`` gives them: ``run`` once with every
+    launch's inputs and output kept, its launches counted against ``want``,
+    then each kept output held against the plain version on the same inputs
+    (K2 at K2_TOL, K3 at K3_TOL of its dtype, abs + rel), and each distinct
+    shape timed, kernel and plain, with its bound.  Returns the rows by
+    kernel."""
+    from ipoke_tpu_torch.ops import masked_conv, spade_gn
 
     launch = {"macow_unit_inverse": masked_conv.macow_unit_inverse_cuda,
               "spade_gn": spade_gn.spade_gn_cuda}
@@ -3048,11 +3096,10 @@ def poke_kernel_check(experiment, tag):
     masked_conv.macow_unit_inverse_cuda = keeping("macow_unit_inverse")
     spade_gn.spade_gn_cuda = keeping("spade_gn")
     try:
-        server.PokeSession(experiment, 256).poke(0.4, 0.6, -0.1, 0.05)
+        run()
     finally:
         masked_conv.macow_unit_inverse_cuda = launch["macow_unit_inverse"]
         spade_gn.spade_gn_cuda = launch["spade_gn"]
-    want = expected_ui_launches(experiment.config, 1)
     rows = {}
     for name, plain in (("macow_unit_inverse", masked_conv.macow_unit_inverse_plain),
                         ("spade_gn", spade_gn.spade_gn_plain)):
@@ -3087,8 +3134,8 @@ def poke_kernel_check(experiment, tag):
             rows[name].append({**dims, **row, "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": bound_by,
                                "library_ms": None})
-            print(f"{tag} {name} at a poke's shape {dims} ({row["launches_a_poke"]} launches a "
-                  f"poke): every launch against its plain version on its inputs, max_abs_err "
+            print(f"{tag} {name} at the shape {dims} ({row["launches_a_poke"]} launches a "
+                  f"pass): every launch against its plain version on its inputs, max_abs_err "
                   f"{row['max_abs_err']:.3e} (tol {row['tol']:g}"
                   f"{' abs+rel' if rel else ''}), kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by})")
@@ -3200,14 +3247,13 @@ def phase_ui(dev, smi, root, processed):
     ``expected_ui_launches``."""
     import os
 
+    from ipoke_tpu_torch import entry
     from ipoke_tpu_torch.core.config import load_config
     from ipoke_tpu_torch.flows import count_params
 
     release()
     cfg = load_config(os.path.join("config", "second_stage.yaml")).to_dict()
-    cfg["first_stage"] = {"config": os.path.join("config", "first_stage.yaml")}
-    cfg["conditioner"] = {"use": True, "config": os.path.join("config", "img_encoder.yaml")}
-    cfg["poke_embedder"] = {"config": os.path.join("config", "poke_encoder.yaml")}
+    cfg.update({k: dict(v) for k, v in entry.SHIPPED_FROZEN.items()})
     t0 = time.perf_counter()
     e = ui_experiment(cfg, root, processed, dev)
     n = count_params(e.model.flow_params.tree())
@@ -3258,6 +3304,366 @@ def phase_ui_restore(dev, smi, tree):
                                                     "kernel_shapes": shape_rows}
 
 
+# (p) the reproduction recipes of config/pretrained_models/: fp32,
+# Adafactor.  (p1) plants_64.yaml at its width and depth (1054.43M params,
+# B = 40, 64 px), frozen nets from the shipped YAMLs drawn from the seed.
+# (p2) SMALL, fp32, 3 steps card against CPU under Adafactor and AdaBelief
+# from the same weights: losses within SMALL_TRAIN_TOL relative (f's rule);
+# each state tensor (Adafactor's rows, columns and full second moments,
+# AdaBelief's mu and nu) within RULE_STATE_TOL of its CPU norm.  Both sides
+# are fp32 summing in other orders (cuDNN vs oneDNN); the rule was fixed by
+# the same run on the CPU in fp32 against float64 (RULE_STATE_TOL's note).
+# (p3) plants_64.yaml through main.run at (k)'s depth cut, its frozen nets
+# (k)'s runs named through a registry file.
+RECIPE = "plants_64"
+RECIPE_STEPS = 3
+# fp32 against float64 on the CPU over (p2)'s 3 steps (this script's
+# phase_recipe_small with the card's side in float64 on the CPU): every
+# state tensor within 2.3e-4 of its norm (AdaBelief's; Adafactor's 1.7e-4),
+# the losses within 2.0e-5 relative; the card's fp32 against the CPU's fp32
+# within ten times that
+RULE_STATE_TOL = 2e-3
+# (q1) first-stage TINY under mixed_prec, card against CPU, both bf16 over
+# fp32 params, 3 steps each from the CPU's state; the rule is the CPU
+# test's (tests/test_torch_first_stage_bf16.py), fixed against float64 in
+# the same run (values read on NVIDIA H100 80GB HBM3 machines at 700 W,
+# over three runs of the phase).  Metrics: |card - CPU| <= FS_BF16_TOL (1
+# + |CPU|), read at most 3.7e-3; the generator's adversarial terms
+# (FS_BF16_ADV) read the discriminators after their own update, whose sign
+# bf16 gradients flip in 9-30% of the entries, and the CPU's bf16 value
+# itself moves from machine to machine (loss_g_t at step 0: -0.254 and
+# -0.457, the card -0.664, float64 -0.510): within FS_BF16_ADV_TOL (1 +
+# |CPU|), read at most 0.33.  Leaf by leaf, Adam's first moments ||card -
+# CPU|| <= FS_BF16_RATIO (||CPU - float64|| + 1e-3 ||float64||): the
+# median ratio within FS_BF16_RATIO_MEDIAN, read at most 0.90 over nine
+# steps, holds the backward (a wrong dtype or layer parts the card from the
+# CPU in most leaves); the largest, read up to 6.82 (a leaf whose CPU bf16
+# happens to lie near float64), guards against one leaf's gradient gone.
+# Every param within FS_BF16_PARAM_LR lr: Adam at betas (0.5, 0.9) steps an
+# entry by at most 1.16 lr over its first 4 steps (a numpy sweep of 200k
+# gradient sequences), so two sides stepping opposite ways part it by 2.32
+# lr.  The share of params past lr / 10 is printed, not held (card vs CPU
+# 9-30%).
+FS_BF16_TOL, FS_BF16_ADV_TOL = 1e-2, 1.0
+FS_BF16_ADV = ("loss_g_s", "loss_g_t", "loss_fmap_t", "loss")
+FS_BF16_RATIO, FS_BF16_RATIO_MEDIAN, FS_BF16_PARAM_LR = 30.0, 1.5, 2.5
+
+
+def phase_recipe(dev, smi):
+    """(p1) plants_64.yaml's second stage at its width and depth through
+    ``SecondStageTrainer``, no save: DDI, one checked step (no kernel: fp32
+    runs no K1 or K4), 3 timed steps, peak memory, the Adafactor state's
+    bytes beside AMSGrad's; then one full-depth ``forward_sample`` with every
+    K2 and K3 launch held against its plain version."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.core.optim import Adafactor, state_bytes
+    from ipoke_tpu_torch.flows import count_params
+    from ipoke_tpu_torch.train import SecondStageTrainer, run_lr_schedule
+
+    release()
+    cfg = entry.recipe_config(RECIPE)
+    d = cfg["data"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = entry.build_recipe(cfg, dev, gen)
+    batch = entry.make_batch({"batch_size": d["batch_size"], "T": d["max_frames"],
+                              "spatial": d["spatial_size"][0]}, dev)
+    n = count_params(model.flow_params.tree())
+    trainer = SecondStageTrainer(model, run_lr_schedule(cfg["training"]))
+    trainer.ddi(batch, gen)
+    entry.perturb(model.flow_params, gen)
+    trainer.start()
+    torch.cuda.synchronize()
+    if round(n / 1e6, 2) != 1054.43 or not isinstance(trainer.tx, Adafactor) \
+            or trainer.mixed:
+        raise AssertionError(f"(p1) {RECIPE}: {n} params, {type(trainer.tx).__name__}, "
+                             f"mixed {trainer.mixed}")
+    print(f"(p1) {RECIPE} built (frozen nets from the shipped YAMLs, drawn), fp32 DDI "
+          f"and Adafactor in {time.perf_counter() - t0:.1f} s: flow params {n / 1e6:.2f}M")
+    ops.reset_launches()  # the recipe's train path
+    losses = [trainer.train_step(batch, gen)["flow_loss"]]
+    torch.cuda.synchronize()
+    launches = {"recipe_train": check_launches(f"(p1) {RECIPE} train step",
+                                               dict.fromkeys(CLI_KERNELS, 0))}
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(RECIPE_STEPS):
+        start.record()
+        losses.append(trainer.train_step(batch, gen)["flow_loss"])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = [l.item() for l in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"(p1) {RECIPE} losses {losses}")
+    ms, peak = sum(times) / len(times), torch.cuda.max_memory_allocated() / 2 ** 30
+    state = state_bytes(trainer.tx)
+    amsgrad = 3 * 4 * sum(p.numel() for p in trainer.tx.params)  # three fp32 moments
+    factored = sum(v is not None for v in trainer.tx.v_row)
+    print(f"(p1) {RECIPE} train fp32 Adafactor B={d['batch_size']} T={d['max_frames']} "
+          f"{d['spatial_size'][0]}px: {ms:.1f} ms/step ({', '.join(f'{t:.1f}' for t in times)}), "
+          f"{d['batch_size'] / (ms / 1e3):.2f} clips/s, peak memory {peak:.2f} GiB on {smi}; "
+          f"optimizer state {state / 1e9:.3f} GB ({factored} of {len(trainer.tx.params)} "
+          f"leaves factored) against AMSGrad's {amsgrad / 1e9:.3f} GB for the same "
+          f"params; losses {losses}")
+    out = {"ms_per_step": ms, "steps_ms": times, "peak_gib": peak, "state_bytes": state,
+           "amsgrad_state_bytes": amsgrad, "factored_leaves": factored}
+    del trainer
+    release()
+    model.eval()
+    T = d["max_frames"]
+    want = expected_ui_launches(cfg, 1)
+    ops.reset_launches()  # the recipe's sampling path
+    with torch.no_grad():
+        video = model.forward_sample(batch, T, gen)
+    torch.cuda.synchronize()
+    launches["recipe_sample"] = check_launches(f"(p1) {RECIPE} forward_sample", want)
+    if tuple(video.shape) != (d["batch_size"], T, *d["spatial_size"], 3) \
+            or not bool(torch.isfinite(video).all()):
+        raise AssertionError(f"(p1) {RECIPE} video {tuple(video.shape)}")
+    start.record()
+    with torch.no_grad():
+        model.forward_sample(batch, T, gen)
+    end.record()
+    torch.cuda.synchronize()
+    out["sample_ms"] = start.elapsed_time(end)
+    with torch.no_grad():
+        rows = launch_check(f"(p1) {RECIPE} forward_sample",
+                            lambda: model.forward_sample(batch, T, gen), want)
+    print(f"(p1) {RECIPE} forward_sample fp32 B={d['batch_size']}: {out['sample_ms']:.1f} ms, "
+          f"video {tuple(video.shape)} finite on {smi}")
+    del model, video
+    release()
+    return launches, out, rows
+
+
+def phase_recipe_small(dev, card_device=None, card_dtype=torch.float32):
+    """(p2) SMALL, fp32, 3 train steps card against CPU under Adafactor and
+    AdaBelief from the same post-DDI weights: no kernel launches (fp32),
+    losses by (f)'s rule, the optimizer states within RULE_STATE_TOL.
+    ``card_device``/``card_dtype`` run the card's side elsewhere (the CPU
+    in float64 fixed RULE_STATE_TOL)."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    card_device = card_device or dev
+    cfg = entry.SMALL
+    gen = torch.Generator().manual_seed(0)
+    model = entry.build(cfg, "cpu", gen)
+    model.config["training"]["mixed_prec_master"] = False
+    batch = entry.make_batch(cfg, "cpu", seed=0)
+    SecondStageTrainer(model, SMALL_TRAIN_LR).ddi(batch)
+    entry.perturb(model.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
+    worst = {}
+    for rule in ("use_adafactor", "use_adabelief"):
+        losses, txs = {}, {}
+        for name, m, d, dt in (("card", copy.deepcopy(model), card_device, card_dtype),
+                               ("cpu", copy.deepcopy(model), "cpu", torch.float32)):
+            m = m.to(d, dt)
+            m.config["training"][rule] = True
+            trainer = SecondStageTrainer(m, SMALL_TRAIN_LR)
+            trainer.start()
+            b = {k: v.to(d, dt) for k, v in batch.items()}
+            losses[name] = []
+            for step in range(3):
+                ops.reset_launches()
+                losses[name].append(trainer.train_step(b)["flow_loss"].item())
+                if name == "card" and torch.device(d).type == "cuda":
+                    torch.cuda.synchronize()
+                    check_launches(f"(p2) SMALL {rule} step {step}",
+                                   dict.fromkeys(CLI_KERNELS, 0))
+            txs[name] = trainer.tx
+        rel = [abs(a - c) / abs(c) for a, c in zip(losses["card"], losses["cpu"])]
+        a, c = txs["card"].state_dict(), txs["cpu"].state_dict()
+        ratios = []
+        for key in c:
+            if key == "count":
+                continue
+            for x, y in zip(a[key], c[key]):
+                if y is not None:
+                    ratios.append(float((x.cpu().double() - y.double()).norm()
+                                        / (y.double().norm() + 1e-30)))
+        worst[rule] = {"loss_rel": max(rel), "state_rel": max(ratios)}
+        print(f"(p2) SMALL fp32 {rule[4:]}, 3 steps at lr {SMALL_TRAIN_LR}: card losses "
+              f"{losses['card']}, CPU {losses['cpu']} (rel diff "
+              f"{', '.join(f'{r:.2e}' for r in rel)}, tol {SMALL_TRAIN_TOL}); state "
+              f"tensors' worst |card - CPU| / |CPU| {max(ratios):.2e} over {len(ratios)} "
+              f"(tol {RULE_STATE_TOL})")
+        if not all(map(math.isfinite, losses["card"])) or max(rel) > SMALL_TRAIN_TOL \
+                or max(ratios) > RULE_STATE_TOL or not a["count"] == c["count"] == 3:
+            raise AssertionError(f"(p2) SMALL {rule}: card disagrees with the CPU")
+    return worst
+
+
+def _moment_ratios(card, cpu, exact):
+    """Per leaf ||card - CPU|| / (||CPU - float64|| + 1e-3 ||float64||) of
+    Adam's first moments, over the three nets; returns the ratios."""
+    ratios = []
+    for ta, tb, tc in zip((card.tx_g, card.tx_ds, card.tx_dt),
+                          (cpu.tx_g, cpu.tx_ds, cpu.tx_dt),
+                          (exact.tx_g, exact.tx_ds, exact.tx_dt)):
+        for p, q, r in zip(ta.params, tb.params, tc.params):
+            a = ta.adam.state[p]["exp_avg"].cpu().double()
+            b = tb.adam.state[q]["exp_avg"].double()
+            c = tc.adam.state[r]["exp_avg"]
+            ratios.append(float((a - b).norm() / ((b - c).norm() + 1e-3 * c.norm() + 1e-30)))
+    return ratios
+
+
+def phase_first_stage_tiny_bf16(dev):
+    """(q1) TINY under mixed_prec, 3 steps card against CPU (both bf16 over
+    fp32 params) and against the CPU port in float64, each step from the
+    CPU's state, by the FS_BF16 rule; K3 in bf16 under autograd, 18 a
+    step."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.models.first_stage import sample_draws
+    from ipoke_tpu_torch.nn.blocks import set_compute_dtype
+
+    cfg = entry.FIRST_STAGE_TINY_BF16
+    nets = entry.build_first_stage(cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = entry.make_first_stage_batch(cfg, "cpu")
+    draw_gen = torch.Generator().manual_seed(1)
+    draws = [sample_draws(draw_gen, cfg, cfg["data"]["batch_size"]) for _ in range(3)]
+    to = lambda d, dv, dt=None: {k: v.to(dv, dt) if torch.is_tensor(v) and v.is_floating_point()
+                                 else v.to(dv) if torch.is_tensor(v) else v
+                                 for k, v in d.items()}
+    card = _first_stage_step(cfg, [copy.deepcopy(n).to(dev) for n in nets])
+    cpu = _first_stage_step(cfg, nets)
+    exact = _first_stage_step(cfg, [set_compute_dtype(copy.deepcopy(n), None).double()
+                                    for n in nets])
+    want = expected_first_stage_launches(cfg)
+    rows = []
+    for i, d in enumerate(draws):
+        ops.reset_launches()
+        got = card(to(batch, dev), to(d, dev), 1.0)
+        torch.cuda.synchronize()
+        check_launches(f"(q1) first-stage TINY bf16 step {i}", want)
+        ref = cpu(batch, d, 1.0)
+        ex = exact(to(batch, "cpu", torch.float64), to(d, "cpu", torch.float64), 1.0)
+        if got["loss"].dtype != torch.float32 or got["loss_g_s"].dtype != torch.bfloat16:
+            raise AssertionError("(q1) the step's losses are not in JAX's dtypes")
+        diffs, bad = {}, []
+        for k in ref:
+            a, b = got[k].item(), ref[k].item()
+            tol = FS_BF16_ADV_TOL if k in FS_BF16_ADV else FS_BF16_TOL
+            diffs[k] = abs(a - b) / (tol * (1 + abs(b)))
+            if not math.isfinite(a) or diffs[k] > 1:
+                bad.append(k)
+        print(f"(q1) first-stage TINY bf16 step {i} metrics card / CPU / CPU float64: " + ", ".join(
+            f"{k} {got[k].item():.5g} / {ref[k].item():.5g} / {ex[k].item():.5g}" for k in ref)
+            + "; |card - CPU| over its limit: " + ", ".join(f"{k} {v:.2f}" for k, v in diffs.items()))
+        worst, off, total = 0.0, 0, 0
+        for ta, tb in zip((card.tx_g, card.tx_ds, card.tx_dt), (cpu.tx_g, cpu.tx_ds, cpu.tx_dt)):
+            for p, q in zip(ta.params, tb.params):
+                d = (p.detach().cpu() - q.detach()).abs()
+                worst = max(worst, float(d.max()) / FS_TINY_LR)
+                off, total = off + int((d > 0.1 * FS_TINY_LR).sum()), total + d.numel()
+                if p.dtype != torch.float32:
+                    bad.append("param dtype")
+        ratios = _moment_ratios(card, cpu, exact)
+        med = sorted(ratios)[len(ratios) // 2]
+        print(f"(q1) first-stage TINY bf16 step {i}: params' largest |card - CPU| {worst:.3f} lr "
+              f"(limit {FS_BF16_PARAM_LR}), {100 * off / total:.2f}% of them past lr / 10; "
+              f"first moments leaf by leaf ||card - CPU|| / (||CPU - float64|| + 1e-3 "
+              f"||float64||) median {med:.3f} (limit {FS_BF16_RATIO_MEDIAN}), largest "
+              f"{max(ratios):.3f} (limit {FS_BF16_RATIO}) over {len(ratios)} leaves")
+        if max(ratios) > FS_BF16_RATIO or med > FS_BF16_RATIO_MEDIAN:
+            bad.append("first moments")
+        if worst > FS_BF16_PARAM_LR:
+            bad.append("params")
+        if bad:
+            raise AssertionError(f"(q1) step {i}: card apart from the CPU in {bad}")
+        rows.append({"metrics_worst": max(diffs.values()), "ratio_median": med,
+                     "ratio_max": max(ratios), "param_max_lr": worst,
+                     "params_past_lr_10": off / total})
+        sync_first_stage(card, cpu)
+        sync_first_stage(exact, cpu)
+    return rows
+
+
+def phase_recipe_cli(dev, smi, tree):
+    """(p3) ``ipoke_tpu_torch.main`` of plants_64.yaml at (k)'s depth cut,
+    its frozen nets (k)'s first_stage, img_encoder and poke_encoder runs,
+    named plants_64 through a registry file (``IPOKE_TPU_REGISTRY``): one
+    epoch, a restore check (the Adafactor state and params bitwise), then
+    --resume for one more; launches against ``expected_cli_launches``."""
+    import os
+
+    import yaml
+
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+    from ipoke_tpu_torch.core.config import load_config
+    from ipoke_tpu_torch.core.optim import Adafactor
+
+    release()
+    root, data_root, base = tree["root"], tree["data_root"], tree["base"]
+    t0 = time.perf_counter()
+    run = lambda exp: {"config": os.path.join(base, exp, "config", "smoke", "0.yaml"),
+                       "ckpt": os.path.join(base, exp, "ckpt", "smoke", "0")}
+    registry = os.path.join(root, "registry.yaml")
+    with open(registry, "w") as f:
+        yaml.safe_dump({"first_stage_models": {RECIPE: run("first_stage")},
+                        "conditioner_models": {RECIPE: run("img_encoder")},
+                        "poke_embedder_models": {RECIPE: run("poke_encoder")}}, f)
+    cfg = load_config(os.path.join("config", "pretrained_models", f"{RECIPE}.yaml")).to_dict()
+    cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES, max_val_batches=1)
+    cfg["architecture"]["num_steps"] = CLI_SECOND_STAGE_STEPS
+    path = os.path.join(root, f"{RECIPE}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    old = os.environ.get("IPOKE_TPU_REGISTRY")
+    os.environ["IPOKE_TPU_REGISTRY"] = registry
+    results, launches = {}, {}
+    try:
+        e1, results["first"] = drive_cli(dev, smi, data_root, "second_stage", path)
+        launches["cli_recipe"] = results["first"]["launches"]
+        if not isinstance(e1.tx, Adafactor) or e1.ddi_runs != 1:
+            raise AssertionError(f"(p3) {type(e1.tx).__name__}, DDI {e1.ddi_runs}")
+        args = cli.parse_args(["--config", path, "--model_name", "smoke",
+                               "--data_root", data_root, "--resume"])
+        cfg_r, dirs, _ = cli.load_parameters(args)
+        e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
+        e2.build()
+        e2.restore_last()
+        saved, got = e1.tx.state_dict(), e2.tx.state_dict()
+        checks = {"step": e2.step == e1.step, "count": got["count"] == saved["count"],
+                  "Adafactor state bitwise": all(
+                      (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b))
+                      for key in ("v_row", "v_col", "v")
+                      for a, b in zip(got[key], saved[key])),
+                  "params fp32, bitwise": all(
+                      a.dtype == torch.float32 and torch.equal(a, b)
+                      for a, b in zip(e2.model.flow_params.parameters(),
+                                      e1.model.flow_params.parameters()))}
+        e2.metrics_logger.close()
+        print(f"(p3) {RECIPE} restore check (step {e2.step}, count {got['count']}, "
+              f"{sum(v is not None for v in got['v_row'])} factored leaves): {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"(p3) restore: {checks}")
+        step1, count1 = e1.step, e1.tx.count
+        del e1, e2
+        release()
+        e3, results["resume"] = drive_cli(dev, smi, data_root, "second_stage", path,
+                                          "--resume")
+        launches["cli_recipe_resume"] = results["resume"]["launches"]
+        n3 = len(e3.timings["step_s"])
+        if (e3.step, e3.tx.count, e3.ddi_runs) != (step1 + n3, count1 + n3, 0):
+            raise AssertionError(f"(p3) --resume: step {e3.step}, count {e3.tx.count}, "
+                                 f"DDI {e3.ddi_runs}")
+        del e3
+    finally:
+        if old is None:
+            os.environ.pop("IPOKE_TPU_REGISTRY", None)
+        else:
+            os.environ["IPOKE_TPU_REGISTRY"] = old
+    release()
+    print(f"(p3) {RECIPE} CLI in {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -3301,11 +3707,33 @@ def main():
     paths["train"] = phase_shipped_train(dev, smi)
     # (h) the non-square inverse: K5 in every masked-conv flow
     paths["inverse_8x16"] = phase_nonsquare(dev, smi)
-    # (i) the first-stage VAE-GAN train step
+    # (p1) the reproduction recipe at its width and depth, (p2) SMALL under
+    # Adafactor and AdaBelief card vs CPU
+    recipe_launches, recipe, rows = phase_recipe(dev, smi)
+    paths.update(recipe_launches)
+    for name, r in rows.items():
+        kernels[name]["recipe_sample_shapes"] = r
+    recipe["small_rules"] = phase_recipe_small(dev)
+    # (i) the first-stage VAE-GAN train step; (q3) K3 in bf16 at its
+    # training shapes, forward and backward; (q1) TINY under mixed_prec and
+    # a full_sequence: false step, card vs CPU; (q2) the yaml's step in bf16
     kernels["spade_gn"]["train_shapes"] = phase_k3_train(dev)
+    kernels["spade_gn"]["bf16_train_shapes"] = phase_k3_train(dev, torch.bfloat16)
     phase_first_stage_tiny(dev)
+    phase_first_stage_tiny_bf16(dev)
+    from ipoke_tpu_torch import entry
+
+    partial = copy.deepcopy(entry.FIRST_STAGE_TINY)
+    partial["training"]["full_sequence"] = False
+    phase_first_stage_tiny(dev, partial, 1, "(q1) first-stage TINY full_sequence false")
     paths["first_stage_train"], fs_times = phase_first_stage(dev, smi)
     kernels["spade_gn"]["first_stage_in_situ_ms"] = fs_times["in_situ_ms_per_call"]
+    paths["first_stage_bf16_train"], fs16 = phase_first_stage(
+        dev, smi, entry.FIRST_STAGE_BF16, "(q2) FIRST_STAGE_BF16")
+    kernels["spade_gn"]["first_stage_bf16_in_situ_ms"] = fs16["in_situ_ms_per_call"]
+    print(f"(q2) first-stage step, same call: bf16 {fs16['ms_per_step']:.1f} ms, "
+          f"{fs16['peak_gib']:.2f} GiB; fp32 {fs_times['ms_per_step']:.1f} ms, "
+          f"{fs_times['peak_gib']:.2f} GiB; on {smi}")
     # (j) the conv third stage
     for name, cases in phase_third_stage_kernels(dev).items():
         kernels[name]["third_stage_shapes"] = cases
@@ -3329,6 +3757,11 @@ def main():
         paths.update(ui_launches)
         for name, rows in ui_out["kernel_shapes"].items():
             kernels[name]["ui_restored_poke_shapes"] = rows
+        # (p3) the recipe through the CLI on (k)'s frozen runs; (k)'s second
+        # stage and third-stage runs are read by no later phase
+        free_runs(tree, ("second_stage", "flow_vae", "flow_motion"))
+        recipe_cli, _ = phase_recipe_cli(dev, smi, tree)
+        paths.update(recipe_cli)
         # (m) the FC tower: (m1) K3 at its shapes, (m2) FC_TINY card vs CPU,
         # (m3) its CLI runs, (m4) the --test modes on its second stage
         kernels["spade_gn"]["fc_shapes"] = phase_fc_kernels(dev)

@@ -439,7 +439,9 @@ class FirstStageExperiment(Experiment):
             # the JAX validation samples the posterior (apply with an rng)
             noise = torch.randn((X.shape[0], *shape), generator=self.generator,
                                 device=X.device)
-            X_hat = self.model(X, train=False, noise=noise)[0]
+            # bf16 under mixed_prec: the metrics take it upcast, as the
+            # JAX package's promote it against the fp32 batch
+            X_hat = self.model(X, train=False, noise=noise)[0].float()
             a = X[:, 1:].reshape(-1, *X.shape[2:])
             b = X_hat.reshape(-1, *X_hat.shape[2:])
             ssims.append(ssim(a, b).cpu().numpy())
@@ -626,13 +628,9 @@ class SecondStageExperiment(Experiment):
         first, cond, poke = load_frozen(cfg, self.init_generator)
         self.model = SecondStageModel(cfg, first, cond, poke)
         self.model.flow_params = ParamTree(
-            self.model.flow.init(self.init_generator, "cpu"))
+            self.model.init_params(self.init_generator, "cpu"))
         self.model.to(self.device)
         tcfg = cfg["training"]
-        for opt in ("use_adabelief", "use_adafactor"):
-            if tcfg.get(opt, False):
-                raise NotImplementedError(
-                    f"training.{opt} is not ported yet (ROADMAP queue 1 item 2)")
         self.trainer = SecondStageTrainer(
             self.model,
             run_lr_schedule(tcfg, tcfg.get("custom_lr_decrease", True)),

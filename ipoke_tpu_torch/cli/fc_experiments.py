@@ -334,7 +334,7 @@ class FlowMotionExperiment(Experiment):
         ss_cfg = load_config(ss_sec["config"]) if isinstance(
             ss_sec.get("config"), str) else Config(ss_sec["config"])
         ss_model = SecondStageModel(ss_cfg, first, cond, poke)
-        ss_model.flow_params = ParamTree(ss_model.flow.init(gen, "cpu"))
+        ss_model.flow_params = ParamTree(ss_model.init_params(gen, "cpu"))
         if ss_sec.get("ckpt"):
             ss_model.flow_params.load_state_dict(CheckpointStore(
                 ss_sec["ckpt"]).restore_best(weights=True))

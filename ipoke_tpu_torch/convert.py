@@ -4,7 +4,10 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
 (``to_numpy_tree`` makes them from JAX/flax trees; it imports no JAX itself).
 
 * A flow tree (the cINN's, the third stage's bridge) maps 1:1 onto the
-  port's (``flow_params``): same nesting, same leaf shapes.  Stacked
+  port's (``flow_params``): same nesting, same leaf shapes.  The second
+  stage's params go both ways with ``second_stage_params`` and
+  ``jax_second_stage_params``: with ``augmented_input`` its ``flow_params``
+  is JAX's whole tree, ``scale_augment`` and ``shift_augment`` included.  Stacked
   ``ScannedSteps`` leaves keep their leading n axis; the port walks them
   like the JAX scan does.
 * The flax nets map path by path onto the port's modules, whose names
@@ -61,6 +64,23 @@ def flow_params(tree, device="cpu", dtype=None):
         t = torch.as_tensor(np.array(a), device=device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
     return tree_map(leaf, tree)
+
+
+def second_stage_params(params, device="cpu", dtype=None):
+    """The port's ``flow_params`` tree of the JAX package's second-stage
+    params ``{"flow": ..., ["scale_augment", "shift_augment"]}``: the whole
+    tree with ``augmented_input``, the flow's alone without."""
+    tree = params if "scale_augment" in params else params["flow"]
+    return flow_params(tree, device, dtype)
+
+
+def jax_second_stage_params(model):
+    """The JAX package's second-stage params, as numpy, of the port's
+    ``SecondStageModel``: ``{"flow": ...}`` and, with ``augmented_input``,
+    ``scale_augment`` and ``shift_augment`` (float leaves as fp32)."""
+    tree = tree_map(lambda t: (t.detach().float() if t.is_floating_point() else t)
+                    .cpu().numpy(), model.flow_params.tree())
+    return tree if model.augment_channels else {"flow": tree}
 
 
 def _l2_normalize(x, eps):

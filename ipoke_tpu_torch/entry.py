@@ -16,7 +16,10 @@ non-trivial values for runs whose outputs are compared.
 ``FIRST_STAGE`` is ``config/first_stage.yaml`` (64 px, B=20, T=10, fp32),
 copied as the reference-style tree the first stage is built from;
 ``FIRST_STAGE_TINY`` is the TINY config of the JAX package's first-stage
-tests; ``FC_TINY`` the FC tower at those widths, which ``build_fcae`` and
+tests; ``FIRST_STAGE_BF16`` and ``FIRST_STAGE_TINY_BF16`` the two under
+``training.mixed_prec``.  ``recipe_config`` reads a reproduction recipe of
+``config/pretrained_models/`` with its frozen nets from the shipped YAMLs
+(``SHIPPED_FROZEN``), and ``build_recipe`` builds its second stage; ``FC_TINY`` the FC tower at those widths, which ``build_fcae`` and
 ``build_second_stage_fc`` make (with ``build_first_stage`` for its first
 stage); ``FC_THIRD_TINY`` adds the FC third stage over them (a flow
 encoder of z_dim 6 below the residual's 8, so that the INN's input is
@@ -99,6 +102,47 @@ FIRST_STAGE_TINY = {
 }
 
 
+# the first stage under training.mixed_prec (bf16 compute, fp32 params),
+# at config/first_stage.yaml's width and at TINY
+FIRST_STAGE_BF16 = {**FIRST_STAGE, "training": dict(FIRST_STAGE["training"],
+                                                    mixed_prec=True)}
+FIRST_STAGE_TINY_BF16 = {**FIRST_STAGE_TINY, "training": dict(
+    FIRST_STAGE_TINY["training"], mixed_prec=True)}
+# the frozen nets a reproduction recipe names, from the shipped YAMLs (drawn
+# from the seed where no run is named)
+SHIPPED_FROZEN = {
+    "first_stage": {"config": os.path.join("config", "first_stage.yaml")},
+    "conditioner": {"use": True, "config": os.path.join("config", "img_encoder.yaml")},
+    "poke_embedder": {"config": os.path.join("config", "poke_encoder.yaml")},
+}
+
+
+def recipe_config(name: str) -> dict:
+    """``config/pretrained_models/<name>.yaml`` as a tree, its frozen nets
+    the shipped YAMLs' (``SHIPPED_FROZEN``) in place of its registry names."""
+    from .core.config import load_config
+
+    cfg = load_config(os.path.join("config", "pretrained_models",
+                                   f"{name}.yaml")).to_dict()
+    cfg.update({k: dict(v) for k, v in SHIPPED_FROZEN.items()})
+    return cfg
+
+
+def build_recipe(cfg, device, generator: Optional[torch.Generator] = None) -> SecondStageModel:
+    """The fp32 second stage of a recipe tree (``recipe_config``): its
+    frozen nets built from their configs with weights drawn on the CPU from
+    a generator seeded 0 (or loaded from a named run), its cINN drawn on
+    ``device`` from ``generator``; frozen nets collapsed, eval, no grad."""
+    from .cli.experiments import load_frozen
+    from .core.config import Config
+
+    cfg = Config(cfg)
+    model = SecondStageModel(cfg, *load_frozen(cfg, torch.Generator().manual_seed(0)))
+    model = model.to(device)
+    model.flow_params = ParamTree(model.init_params(generator, torch.device(device)))
+    return model
+
+
 # config/flow_vae.yaml, the parts the trainer reads
 FLOW_VAE = {
     "data": {"spatial_size": (64, 64), "max_frames": 10, "batch_size": 64},
@@ -142,7 +186,9 @@ def second_stage_config(cfg) -> dict:
         "factor": cfg.get("factor", 16),
         "num_steps": list(cfg["num_steps"]), "kernel_size": [2, 3],
         "transform": "affine", "prior_transform": "affine",
-        "activation": "elu", "augmented_input": False},
+        "activation": "elu",
+        "augmented_input": bool(cfg.get("augment_channels", 0)),
+        "augment_channels": int(cfg.get("augment_channels", 0))},
         # the shipped recipe (config/second_stage.yaml): bf16-resident
         # params with fp32 masters; K4 runs in every bf16 NICE coupling
         "training": {"spatial_mean": False, "mixed_prec_master": True}}
@@ -205,7 +251,7 @@ def build(cfg, device,
     device = torch.device(device)
     with torch.device("meta"):
         model = make_model(cfg)
-    flow_tree = model.flow.init(generator, device)
+    flow_tree = model.init_params(generator, device)
     if device.type != "meta":
         model = model.to_empty(device=device)
         _init_random(model, generator)

@@ -151,7 +151,11 @@ class ParamTree(nn.Module):
 
     @torch.no_grad()
     def load_tree(self, tree) -> None:
-        """Copy the values of a tree of the same structure in, in place
-        (dtype and device stay the module's)."""
-        for dst, src in zip(tree_leaves(self.tree()), tree_leaves(tree)):
-            dst.copy_(src)
+        """Copy the values of a tree of the same structure in, in place, key
+        by key (dtype and device stay the module's)."""
+        for k in self._keys:
+            dst, src = getattr(self, k), tree[int(k) if self._is_list else k]
+            if isinstance(dst, ParamTree):
+                dst.load_tree(src)
+            else:
+                dst.copy_(src)

@@ -38,7 +38,7 @@ from torch import nn
 from ..flows import ParamTree
 from ..flows.fc import build_supervised_transformer
 from ..flows.loss import radial_sample
-from ..nn.blocks import Conv, Conv2dBlock, NormConv2d, ResBlock, Spade
+from ..nn.blocks import Conv, Conv2dBlock, NormConv2d, ResBlock, Spade, untyped
 from ..nn.discriminators import Dense
 from ..nn.encoders import ConvEncoder
 from ..nn.motion import BasicBlock3d, Conv3d, _gn
@@ -179,20 +179,22 @@ class _VectorMotionEncoder(nn.Module):
         if noise is None:
             noise = torch.randn(mu.shape, generator=generator, device=mu.device,
                                 dtype=mu.dtype)
-        return mu + torch.exp(0.5 * logvar) * noise, mu, logvar
+        return mu + torch.exp(0.5 * logvar) * noise.to(mu.dtype), mu, logvar
 
 
 class GRUCell(nn.Module):
     """flax ``nn.GRUCell``: r = s(ir(x) + hr(h)), z = s(iz(x) + hz(h)),
     n = tanh(in(x) + r * hn(h)), h' = (1 - z) * n + z * h; biases on ir,
-    iz, in and hn only."""
+    iz, in and hn only.  Built without ``dtype`` in the JAX package: its
+    dense layers promote."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
         for name in ("ir", "iz", "in"):
-            self.add_module(name, Dense(cin, features, bias=True))
-        self.hr, self.hz = Dense(features, features), Dense(features, features)
-        self.hn = Dense(features, features, bias=True)
+            self.add_module(name, untyped(Dense(cin, features, bias=True)))
+        self.hr = untyped(Dense(features, features))
+        self.hz = untyped(Dense(features, features))
+        self.hn = untyped(Dense(features, features, bias=True))
 
     def forward(self, h, x):
         r = torch.sigmoid(self.ir(x) + self.hr(h))
@@ -214,9 +216,9 @@ class FCBaselineModel(nn.Module):
                  enc_channels: Sequence[int] = (64, 128, 256, 256, 256),
                  dec_channels: Sequence[int] = (256, 256, 128, 64),
                  n_gru_layers: int = 2, use_spade: bool = True,
-                 deterministic: bool = False):
+                 deterministic: bool = False, full_seq: bool = True):
         super().__init__()
-        self.spatial_size, self.z_dim = spatial_size, z_dim
+        self.spatial_size, self.z_dim, self.full_seq = spatial_size, z_dim, full_seq
         self.deterministic, self.n_gru_layers = deterministic, n_gru_layers
         self.enc_motion = _VectorMotionEncoder(enc_channels, z_dim, spatial_size)
         for i in range(n_gru_layers):
@@ -225,8 +227,9 @@ class FCBaselineModel(nn.Module):
 
     def encode(self, X, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None):
-        """(z, mu, logvar) of the whole clip ``X`` (B, T+1, H, W, 3)."""
-        return self.enc_motion(X, generator, noise)
+        """(z, mu, logvar) of the clip ``X`` (B, T+1, H, W, 3): all of it
+        with ``full_seq``, else its T frames after the start frame."""
+        return self.enc_motion(X if self.full_seq else X[:, 1:], generator, noise)
 
     def decode(self, motion, start_frame, length: int, train: bool = False):
         """The GRU rollout over ``length`` steps from ``motion`` (B, z), then

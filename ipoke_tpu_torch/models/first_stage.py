@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..nn.blocks import set_compute_dtype
 from ..nn.discriminators import (
     PatchDiscriminator2D,
     ResNet3DDiscriminator,
@@ -47,17 +48,19 @@ class FirstStageModel(nn.Module):
                  norm: str = "group",
                  enc_channels: Optional[Sequence[int]] = None,
                  max_frames: int = 10, deterministic: bool = False,
-                 spectral_norm: bool = False):
+                 spectral_norm: bool = False, full_seq: bool = True):
         """``enc_channels`` None leaves the motion encoder out (sampling
         does not run it).  ``spectral_norm`` keeps the decoder's spectral
-        norm live (training); frozen models take it collapsed."""
+        norm live (training); frozen models take it collapsed.
+        ``full_seq`` encodes the whole clip, else the T frames after the
+        start frame (``training.full_sequence``)."""
         super().__init__()
         self.spatial_size, self.z_dim = spatial_size, z_dim
-        self.deterministic = deterministic
+        self.deterministic, self.full_seq = deterministic, full_seq
         if enc_channels is not None:
             self.enc_motion = ResNetMotionEncoder(
                 enc_channels, z_dim, spatial_size, max_frames,
-                min_spatial_size, deterministic)
+                min_spatial_size, deterministic, full_seq)
         self.n_gru_layers, self.min_spatial_size = n_gru_layers, min_spatial_size
         self.rnn = ConvGRU(z_dim, z_dim, n_gru_layers)
         self.motion_bias = nn.Parameter(
@@ -67,17 +70,20 @@ class FirstStageModel(nn.Module):
 
     def forward(self, X, train: bool = False, noise=None):
         """(X_hat (B, T, H, W, 3), mu, logvar) of the clip ``X`` (B, T+1, H,
-        W, 3): the whole clip encoded, z = noise * exp(logvar / 2) + mu (mu
-        without ``noise`` or when deterministic), decoded from the start
-        frame over T frames."""
-        motion, mu, logvar = self.enc_motion(X, noise=noise)
+        W, 3): the clip encoded (``encode``), z = noise * exp(logvar / 2) +
+        mu (mu without ``noise`` or when deterministic), decoded from the
+        start frame over T frames."""
+        motion, mu, logvar = self.enc_motion(self._encoded(X), noise=noise)
         return self.decode(motion, X[:, 0], X.shape[1] - 1, train), mu, logvar
 
+    def _encoded(self, X):
+        return X if self.full_seq else X[:, 1:]
+
     def encode(self, X, generator: Optional[torch.Generator] = None):
-        """(z, mu, logvar) of the whole clip ``X`` (B, T+1, H, W, 3), as
-        with the JAX package's ``full_seq``; z = mu without a generator or
-        when deterministic."""
-        return self.enc_motion(X, generator)
+        """(z, mu, logvar) of the clip ``X`` (B, T+1, H, W, 3): all of it
+        with ``full_seq``, else its T frames after the start frame; z = mu
+        without a generator or when deterministic."""
+        return self.enc_motion(self._encoded(X), generator)
 
     def decode(self, motion, start_frame, length: int, train: bool = False):
         """ConvGRU rollout over ``length`` frames from ``motion`` (B, s, s,
@@ -268,24 +274,24 @@ def build_fc_baseline(config):
         dec_channels=tuple(arch["dec_channels"]),
         n_gru_layers=arch.get("n_gru_layers", 2),
         use_spade=arch.get("CN_content", "spade") == "spade",
-        deterministic=arch.get("deterministic", False))
+        deterministic=arch.get("deterministic", False),
+        full_seq=bool(config["training"].get("full_sequence", True)))
 
 
 def build_first_stage(config):
     """(model, disc_s, disc_t) of a reference-style config tree, on the
-    current default device, fp32, weights uninitialised (``entry`` fills
-    them); ``architecture.fc_baseline`` builds ``build_fc_baseline``'s."""
+    current default device, fp32 params, weights uninitialised (``entry``
+    fills them); ``architecture.fc_baseline`` builds ``build_fc_baseline``'s.
+    Under ``training.mixed_prec`` all three compute in bf16 as the JAX
+    package's ``dtype=bfloat16`` nets do (``nn.blocks.set_compute_dtype``)."""
     arch, dcfg, tcfg = config["architecture"], config["data"], config["training"]
     if arch.get("baseline", False) and not arch.get("fc_baseline", False):
         raise NotImplementedError(
             "the PokeVAE baseline is not ported yet (ROADMAP queue 1 item 5)")
-    if tcfg.get("mixed_prec", False):
-        raise NotImplementedError("bf16 mixed_prec first-stage training is not "
-                                  "ported yet (ROADMAP queue 1 item 4)")
-    if not tcfg.get("full_sequence", True) or not arch.get("motion_bias", True) \
-            or arch.get("torch_compat", False):
-        raise NotImplementedError("the port's first stage takes full_sequence, "
-                                  "motion_bias and no torch_compat")
+    if not arch.get("motion_bias", True) or arch.get("torch_compat", False):
+        raise NotImplementedError("the port's first stage takes motion_bias and "
+                                  "no torch_compat (ROADMAP queue 1 item 3)")
+    full_seq = bool(tcfg.get("full_sequence", True))
     if arch.get("fc_baseline", False):
         model = build_fc_baseline(config)
     else:
@@ -298,10 +304,14 @@ def build_first_stage(config):
             enc_channels=tuple(arch["ENC_M_channels"]),
             max_frames=dcfg["max_frames"],
             deterministic=arch.get("deterministic", False),
-            spectral_norm=arch.get("spectral_norm", True))
+            spectral_norm=arch.get("spectral_norm", True), full_seq=full_seq)
     disc_s = PatchDiscriminator2D(ndf=config["d_s"].get("ndf", 64),
                                   n_layers=config["d_s"].get("n_layers", 3))
     disc_t = ResNet3DDiscriminator(
         layers=tuple(config["d_t"].get("layers", (1, 1, 1, 1))),
         patch_temp_disc=config["d_t"].get("patch_temp_disc", False))
-    return model, disc_s, disc_t
+    nets = (model, disc_s, disc_t)
+    if tcfg.get("mixed_prec", False):  # flax's dtype=bf16 over fp32 params
+        for net in nets:
+            set_compute_dtype(net, torch.bfloat16)
+    return nets

@@ -3,7 +3,14 @@
 frozen first stage's motion latent to z ~ N(0, I) (the density direction that
 training fits by NLL) and back (sampling), conditioned on
 ``h = [phi(x_0), phi(poke)]`` from the frozen conditioner and poke embedder;
-the first stage decodes a sampled latent to video."""
+the first stage decodes a sampled latent to video.
+
+With ``architecture.augmented_input`` the flow's input is the motion latent
+and ``augment_channels`` more: ``scale_augment * N(0, 1) + shift_augment``
+per channel, drawn for each density pass and DDI and dropped after the
+sampling inverse.  ``flow_params`` then holds the JAX package's whole
+second-stage tree, ``{"flow": ..., "scale_augment": ones, "shift_augment":
+zeros}`` (``init_params``); otherwise the flow's tree alone."""
 
 from __future__ import annotations
 
@@ -32,15 +39,15 @@ class SecondStageModel(nn.Module):
         self.first_stage = first_stage
         self.conditioner = conditioner
         self.poke_embedder = poke_embedder
-        if arch.get("augmented_input", False):
-            raise NotImplementedError("augmented_input is not ported yet")
         for size, name in ((poke_embedder.min_spatial_size, "poke embedder"),
                            (conditioner.min_spatial_size, "conditioner")):
             if size != first_stage.min_spatial_size:
                 raise NotImplementedError(
                     f"conv_adapt ({name} latent {size} vs first stage "
                     f"{first_stage.min_spatial_size}) is not ported yet")
-        flow_in = first_stage.z_dim
+        self.augment_channels = int(arch.get("augment_channels", 0)) \
+            if arch.get("augmented_input", False) else 0
+        flow_in = first_stage.z_dim + self.augment_channels
         h_channels = poke_embedder.nf_max + conditioner.nf_max
         self.flow = build_macow_transformer(dict(
             arch, flow_in_channels=flow_in, h_channels=h_channels,
@@ -50,6 +57,35 @@ class SecondStageModel(nn.Module):
         self.min_spatial_size = first_stage.min_spatial_size
         self.flow_params = ParamTree(flow_params) if flow_params is not None \
             else None
+
+    def init_params(self, generator, device):
+        """A new second-stage tree: the flow's init, and the augmentation's
+        scale (ones) and shift (zeros) with ``augmented_input``."""
+        tree = self.flow.init(generator, device)
+        if not self.augment_channels:
+            return tree
+        c = self.augment_channels
+        return {"flow": tree, "scale_augment": torch.ones(c, device=device),
+                "shift_augment": torch.zeros(c, device=device)}
+
+    def flow_tree(self):
+        """The flow's parameter tree (inside ``flow_params``)."""
+        tree = self.flow_params.tree()
+        return tree["flow"] if self.augment_channels else tree
+
+    def augment(self, motion, generator=None, noise=None):
+        """``motion`` with the augmentation channels appended: ``noise``
+        (B, s, s, augment_channels), or N(0, 1) drawn from ``generator``,
+        scaled and shifted by the trainable per-channel params."""
+        if not self.augment_channels:
+            return motion
+        if noise is None:
+            noise = torch.randn((*motion.shape[:-1], self.augment_channels),
+                                generator=generator, device=motion.device,
+                                dtype=motion.dtype)
+        tree = self.flow_params.tree()
+        aug = tree["scale_augment"] * noise.to(motion.dtype) + tree["shift_augment"]
+        return torch.cat([motion, aug], dim=-1)
 
     def embed_conditioning(self, batch):
         """h = [phi(x_0), phi(poke)] (B, s, s, Ch)."""
@@ -69,19 +105,32 @@ class SecondStageModel(nn.Module):
         params only."""
         with torch.no_grad():
             cond = self.embed_conditioning(batch)
-            return self.encode_first_stage(batch["images"], generator), cond
+            motion = self.encode_first_stage(batch["images"], generator)
+        # a first stage trained under mixed_prec computes in bf16: the flow
+        # takes its input in its params' dtype, as JAX promotes it
+        dtype = next(self.flow_params.parameters()).dtype
+        return motion.to(dtype), cond.to(dtype)
 
-    def forward_density(self, batch, generator: Optional[torch.Generator] = None):
-        """(z, logdet) of the batch's motion latent for NLL training."""
+    def forward_density(self, batch, generator: Optional[torch.Generator] = None,
+                        aug_noise: Optional[torch.Tensor] = None):
+        """(z, logdet) of the batch's motion latent for NLL training; the
+        augmentation's noise (``augmented_input``) is ``aug_noise`` or drawn
+        from ``generator`` after the motion sample."""
         motion, cond = self._flow_input(batch, generator)
-        return self.flow.forward(self.flow_params.tree(), motion, cond)
+        x = self.augment(motion, generator, aug_noise)
+        return self.flow.forward(self.flow_tree(), x, cond)
 
     @torch.no_grad()
-    def ddi(self, batch, generator: Optional[torch.Generator] = None):
-        """Data-dependent init of the flow from one batch: the new flow tree
-        (``flow_params.load_tree`` takes it in)."""
+    def ddi(self, batch, generator: Optional[torch.Generator] = None,
+            aug_noise: Optional[torch.Tensor] = None):
+        """Data-dependent init of the flow from one batch: the new
+        ``flow_params`` tree (``flow_params.load_tree`` takes it in)."""
         motion, cond = self._flow_input(batch, generator)
-        return self.flow.ddi(self.flow_params.tree(), motion, cond)[2]
+        x = self.augment(motion, generator, aug_noise)
+        new = self.flow.ddi(self.flow_tree(), x, cond)[2]
+        if not self.augment_channels:
+            return new
+        return dict(self.flow_params.tree(), flow=new)
 
     @torch.no_grad()
     def forward_sample(self, batch, length: int,
@@ -97,7 +146,8 @@ class SecondStageModel(nn.Module):
             z = torch.randn((x.shape[0], s, s, self.flow_in_channels),
                             generator=generator, device=x.device,
                             dtype=x.dtype)
-        motion = self.flow.inverse(self.flow_params.tree(), z, cond)
+        motion = self.flow.inverse(self.flow_tree(), z, cond)
+        motion = motion[..., :self.first_stage.z_dim]
         return self.first_stage.decode(motion, x[:, 0], length)
 
 

@@ -6,6 +6,16 @@ and attribute names repeat the flax names (``Conv_0``, ``GroupNorm_0``,
 ``Conv2dBlock_1``, ...) so that ``ipoke_tpu_torch.convert`` maps a flax tree
 onto them path by path.
 
+A compute dtype mirrors flax's ``dtype=`` with fp32 ``param_dtype``
+(``set_compute_dtype``): each conv, dense and norm layer that flax builds with
+``dtype`` casts its input and weights to it and returns it, while the params
+stay fp32.  A layer without one promotes its input and weights to their
+common type, as flax does with ``dtype=None``; a layer built so in the JAX
+package (the motion encoder's and discriminators' GroupNorms, the FC
+baseline's GRU cells) is marked ``untyped`` and keeps that rule.  Spectral
+norm's power iteration runs in the fp32 of the weight and its ``u``, before
+the cast (flax's ``SpectralNorm`` has no dtype of its own there).
+
 Spectral norm follows flax's ``nn.SpectralNorm``, not
 ``torch.nn.utils.spectral_norm``: a conv built with ``snorm`` keeps a buffer
 ``u`` (1, out) and ``sigma``, and every call runs one power-iteration step
@@ -29,6 +39,41 @@ def get_activation(name: str):
     return {"elu": F.elu, "tanh": torch.tanh, "none": None}[name]
 
 
+class Typed:
+    """A layer that takes a compute dtype: ``compute_dtype`` (None: promote)
+    unless built ``untyped``."""
+
+    takes_dtype = True
+    compute_dtype = None
+
+
+def untyped(module: nn.Module) -> nn.Module:
+    """``module`` marked as built without ``dtype`` in the JAX package:
+    ``set_compute_dtype`` passes it by."""
+    module.takes_dtype = False
+    return module
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Set the compute dtype of every typed layer of ``module`` (flax's
+    ``dtype``; None promotes); params are untouched."""
+    for m in module.modules():
+        if getattr(m, "takes_dtype", False):
+            m.compute_dtype = dtype
+    return module
+
+
+def promote(dtype, x, *params):
+    """flax's ``promote_dtype``: ``x`` and ``params`` cast to ``dtype``, or
+    without one to their common type (None entries pass)."""
+    if dtype is None:
+        dtype = x.dtype
+        for p in params:
+            if p is not None:
+                dtype = torch.promote_types(dtype, p.dtype)
+    return [None if t is None else t.to(dtype) for t in (x, *params)]
+
+
 def _num_groups(channels: int, max_groups: int = 16) -> int:
     g = min(channels, max_groups)
     while channels % g != 0:
@@ -36,11 +81,12 @@ def _num_groups(channels: int, max_groups: int = 16) -> int:
     return g
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Typed, nn.Module):
     """flax ``nn.GroupNorm`` on channels-last tensors (NHWC, or NTHWC with the
     statistics over all non-batch axes): fp32 statistics with the fast variance
-    max(E[x^2] - E[x]^2, 0), normalise, scale and shift in fp32, one cast to
-    the input dtype at the end."""
+    max(E[x^2] - E[x]^2, 0), normalise, scale and shift in fp32, one cast at
+    the end: to the compute dtype, else to the common type of the input and
+    the scale and bias (flax's ``_normalize``)."""
 
     def __init__(self, num_groups: int, channels: int, affine: bool = True,
                  eps: float = 1e-5):
@@ -59,9 +105,12 @@ class GroupNorm(nn.Module):
         var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
                           min=0.0)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        out = self.compute_dtype or x.dtype
         if self.scale is not None:
             y = y * self.scale.float() + self.bias.float()
-        return y.to(x.dtype)
+            if self.compute_dtype is None:
+                out = torch.promote_types(out, self.scale.dtype)
+        return y.to(out)
 
 
 def _l2_normalize(x, eps: float = 1e-12):
@@ -110,7 +159,7 @@ def make_norm(name: Optional[str], channels: int) -> Optional[nn.Module]:
     raise ValueError(f"unsupported norm {name!r}")
 
 
-class Conv(SpectralNormed):
+class Conv(Typed, SpectralNormed):
     """flax ``nn.Conv`` with symmetric integer padding, on NHWC tensors.
     ``weight`` is OIHW (converted from flax's HWIO kernel)."""
 
@@ -123,12 +172,13 @@ class Conv(SpectralNormed):
         self._init_snorm(snorm, cout)
 
     def forward(self, x, train: bool = False):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.normed_weight(train), self.bias,
-                     stride=self.stride, padding=self.padding)
+        x, w, b = promote(self.compute_dtype, x, self.normed_weight(train), self.bias)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
+                     padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 
-class ConvTranspose(SpectralNormed):
+class ConvTranspose(Typed, SpectralNormed):
     """flax ``nn.ConvTranspose(k3, s2, "SAME", transpose_kernel=False)`` on
     NHWC tensors: ``F.conv_transpose2d`` with the spatially flipped kernel,
     output cropped by one row and column at the end.  ``weight`` is
@@ -147,12 +197,12 @@ class ConvTranspose(SpectralNormed):
         return self.weight.transpose(0, 1).reshape(self.weight.shape[1], -1)
 
     def forward(self, x, train: bool = False):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.normed_weight(train),
-                               self.bias, stride=2)
+        x, w, b = promote(self.compute_dtype, x, self.normed_weight(train), self.bias)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=2)
         return y[:, :, :-1, :-1].permute(0, 2, 3, 1)
 
 
-class ConvTransposeTK(nn.Module):
+class ConvTransposeTK(Typed, nn.Module):
     """flax ``nn.ConvTranspose(k, s, "VALID", transpose_kernel=True)``
     without bias, cropped by ``padding`` on every side, on NHWC tensors:
     torch's ``ConvTranspose2d(k, s, padding, bias=False)``.  ``weight`` is (in, out, kh, kw),
@@ -165,7 +215,8 @@ class ConvTransposeTK(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, cout, ks, ks))
 
     def forward(self, x):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, None,
+        x, w = promote(self.compute_dtype, x, self.weight)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None,
                                stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
@@ -263,7 +314,7 @@ class ResBlock(nn.Module):
         return h + residual
 
 
-class NormConv2d(nn.Module):
+class NormConv2d(Typed, nn.Module):
     """The JAX package's ``NormConv2d`` on NHWC tensors: the kernel ``v``
     (HWIO, as flax stores it) over its l2 norm per output channel plus
     1e-12, then gamma * conv + beta, with explicit stride and symmetric
@@ -285,6 +336,8 @@ class NormConv2d(nn.Module):
 
     def forward(self, x):
         w = self.v / (torch.sqrt(torch.sum(self.v ** 2, dim=(0, 1, 2))) + 1e-12)
+        dt = self.compute_dtype
+        x, w = x.to(dt or x.dtype), w.to(dt or w.dtype)  # as flax's astype
         y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                      stride=self.st, padding=self.padding)
         return self.gamma * y.permute(0, 2, 3, 1) + self.beta

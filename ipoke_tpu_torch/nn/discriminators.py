@@ -17,17 +17,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv, GroupNorm, _num_groups
+from .blocks import Conv, GroupNorm, Typed, _num_groups, promote, untyped
 from .motion import Conv3d
 
 _GN_EPS = 1e-6  # flax nn.GroupNorm's default
 
 
 def _gn(c: int, groups: int = None) -> GroupNorm:
-    return GroupNorm(groups or _num_groups(c), c, eps=_GN_EPS)
+    """The discriminators' GroupNorm: flax's, built without ``dtype``."""
+    return untyped(GroupNorm(groups or _num_groups(c), c, eps=_GN_EPS))
 
 
-class Dense(nn.Module):
+class Dense(Typed, nn.Module):
     """flax ``nn.Dense``, with a bias when ``bias``; ``kernel`` is (in, out)
     as in flax."""
 
@@ -37,8 +38,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        x, k, b = promote(self.compute_dtype, x, self.kernel, self.bias)
+        y = x @ k
+        return y if b is None else y + b
 
 
 class PatchDiscriminator2D(nn.Module):

@@ -3,9 +3,8 @@
 Video layout (B, T, H, W, C) as in the JAX package; each conv runs as
 ``F.conv3d`` (cuDNN on the card) on an NCDHW view.  A Conv3d stem (3,7,7)
 with stride (2,2,2) and GroupNorm(16), ResNet-18-style stages whose temporal
-and spatial strides follow ``max_frames`` and ``min_spatial_size`` as in the
-JAX package with ``full_seq`` (the whole clip is encoded), a mean over the
-time left, 3x3 conv heads for (mu, logvar), and a reparameterised sample
+and spatial strides follow ``max_frames``, ``full_seq`` and
+``min_spatial_size`` as in the JAX package, a mean over the time left, 3x3 conv heads for (mu, logvar), and a reparameterised sample
 whose noise comes from a ``torch.Generator``.  Names repeat flax's so that ``convert.load_flax``
 maps a flax tree onto the module.
 """
@@ -14,21 +13,23 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Conv, GroupNorm, SpectralNormed, _num_groups
+from .blocks import Conv, GroupNorm, SpectralNormed, Typed, _num_groups, promote, untyped
 
 # flax ``nn.GroupNorm``'s default epsilon (the motion encoder keeps it)
 _GN_EPS = 1e-6
 
 
 def _gn(c: int) -> GroupNorm:
-    return GroupNorm(_num_groups(c), c, eps=_GN_EPS)
+    """The motion encoder's GroupNorm: flax's, built without ``dtype``."""
+    return untyped(GroupNorm(_num_groups(c), c, eps=_GN_EPS))
 
 
-class Conv3d(SpectralNormed):
+class Conv3d(Typed, SpectralNormed):
     """flax ``nn.Conv`` on (B, T, H, W, C) tensors without bias.  ``weight``
     is OIDHW (converted from flax's DHWIO kernel); ``padding`` symmetric per
     axis (a 1x1x1 kernel under flax's SAME pads nothing); ``snorm`` as in
@@ -43,8 +44,9 @@ class Conv3d(SpectralNormed):
         self._init_snorm(snorm, cout)
 
     def forward(self, x, train: bool = False):
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.normed_weight(train), None,
-                     stride=self.stride, padding=self.padding)
+        x, w = promote(self.compute_dtype, x, self.normed_weight(train))
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, stride=self.stride,
+                     padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -73,17 +75,20 @@ class ResNetMotionEncoder(nn.Module):
 
     def __init__(self, channels: Sequence[int], z_dim: int, spatial_size: int,
                  max_frames: int, min_spatial_size: int = 8,
-                 deterministic: bool = False):
+                 deterministic: bool = False, full_seq: bool = True):
         super().__init__()
         ch = list(channels)
         self.deterministic = deterministic
         self.Conv_0 = Conv3d(3, ch[0], (3, 7, 7), (2, 2, 2), (1, 3, 3))
         self.GroupNorm_0 = _gn(ch[0])
-        # the JAX package's strides with full_seq (the whole clip, the only
-        # setting used): stage 1 halves time; stage 4 runs if time or space
-        # is left to cut, stage 5 if space is
-        stages = [(ch[1], (2, 1, 1)), (ch[2], (2, 2, 2)), (ch[3], (2, 2, 2))]
-        stride4 = (2, 1, 1) if max_frames >= 16 else None
+        # the JAX package's strides: stage 1 halves time with full_seq (the
+        # whole clip) or when the channels are few for log2(max_frames);
+        # stage 4 runs if time (full_seq, 16+ frames) or space is left to
+        # cut, stage 5 if space is
+        down = full_seq or len(ch) - 1 < int(np.ceil(np.log2(max_frames)))
+        stages = [(ch[1], (2, 1, 1) if down else (1, 1, 1)), (ch[2], (2, 2, 2)),
+                  (ch[3], (2, 2, 2))]
+        stride4 = (2, 1, 1) if full_seq and max_frames >= 16 else None
         if spatial_size // 2 ** 3 > min_spatial_size:
             stride4 = (2, 2, 2)
         if stride4 is not None:
@@ -115,4 +120,4 @@ class ResNetMotionEncoder(nn.Module):
         if noise is None:
             noise = torch.randn(logvar.shape, generator=generator,
                                 device=mu.device, dtype=mu.dtype)
-        return noise * torch.exp(0.5 * logvar) + mu, mu, logvar
+        return noise.to(mu.dtype) * torch.exp(0.5 * logvar) + mu, mu, logvar

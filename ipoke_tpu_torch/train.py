@@ -91,14 +91,18 @@ def run_lr_schedule(tcfg, decay_to_end: bool = True):
 
 
 class SecondStageTrainer:
-    """``clip_grad_norm``: ``flow_adam``'s clip by global norm (0: none)."""
+    """``clip_grad_norm``: ``flow_adam``'s clip by global norm (0: none);
+    the config's ``training.use_adafactor`` / ``use_adabelief`` choose its
+    rule, under ``mixed_prec_master`` too."""
 
     def __init__(self, model: SecondStageModel, lr_schedule,
                  clip_grad_norm: float = 0.0, wrap=_identity):
         self.model = model
-        self.mixed = bool(model.config.get("training", {}).get(
-            "mixed_prec_master", False))
-        self.make_tx = lambda params: flow_adam(params, lr_schedule, clip_grad_norm)
+        tcfg = model.config.get("training", {})
+        self.mixed = bool(tcfg.get("mixed_prec_master", False))
+        rule = {k: bool(tcfg.get(k, False)) for k in ("use_adabelief", "use_adafactor")}
+        self.make_tx = lambda params: flow_adam(params, lr_schedule, clip_grad_norm,
+                                                **rule)
         self.wrap = wrap
         self.tx = self._step = None
 

@@ -486,6 +486,64 @@ def test_spade_gn_kernel_training_shapes(dev, s, ch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("s,ch", SPADE_TRAIN)
+def test_spade_gn_bf16_training_shapes_card_matches_cpu(dev, s, ch):
+    """K3 in bf16 under autograd at the first-stage training shapes (the
+    ``mixed_prec`` decoder's): the card's forward against the CPU's plain
+    version within chip_smoke.py's bf16 bound (3e-2 abs + rel), the
+    gradients through K3 + the portable VJP in bf16 and against the CPU's
+    autograd of the plain version within the same bound."""
+    x = (2.0 * _randn(dev, 20, s, s, ch, seed=94) + 0.5).bfloat16()
+    gamma = _randn(dev, 20, s, s, ch, std=0.5, seed=95).bfloat16()
+    beta = _randn(dev, 20, s, s, ch, std=0.5, seed=96).bfloat16()
+    r = _randn(dev, 20, s, s, ch, seed=97).bfloat16()
+    out = []
+    for d in (dev, "cpu"):
+        leaves = [t.to(d).clone().requires_grad_() for t in (x, gamma, beta)]
+        y = spade_gn.spade_gn_modulate(*leaves, 16)
+        out.append((y, *torch.autograd.grad((y * r.to(d)).sum(), leaves)))
+    assert ops.LAUNCHES["spade_gn"] == 1
+    for a, b in zip(*out):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("rule", ["use_adafactor", "use_adabelief"])
+def test_rule_steps_card_match_cpu(dev, rule):
+    """Three fp32 train steps under Adafactor / AdaBelief on the card (no
+    kernel: K1 and K4 are bf16 only) against the CPU port from the same
+    post-DDI weights: the losses within 1e-3 relative, every state tensor
+    within 2e-3 of its norm (chip_smoke.py's (p2) rule)."""
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    cfg = dict(TOY, min_spatial=4, enc_ch=(16, 16, 32, 32), dec_ch=(32, 32, 16, 16))
+    gen = torch.Generator().manual_seed(0)
+    model = entry.build(cfg, "cpu", gen)
+    model.config["training"]["mixed_prec_master"] = False
+    batch = entry.make_batch(cfg, "cpu")
+    SecondStageTrainer(model, 1e-3).ddi(batch)
+    entry.perturb(model.flow_params, gen, 0.03, 0.03)
+    losses, states = [], []
+    for m, d in ((copy.deepcopy(model).to(dev), dev), (model, "cpu")):
+        m.config["training"][rule] = True
+        trainer = SecondStageTrainer(m, 1e-3)
+        trainer.start()
+        b = {k: v.to(d) for k, v in batch.items()}
+        ops.reset_launches()
+        losses.append([trainer.train_step(b)["flow_loss"].item() for _ in range(3)])
+        assert not any(ops.LAUNCHES.values())
+        states.append(trainer.tx.state_dict())
+    np.testing.assert_allclose(*losses, rtol=1e-3)
+    card, cpu = states
+    assert card["count"] == cpu["count"] == 3
+    for key in cpu:
+        if key == "count":
+            continue
+        for a, b in zip(card[key], cpu[key]):
+            if b is not None:
+                assert (a.cpu() - b).norm() <= 2e-3 * b.norm() + 1e-30, key
+
+
 def _check_update(card_tx, cpu_tx, lr, name):
     """The card's optimizer after an update against the CPU's, by
     chip_smoke.py's (i2) rule: every param within 2 lr, at most 1% of them

@@ -151,13 +151,13 @@ def test_gan_adam_matches_optax():
 
 
 def test_build_first_stage_refuses_unported_branches():
-    """The PokeVAE branch and bf16 mixed_prec name their queue (the FC
-    baseline is ported: ``tests/test_torch_fc_baseline.py``)."""
-    for section, key in (("architecture", "baseline"), ("training", "mixed_prec")):
-        cfg = copy.deepcopy(TINY)
-        cfg[section][key] = True
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tfs.build_first_stage(cfg)
+    """The PokeVAE branch names its queue (the FC baseline is ported:
+    ``tests/test_torch_fc_baseline.py``; bf16 ``mixed_prec``:
+    ``tests/test_torch_first_stage_bf16.py``)."""
+    cfg = copy.deepcopy(TINY)
+    cfg["architecture"]["baseline"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        tfs.build_first_stage(cfg)
 
 
 def test_trainer_gates_and_schedule():

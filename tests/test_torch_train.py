@@ -92,12 +92,14 @@ def toy_weights():
 
 
 LR = 1e-3
+TRAJECTORY_RTOL = 5e-3
 
 
 @pytest.mark.parametrize("mixed,rtol", [(False, 1e-4), (True, 2e-2)])
 def test_train_steps_match_jax(toy_weights, mixed, rtol):
     """Three steps of ``make_second_stage_train_step`` with ``flow_adam`` at
-    a constant lr: the losses, and the params after them.
+    a constant lr: the losses, and the params after them; in fp32 then 27
+    more, the 30 losses within ``TRAJECTORY_RTOL`` (5e-3) relative.
 
     Losses: 1e-4 relative in fp32, 2e-2 in bf16 with fp32 masters
     (``master_weights``; both sides round activations at different places).
@@ -153,3 +155,13 @@ def test_train_steps_match_jax(toy_weights, mixed, rtol):
         assert np.linalg.norm((g - p) - (w - p)) <= 0.5 * np.linalg.norm(w - p)
         if not mixed:
             assert np.linalg.norm(g - w) <= 1e-3 * np.linalg.norm(w)
+    if mixed:
+        return
+    # the 30-step fp32 NLL trajectory (ROADMAP queue 1 item 2's criterion):
+    # 27 more steps of both, every loss within 5e-3 relative
+    for i in range(3, 30):
+        state, log = step(state, frozen, _jnp(batch), K(10 + i))
+        want.append(float(log["flow_loss"]))
+        got.append(trainer.train_step({k: _t(v) for k, v in batch.items()})
+                   ["flow_loss"].item())
+    np.testing.assert_allclose(got, want, rtol=TRAJECTORY_RTOL)
