@@ -69,6 +69,19 @@ Phases, in order; any failure raises and exits non-zero:
       ``forward_sample`` (200 K2, 3 K3) with every launch held against its
       plain version; (p2) SMALL, fp32, 3 steps card against CPU under
       Adafactor and under AdaBelief: losses and optimizer states.
+  (r) the paper's PyTorch checkpoints (ipoke_tpu_torch.reference, fp32,
+      TF32 off, reference-layout states drawn from a seed): (r1) SMALL
+      with architecture.torch_compat from Lightning .ckpt files through
+      the loader, card against the CPU port within REF_TOL abs + rel; (r2)
+      SHIPPED (128 px, B=40, T=10, the 1054.43M-param cINN) with
+      torch_compat, the states held in memory: one pass with the launch
+      counts zeroed before and read after (200 K2, 4 K3), REF_PASSES timed
+      passes and the peak memory, one pass under torch.profiler (busy
+      share, K2's and K3's device time in it), every K2 and K3 launch
+      against its plain version, then the same weights with torch_compat off, timed in
+      turns (on, off, on); (r3), after (k): (k)'s poke_encoder run again
+      with the native loader helpers and then under IPOKE_NATIVE=0, the
+      loader's wait per step of each.
   (i) the first-stage VAE-GAN train step (config/first_stage.yaml: 64 px,
       B=20, T=10, fp32): (i1) K3 at the decoder's training shapes (fp32,
       20 frames, one modulation per frame, 16/32/64 px) against its plain
@@ -234,6 +247,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1920,6 +1934,36 @@ def phase_cli(dev, smi, tree):
     print(f"CLI phase (k) in {time.perf_counter() - t0:.1f} s")
     tree["second_stage"] = ss_path
     return launches, results
+
+
+def phase_native_loader(dev, smi, tree):
+    """(r3) (k)'s poke_encoder run (images, pokes and flows through the
+    loader) again, its frames and flows decoded by the native helpers of
+    ``data/native.py``, then under ``IPOKE_NATIVE=0`` (cv2 and numpy): the
+    loader's wait per step, the first batch's and the mean of the rest, in
+    turn on the card's host."""
+    from ipoke_tpu_torch.data import native
+
+    path = os.path.join(tree["root"], "poke_encoder.yaml")
+    out = {}
+    for label, flag in (("native", "1"), ("cv2", "0")):
+        os.environ["IPOKE_NATIVE"] = flag
+        try:
+            e, rec = drive_cli(dev, smi, tree["data_root"], "poke_encoder", path)
+        finally:
+            os.environ.pop("IPOKE_NATIVE", None)
+        del e
+        release()
+        wait = rec["loader_wait_ms"]
+        out[label] = {"loader_wait_ms": wait, "first_ms": wait[0],
+                      "rest_mean_ms": sum(wait[1:]) / max(1, len(wait) - 1)}
+    if not native.LIB.exists():
+        raise AssertionError("(r3) the native loader library was not built")
+    print(f"(r3) CLI poke_encoder loader wait per step, native decoders: first batch "
+          f"{out['native']['first_ms']:.2f} ms, then {out['native']['rest_mean_ms']:.2f} ms "
+          f"mean; IPOKE_NATIVE=0 (cv2): first {out['cv2']['first_ms']:.2f} ms, then "
+          f"{out['cv2']['rest_mean_ms']:.2f} ms mean; on the card's host, {smi}")
+    return out
 
 
 # (l) the --test modes.  (l1) the evaluation nets, card against the CPU
@@ -3664,6 +3708,164 @@ def phase_recipe_cli(dev, smi, tree):
     return launches, results
 
 
+# (r) the paper's PyTorch checkpoints through ipoke_tpu_torch.reference:
+# (r1) SMALL (64 px, B = 8) with architecture.torch_compat, its four
+# reference states drawn from REF_SEED, written as Lightning .ckpt files and
+# read back through the loader; card against the CPU port, fp32, TF32 off,
+# the same z: frames within REF_TOL abs + rel ((j2)'s rule: both sides
+# fp32, cuDNN against oneDNN convs, K2 and K3 against their plain
+# versions; a wrong layout or kernel moves them by O(1)).  (r2) SHIPPED
+# (bench.py's 128 px, B = 40, T = 10, the 1054.43M-param cINN) in fp32 with
+# torch_compat, the reference states held in memory (4.2 GB of cINN; (r1)
+# ran the file round trip), REF_PASSES timed passes after a warm one
+REF_SEED, REF_TOL, REF_PASSES = 0, 1e-3, 3
+
+
+def expected_reference_launches(cfg):
+    """Per fp32 sampling pass: K2 in each of a step's 4 MaCowUnits (the 8x8
+    latents fit it), K3 once a decoder level; no K1 (bf16 only) or K5."""
+    return {"nice_net": 0, "nice_net_train": 0,
+            "macow_unit_inverse": 4 * sum(cfg["num_steps"]),
+            "masked_conv_inverse": 0, "spade_gn": len(cfg["dec_ch"]) - 1}
+
+
+def reference_model(cfg, dev, states=None, seed=REF_SEED):
+    """(model, states): ``cfg``'s second stage with ``torch_compat``, built
+    on ``meta`` and moved to ``dev`` without weights, then loaded through
+    ``reference.load_second_stage`` from ``states`` (drawn from ``seed``
+    in the reference's layout without them); fp32, eval."""
+    from ipoke_tpu_torch import entry, reference
+    from ipoke_tpu_torch.flows import ParamTree
+
+    cfg = dict(cfg, torch_compat=True)
+    with torch.device("meta"):
+        model = entry.make_model(cfg)
+    if states is None:
+        states = reference.draw_second_stage(model, seed)
+    model = model.to_empty(device=dev)
+    model.flow_params = ParamTree(model.init_params(
+        torch.Generator(device=dev).manual_seed(seed), dev))
+    reference.load_second_stage(model, states["first_stage"], states["conditioner"],
+                                states["poke_embedder"], states["flow"])
+    return model.eval(), states
+
+
+def phase_reference_small(dev):
+    """(r1) SMALL with torch_compat from seeded reference .ckpt files, card
+    against CPU, fp32."""
+    import tempfile
+
+    from ipoke_tpu_torch import entry, ops, reference
+
+    cfg = entry.SMALL
+    with tempfile.TemporaryDirectory() as d:
+        drawn = reference_model(cfg, "cpu")[1]
+        for name, state in drawn.items():
+            reference.save_ckpt(state, os.path.join(d, f"{name}.ckpt"))
+        states = {name: reference.read_state(os.path.join(d, f"{name}.ckpt"))
+                  for name in drawn}
+    cpu = reference_model(cfg, "cpu", states)[0]
+    card = reference_model(cfg, dev, states)[0]
+    batch = entry.make_batch(cfg, "cpu", seed=1)
+    s = cfg["min_spatial"]
+    z = torch.randn((cfg["batch_size"], s, s, cfg["z_dim"]),
+                    generator=torch.Generator().manual_seed(2))
+    ops.reset_launches()
+    got = card.forward_sample({k: v.to(dev) for k, v in batch.items()}, cfg["T"],
+                              z=z.to(dev))
+    torch.cuda.synchronize()
+    launches = check_launches("(r1) SMALL torch_compat fp32 pass",
+                              expected_reference_launches(cfg))
+    want = cpu.forward_sample(batch, cfg["T"], z=z)
+    err = check_close("(r1) SMALL torch_compat frames, card vs CPU", got.cpu(), want,
+                      REF_TOL, REF_TOL)
+    print(f"(r1) SMALL torch_compat from seeded reference .ckpt files (the loader's "
+          f"file route): frames {tuple(got.shape)} card vs CPU max_abs_err {err:.3e} "
+          f"(tol {REF_TOL} abs+rel)")
+    return launches
+
+
+def phase_reference(dev, smi, cfg=None):
+    """(r2) SHIPPED (or ``cfg``) fp32 with torch_compat from a seeded reference state:
+    the pass's launches, REF_PASSES timed passes and peak memory, every K2
+    and K3 launch against its plain version, then the same weights with
+    torch_compat off, timed in the same way."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.flows import count_params
+    from ipoke_tpu_torch.models.first_stage import FirstStageModel
+
+    release()
+    cfg = cfg or entry.SHIPPED
+    t0 = time.perf_counter()
+    model, states = reference_model(cfg, dev)
+    del states
+    torch.cuda.synchronize()
+    n = count_params(model.flow_params.tree())
+    print(f"(r2) SHIPPED torch_compat drawn in the reference's layout and loaded in "
+          f"{time.perf_counter() - t0:.1f} s: flow params {n / 1e6:.2f}M")
+    if cfg is entry.SHIPPED and round(n / 1e6, 2) != 1054.43:
+        raise AssertionError(f"(r2) flow params {n} != 1054.43M")
+    batch = entry.make_batch(cfg, dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    want = expected_reference_launches(cfg)
+    ops.reset_launches()  # the reference path's run
+    frames = model.forward_sample(batch, cfg["T"], gen)
+    torch.cuda.synchronize()
+    launches = check_launches("(r2) SHIPPED torch_compat fp32 pass", want)
+    shape = (cfg["batch_size"], cfg["T"], cfg["spatial"], cfg["spatial"], 3)
+    if tuple(frames.shape) != shape or not bool(torch.isfinite(frames).all()):
+        raise AssertionError(f"(r2) frames {tuple(frames.shape)}: want finite {shape}")
+    del frames
+
+    def timed():
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REF_PASSES):
+            t1 = time.perf_counter()
+            model.forward_sample(batch, cfg["T"], gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
+        return times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    times, peak = timed()
+    ms = sum(times) / len(times)
+    print(f"(r2) SHIPPED torch_compat fp32 B={cfg['batch_size']} T={cfg['T']} "
+          f"{cfg['spatial']}px: {ms:.1f} ms/pass ({', '.join(f'{t:.1f}' for t in times)}), "
+          f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s, peak memory {peak:.2f} GiB on {smi}")
+    # one pass under the profiler: the busy share and K2's and K3's device
+    # time in the pass
+    _, kernels = profiled("(r2) SHIPPED torch_compat fp32 pass",
+                          lambda: model.forward_sample(batch, cfg["T"], gen))
+    in_situ = {name: report_in_situ(kernels, "the pass", name, key, want[kernel])
+               for name, key, kernel in (
+                   ("K2", "macow_unit_inverse_kernel", "macow_unit_inverse"),
+                   ("K3", "spade_gn_kernel", "spade_gn"))}
+    rows = launch_check("(r2) SHIPPED torch_compat",
+                        lambda: model.forward_sample(batch, cfg["T"], gen), want)
+    off = FirstStageModel(cfg["spatial"], z_dim=cfg["z_dim"], dec_channels=cfg["dec_ch"],
+                          n_gru_layers=2, min_spatial_size=cfg["min_spatial"],
+                          enc_channels=cfg["enc_ch"], max_frames=cfg["T"])
+    off.load_state_dict(model.first_stage.state_dict())
+    on, off = model.first_stage, off.to(dev).eval()
+    model.first_stage = off
+    model.forward_sample(batch, cfg["T"], gen)
+    torch.cuda.synchronize()
+    off_times, off_peak = timed()
+    model.first_stage = on  # in turns: on, off, on
+    times2, _ = timed()
+    off_ms, on_ms = sum(off_times) / len(off_times), sum(times + times2) / (2 * REF_PASSES)
+    print(f"(r2) the same weights with torch_compat off: {off_ms:.1f} ms/pass "
+          f"({', '.join(f'{t:.1f}' for t in off_times)}), peak memory {off_peak:.2f} GiB; "
+          f"on again {', '.join(f'{t:.1f}' for t in times2)} ms: on {on_ms:.1f} ms over "
+          f"the {2 * REF_PASSES} passes before and after, {on_ms - off_ms:+.1f} ms a pass, "
+          f"same call, {smi}")
+    del model, on, off
+    release()
+    return launches, {"ms_per_pass": ms, "passes_ms": times, "peak_gib": peak,
+                      "off_ms_per_pass": off_ms, "off_passes_ms": off_times,
+                      "on_again_passes_ms": times2, "in_situ_ms": in_situ}, rows
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -3714,6 +3916,14 @@ def main():
     for name, r in rows.items():
         kernels[name]["recipe_sample_shapes"] = r
     recipe["small_rules"] = phase_recipe_small(dev)
+    # (r1) a SMALL torch_compat stack from seeded reference .ckpt files,
+    # card vs CPU; (r2) the SHIPPED-width fp32 pass with torch_compat
+    paths["reference_small"] = phase_reference_small(dev)
+    paths["reference_sample"], ref_out, rows = phase_reference(dev, smi)
+    for name, r in rows.items():
+        kernels[name]["reference_sample_shapes"] = r
+    kernels["macow_unit_inverse"]["reference_in_situ_ms"] = ref_out["in_situ_ms"]["K2"]
+    kernels["spade_gn"]["reference_in_situ_ms"] = ref_out["in_situ_ms"]["K3"]
     # (i) the first-stage VAE-GAN train step; (q3) K3 in bf16 at its
     # training shapes, forward and backward; (q1) TINY under mixed_prec and
     # a full_sequence: false step, card vs CPU; (q2) the yaml's step in bf16
@@ -3748,6 +3958,8 @@ def main():
         # (k) the port's CLI through the conv pipeline
         cli_launches, _ = phase_cli(dev, smi, tree)
         paths.update(cli_launches)
+        # (r3) the loader's wait with the native decoders and without
+        phase_native_loader(dev, smi, tree)
         # (l) the --test modes on (k)'s second-stage run
         phase_eval_nets(dev, smi)
         test_launches, _ = phase_test_modes(dev, smi, tree)

@@ -225,6 +225,17 @@ class Experiment:
         """Model-only tree for cross-stage loading."""
         return None
 
+    def load_tx(self, tx, state) -> None:
+        """``tx``'s saved state; None (a run converted from reference or JAX
+        weights, ``reference.write_run``, ``tools/jax_run_to_torch.py``)
+        leaves the optimizer fresh: its moments and its schedule's count at
+        0."""
+        if state is None:
+            self.logger.info("no optimizer state in the checkpoint: the "
+                             "optimizer starts fresh")
+        else:
+            tx.load_state_dict(state)
+
     def _resume_template(self) -> None:
         """Bring the built state to the form a trained checkpoint holds
         before it is loaded; subclasses whose trained state differs from
@@ -417,8 +428,8 @@ class FirstStageExperiment(Experiment):
         self.model.load_state_dict(state["model"])
         self.disc_s.load_state_dict(state["disc_s"])
         self.disc_t.load_state_dict(state["disc_t"])
-        for tx, s in zip(self.trainer.tx, state["tx"]):
-            tx.load_state_dict(s)
+        for i, tx in enumerate(self.trainer.tx):
+            self.load_tx(tx, None if state["tx"] is None else state["tx"][i])
 
     def export_weights(self):
         return self.model.state_dict()
@@ -518,10 +529,10 @@ class _AEExperiment(Experiment):
 
     def load_checkpoint_state(self, state):
         self.model.load_state_dict(state["model"])
-        self.tx.load_state_dict(state["tx"])
+        self.load_tx(self.tx, state["tx"])
         if self.use_disc:
             self.disc.load_state_dict(state["disc"])
-            self.tx_d.load_state_dict(state["tx_d"])
+            self.load_tx(self.tx_d, state["tx_d"])
 
     def export_weights(self):
         return self.model.ae.state_dict()
@@ -573,7 +584,9 @@ def load_frozen_net(config, section: str, build, generator):
     ``build(sub_config)`` from its own config (``<section>.config``, a path
     or a tree), loaded from the best ``*_weights`` of its run
     (``<section>.ckpt``; random weights from the CPU ``generator`` without
-    one), then frozen: spectral norms collapsed, eval, no grad."""
+    one), then frozen: spectral norms collapsed, eval, no grad.  Weights
+    saved frozen (no spectral-norm ``u``, as ``reference.write_run`` saves
+    the paper's) load into the net frozen first."""
     from ..models.image_ae import freeze_spectral_norm
     from ..models.pretrained_registry import resolve
 
@@ -584,7 +597,10 @@ def load_frozen_net(config, section: str, build, generator):
         net = build(sub_cfg)
     net = entry.materialize(net, "cpu", generator)
     if sec.get("ckpt"):
-        net.load_state_dict(CheckpointStore(sec["ckpt"]).restore_best(weights=True))
+        weights = CheckpointStore(sec["ckpt"]).restore_best(weights=True)
+        if not any(k.endswith(".u") for k in weights):
+            freeze_spectral_norm(net)
+        net.load_state_dict(weights)
     return freeze_spectral_norm(net).eval().requires_grad_(False)
 
 
@@ -663,7 +679,7 @@ class SecondStageExperiment(Experiment):
 
     def load_checkpoint_state(self, state):
         self.model.flow_params.load_state_dict(state["flow"])
-        self.trainer.tx.load_state_dict(state["tx"])
+        self.load_tx(self.trainer.tx, state["tx"])
 
     def export_weights(self):
         return self.model.flow_params.state_dict()

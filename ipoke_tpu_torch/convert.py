@@ -12,7 +12,8 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   like the JAX scan does.
 * The flax nets map path by path onto the port's modules, whose names
   repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW (3D
-  kernels from DHWIO to OIDHW), transpose-conv kernels are flipped.  A
+  kernels from DHWIO to OIDHW), transpose-conv kernels are flipped (under
+  ``torch_crop``, flax's ``transpose_kernel=True``, transposed instead).  A
   flax spectral norm keeps its ``u`` and ``sigma`` in ``batch_stats``: a
   port conv built with ``snorm`` (training) takes them as they are; one
   without it (a frozen net) takes the kernel collapsed with flax's eval
@@ -157,8 +158,9 @@ def load_flax(module: torch.nn.Module, params, stats=None) -> None:
                 kernel = collapse_spectral_norm(kernel, sn[0])
             if isinstance(sub, Conv):
                 w = kernel.transpose(3, 2, 0, 1)
-            elif isinstance(sub, ConvTranspose):
-                w = np.flip(kernel, (0, 1)).transpose(2, 3, 0, 1)
+            elif isinstance(sub, ConvTranspose):  # torch_crop: transpose_kernel
+                w = kernel.transpose(3, 2, 0, 1) if sub.torch_crop \
+                    else np.flip(kernel, (0, 1)).transpose(2, 3, 0, 1)
             else:  # DHWIO -> OIDHW, no bias
                 w = kernel.transpose(4, 3, 0, 1, 2)
             _copy(sub.weight, w, where)

@@ -1,7 +1,7 @@
 """Data augmentation (host-side, numpy/cv2; a copy of
-``ipoke_tpu/data/augment.py`` on its numpy/cv2 path: the JAX package's
-native fused jitter is not carried, and its ``IPOKE_NATIVE=0`` takes the
-same path).
+``ipoke_tpu/data/augment.py``: the clip colour jitter through the fused
+native pass of ``data/native.py``, else, and under ``IPOKE_NATIVE=0``,
+through numpy and cv2).
 
 Replicates the reference's coherent per-sample color and geometric transforms
 (``data/base_dataset.py:694-721``): brightness/contrast/hue/saturation with
@@ -50,6 +50,11 @@ class _ColorTransform:
 
         if self.is_identity:
             return clip_u8
+        from .native import color_jitter_clip  # the fused single pass
+
+        out = color_jitter_clip(clip_u8, self.b, self.c, self.h, self.s)
+        if out is not None:
+            return out
         t, hh, ww, cc = clip_u8.shape
         img = clip_u8
         if self.b != 1.0 or self.c != 1.0:

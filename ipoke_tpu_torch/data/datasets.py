@@ -1,7 +1,7 @@
 """Video datasets over the reference's on-disk artifact contract (a copy of
-``ipoke_tpu/data/datasets.py`` on its cv2/numpy paths: the JAX package's
-native PNG and flow decoders are not carried, and its ``IPOKE_NATIVE=0``
-takes the same paths).
+``ipoke_tpu/data/datasets.py``: PNG frames and ``.npy`` flows through the
+native decoders of ``data/native.py`` where they take the file, else, and
+under ``IPOKE_NATIVE=0``, through cv2 and numpy).
 
 L1 of the framework (SURVEY.md §2.2): a ``meta.p``-indexed dataset with
 datakey-driven item assembly (reference ``data/base_dataset.py:109-239``) and
@@ -303,6 +303,13 @@ class VideoDataset:
         return n
 
     def _decode_img(self, path: str, use_lanczos: bool) -> np.ndarray:
+        if not use_lanczos and path.lower().endswith(".png"):
+            # fused native decode + RGB + bilinear resize (one pass)
+            from .native import decode_png
+
+            img = decode_png(path, self.spatial_size[0], self.spatial_size[1])
+            if img is not None:
+                return img
         import cv2
 
         img = cv2.imread(path)
@@ -355,6 +362,13 @@ class VideoDataset:
     def _load_flow(self, ids) -> np.ndarray:
         start, length = ids
         path = self.datadict["flow_paths"][start, self.valid_lags[0]]
+        # fused native load + resize (+ the magnitudes' rescale)
+        from .native import load_flow
+
+        out = load_flow(str(path), self.spatial_size[0], self.spatial_size[1],
+                        self.scale_poke_to_res)
+        if out is not None:
+            return out
         try:
             raw = np.load(path)
         except ValueError:

@@ -201,7 +201,8 @@ def make_model(cfg, flow_params=None) -> SecondStageModel:
     fs = FirstStageModel(s, z_dim=cfg["z_dim"], dec_channels=cfg["dec_ch"],
                          n_gru_layers=2, min_spatial_size=m,
                          enc_channels=cfg.get("enc_ch"), max_frames=cfg["T"],
-                         deterministic=cfg.get("deterministic", False))
+                         deterministic=cfg.get("deterministic", False),
+                         torch_compat=cfg.get("torch_compat", False))
     cond = FirstStageWrapper(s, nf_in=3, nf_max=cfg["nf_cond"],
                              min_spatial_size=m)
     poke = FirstStageWrapper(s, nf_in=2, nf_max=cfg["nf_cond"],

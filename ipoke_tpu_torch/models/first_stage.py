@@ -48,12 +48,17 @@ class FirstStageModel(nn.Module):
                  norm: str = "group",
                  enc_channels: Optional[Sequence[int]] = None,
                  max_frames: int = 10, deterministic: bool = False,
-                 spectral_norm: bool = False, full_seq: bool = True):
+                 spectral_norm: bool = False, full_seq: bool = True,
+                 use_motion_bias: bool = True, torch_compat: bool = False):
         """``enc_channels`` None leaves the motion encoder out (sampling
         does not run it).  ``spectral_norm`` keeps the decoder's spectral
         norm live (training); frozen models take it collapsed.
         ``full_seq`` encodes the whole clip, else the T frames after the
-        start frame (``training.full_sequence``)."""
+        start frame (``training.full_sequence``).  Without
+        ``use_motion_bias`` the ConvGRU's input is the motion latent itself
+        (``architecture.motion_bias: false``); ``torch_compat`` decodes with
+        the reference's semantics (``SpadeCondConvDecoder``) and without
+        spectral norm, as the JAX package builds it for ported weights."""
         super().__init__()
         self.spatial_size, self.z_dim = spatial_size, z_dim
         self.deterministic, self.full_seq = deterministic, full_seq
@@ -63,10 +68,11 @@ class FirstStageModel(nn.Module):
                 min_spatial_size, deterministic, full_seq)
         self.n_gru_layers, self.min_spatial_size = n_gru_layers, min_spatial_size
         self.rnn = ConvGRU(z_dim, z_dim, n_gru_layers)
-        self.motion_bias = nn.Parameter(
-            torch.empty(1, min_spatial_size, min_spatial_size, z_dim))
-        self.gen = SpadeCondConvDecoder(z_dim, dec_channels, 3, norm,
-                                        snorm=spectral_norm)
+        self.motion_bias = nn.Parameter(torch.empty(
+            1, min_spatial_size, min_spatial_size, z_dim)) if use_motion_bias else None
+        self.gen = SpadeCondConvDecoder(
+            z_dim, dec_channels, 3, norm, snorm=spectral_norm and not torch_compat,
+            torch_compat=torch_compat)
 
     def forward(self, X, train: bool = False, noise=None):
         """(X_hat (B, T, H, W, 3), mu, logvar) of the clip ``X`` (B, T+1, H,
@@ -94,7 +100,8 @@ class FirstStageModel(nn.Module):
         JAX package's ``nn.scan`` carrying ``batch_stats``).  Returns (B, T,
         H, W, 3)."""
         hidden = tuple(motion for _ in range(self.n_gru_layers))
-        in_rnn = self.motion_bias.expand(motion.shape[0], -1, -1, -1)
+        in_rnn = motion if self.motion_bias is None \
+            else self.motion_bias.expand(motion.shape[0], -1, -1, -1)
         mods = self.gen.spade_modulations(start_frame, motion.shape[1])
         hs, frames = [], []
         for _ in range(length):
@@ -288,9 +295,6 @@ def build_first_stage(config):
     if arch.get("baseline", False) and not arch.get("fc_baseline", False):
         raise NotImplementedError(
             "the PokeVAE baseline is not ported yet (ROADMAP queue 1 item 5)")
-    if not arch.get("motion_bias", True) or arch.get("torch_compat", False):
-        raise NotImplementedError("the port's first stage takes motion_bias and "
-                                  "no torch_compat (ROADMAP queue 1 item 3)")
     full_seq = bool(tcfg.get("full_sequence", True))
     if arch.get("fc_baseline", False):
         model = build_fc_baseline(config)
@@ -304,7 +308,9 @@ def build_first_stage(config):
             enc_channels=tuple(arch["ENC_M_channels"]),
             max_frames=dcfg["max_frames"],
             deterministic=arch.get("deterministic", False),
-            spectral_norm=arch.get("spectral_norm", True), full_seq=full_seq)
+            spectral_norm=arch.get("spectral_norm", True), full_seq=full_seq,
+            use_motion_bias=arch.get("motion_bias", True),
+            torch_compat=arch.get("torch_compat", False))
     disc_s = PatchDiscriminator2D(ndf=config["d_s"].get("ndf", 64),
                                   n_layers=config["d_s"].get("n_layers", 3))
     disc_t = ResNet3DDiscriminator(

@@ -15,6 +15,7 @@ from .blocks import (
     SpectralNormed,
     make_norm,
     resize_bilinear,
+    resize_bilinear_align_corners,
 )
 from .discriminators import (
     PatchDiscriminator2D,

@@ -36,7 +36,7 @@ from ..ops.spade_gn import spade_gn_modulate
 
 
 def get_activation(name: str):
-    return {"elu": F.elu, "tanh": torch.tanh, "none": None}[name]
+    return {"elu": F.elu, "relu": F.relu, "tanh": torch.tanh, "none": None}[name]
 
 
 class Typed:
@@ -178,17 +178,30 @@ class Conv(Typed, SpectralNormed):
         return y.permute(0, 2, 3, 1)
 
 
+def _same_transpose_start(ks: int, st: int) -> int:
+    """Where lax's ``conv_transpose(..., "SAME")`` window starts in the full
+    transposed conv: k - 1 minus its left padding (lax's
+    ``_conv_transpose_padding``)."""
+    pad_a = ks - 1 if st > ks - 1 else -(-(ks + st - 2) // 2)
+    return ks - 1 - pad_a
+
+
 class ConvTranspose(Typed, SpectralNormed):
-    """flax ``nn.ConvTranspose(k3, s2, "SAME", transpose_kernel=False)`` on
-    NHWC tensors: ``F.conv_transpose2d`` with the spatially flipped kernel,
-    output cropped by one row and column at the end.  ``weight`` is
-    (in, out, kh, kw) = flip(kernel, (0, 1)).permute(2, 3, 0, 1)."""
+    """flax ``nn.ConvTranspose(ks, st)`` on NHWC tensors, ``weight`` (in, out,
+    kh, kw).  By default ``"SAME"`` with ``transpose_kernel=False``:
+    ``F.conv_transpose2d`` with the spatially flipped kernel (weight =
+    flip(kernel, (0, 1)).permute(2, 3, 0, 1)), its full output cut to lax's
+    window of in * st (zero rows at the end where the kernel is shorter than
+    the stride), then the bias.  ``torch_crop`` (the reference's layers,
+    ``architecture.torch_compat``): ``"VALID"`` with
+    ``transpose_kernel=True``, then ``[1:, 1:]``, the kernel transposed, not
+    flipped; at k3 s2 that is torch's ``ConvTranspose2d(k3, s2, p=1,
+    output_padding=1)``."""
 
     def __init__(self, cin: int, cout: int, ks: int = 3, stride: int = 2,
-                 snorm: bool = False):
+                 snorm: bool = False, torch_crop: bool = False):
         super().__init__()
-        if (ks, stride) != (3, 2):
-            raise NotImplementedError("only the k3 s2 transpose conv is ported")
+        self.ks, self.stride, self.torch_crop = ks, stride, torch_crop
         self.weight = nn.Parameter(torch.empty(cin, cout, ks, ks))
         self.bias = nn.Parameter(torch.zeros(cout))
         self._init_snorm(snorm, cout)
@@ -198,8 +211,18 @@ class ConvTranspose(Typed, SpectralNormed):
 
     def forward(self, x, train: bool = False):
         x, w, b = promote(self.compute_dtype, x, self.normed_weight(train), self.bias)
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=2)
-        return y[:, :, :-1, :-1].permute(0, 2, 3, 1)
+        h, wd, s = x.shape[1], x.shape[2], self.stride
+        short = max(s - self.ks, 0)  # rows the full output lacks (k < s)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w,
+                               None if short else b, stride=s)
+        if self.torch_crop:
+            y = y[:, :, 1:, 1:]
+        else:
+            a = _same_transpose_start(self.ks, s)
+            y = y[:, :, a:a + h * s, a:a + wd * s]
+            if short:
+                y = F.pad(y, (0, short, 0, short)) + b[:, None, None]
+        return y.permute(0, 2, 3, 1)
 
 
 class ConvTransposeTK(Typed, nn.Module):
@@ -258,14 +281,17 @@ class Conv2dBlock(nn.Module):
 
 
 class Conv2dTransposeBlock(nn.Module):
-    """2x upsampling transpose conv -> norm -> activation."""
+    """``st``x upsampling transpose conv -> norm -> activation; under
+    ``torch_crop`` the reference's layer, whose "elu" is a ReLU."""
 
     def __init__(self, cin: int, out_dim: int, ks: int = 3, st: int = 2,
                  norm: str = "none", activation: str = "elu",
-                 snorm: bool = False):
+                 snorm: bool = False, torch_crop: bool = False):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose(cin, out_dim, ks, st, snorm)
+        self.ConvTranspose_0 = ConvTranspose(cin, out_dim, ks, st, snorm, torch_crop)
         self.GroupNorm_0 = make_norm(norm, out_dim)
+        if torch_crop and activation == "elu":
+            activation = "relu"
         self.act = get_activation(activation)
 
     def forward(self, x, train: bool = False):
@@ -281,17 +307,18 @@ class ResBlock(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, norm: str = "group",
                  activation: str = "elu", upsampling: bool = False,
-                 stride: int = 1, snorm: bool = False):
+                 stride: int = 1, snorm: bool = False, torch_crop: bool = False):
         super().__init__()
         self.upsampling = upsampling
         sn = dict(snorm=snorm)
         if upsampling:
+            up = dict(sn, torch_crop=torch_crop)
             self.Conv2dTransposeBlock_0 = Conv2dTransposeBlock(
-                dim_in, dim_out, 3, 2, norm=norm, activation=activation, **sn)
+                dim_in, dim_out, 3, 2, norm=norm, activation=activation, **up)
             self.Conv2dBlock_0 = Conv2dBlock(dim_out, dim_out, 3, 1, 1, norm=norm,
                                              activation="none", **sn)
             self.Conv2dTransposeBlock_1 = Conv2dTransposeBlock(
-                dim_in, dim_out, 3, 2, norm="in", activation=activation, **sn)
+                dim_in, dim_out, 3, 2, norm="in", activation=activation, **up)
         else:
             self.Conv2dBlock_0 = Conv2dBlock(dim_in, dim_out, 3, stride, 1,
                                              norm=norm, activation=activation, **sn)
@@ -352,21 +379,32 @@ def resize_bilinear(y, height: int, width: int):
     return out.permute(0, 2, 3, 1).to(y.dtype)
 
 
+def resize_bilinear_align_corners(y, height: int, width: int):
+    """The JAX package's ``resize_bilinear_align_corners`` on NHWC: torch's
+    ``F.interpolate(..., align_corners=True)`` (output pixel i samples input
+    coordinate i * (in - 1) / (out - 1)), no antialiasing."""
+    out = F.interpolate(y.permute(0, 3, 1, 2), size=(height, width),
+                        mode="bilinear", align_corners=True)
+    return out.permute(0, 2, 3, 1)
+
+
 class Spade(nn.Module):
     """SPADE conditioning: parameter-free GroupNorm modulated by gamma/beta
     convs over the resized conditioning image.  ``modulation`` depends only on
     the conditioning image, so a T-frame decode computes it once per clip."""
 
     def __init__(self, num_features: int, cond_channels: int = 3,
-                 hidden: int = 128):
+                 hidden: int = 128, align_corners: bool = False):
         super().__init__()
         self.num_features = num_features
+        self.resize = resize_bilinear_align_corners if align_corners \
+            else resize_bilinear
         self.Conv_0 = Conv(cond_channels, hidden, 3, 1, 1)
         self.Conv_1 = Conv(hidden, num_features, 3, 1, 1)
         self.Conv_2 = Conv(hidden, num_features, 3, 1, 1)
 
     def modulation(self, y, height: int, width: int):
-        y = F.leaky_relu(self.Conv_0(resize_bilinear(y, height, width)), 0.2)
+        y = F.leaky_relu(self.Conv_0(self.resize(y, height, width)), 0.2)
         return self.Conv_1(y), self.Conv_2(y)
 
     def forward(self, x, mod):

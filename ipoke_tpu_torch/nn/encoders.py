@@ -79,17 +79,22 @@ class ConvDecoder(nn.Module):
 class SpadeCondConvDecoder(nn.Module):
     """Upsampling decoder with SPADE(start_frame) after every ResBlock;
     ``snorm``: spectral norm in every ResBlock conv (not in the SPADE and
-    output convs, as in the JAX package)."""
+    output convs, as in the JAX package).  ``torch_compat``: the reference's
+    semantics for its ported weights, the up blocks' transpose convs cropped
+    as torch's (with its elu -> ReLU) and the SPADE resize with
+    ``align_corners``."""
 
     def __init__(self, nf_in: int, dec_channels: Sequence[int],
-                 out_channels: int = 3, norm: str = "group", snorm: bool = False):
+                 out_channels: int = 3, norm: str = "group", snorm: bool = False,
+                 torch_compat: bool = False):
         super().__init__()
         self.ResBlock_0 = ResBlock(nf_in, dec_channels[0], norm=norm, snorm=snorm)
         self.n_up = len(dec_channels) - 1
         for i, (cin, nf) in enumerate(zip(dec_channels[:-1], dec_channels[1:])):
             self.add_module(f"ResBlock_{i + 1}", ResBlock(
-                cin, nf, norm="none", upsampling=True, snorm=snorm))
-            self.add_module(f"Spade_{i}", Spade(nf))
+                cin, nf, norm="none", upsampling=True, snorm=snorm,
+                torch_crop=torch_compat))
+            self.add_module(f"Spade_{i}", Spade(nf, align_corners=torch_compat))
         self.Conv2dBlock_0 = Conv2dBlock(
             dec_channels[-1], out_channels, 3, 1, 1, norm="none",
             activation="tanh" if out_channels == 3 else "none")

@@ -5,7 +5,11 @@ ipoke_tpu_torch.scripts.<name>`` (the JAX ones stay at the root):
   ``INN_FCAE``, ``INN_test`` and ``opticalFlowINN``: ``run`` over
   ``ipoke_tpu_torch.main.run`` with a default YAML each;
 * ``FCAE_eval``: the angular and endpoint error of a trained flow
-  encoder's reconstructions (``evaluate``).
+  encoder's reconstructions (``evaluate``);
+* the conv side's: ``testing_eval_models`` (``--test`` modes per model,
+  ``commands``), ``testing_evaluate_diversity`` (``evaluate``),
+  ``data_analysis`` (``analyse``) and ``iper_loader_test`` (``sweep``);
+* ``train_motion_feat``: MotionFeatureNet's pretext training (``train``).
 """
 
 from __future__ import annotations

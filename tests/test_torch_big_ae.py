@@ -9,9 +9,10 @@ state, by ``tests/test_torch_first_stage.py``'s rule: metrics within 1e-4,
 every param within 2 lr with at most 1% of a net's entries past lr / 10,
 gradients as Adam's first moments by leaf norm, every discriminator u;
 the factor-0 step leaves the discriminator as it was.  The steps run on
-flow maps, against the jitted JAX step (this file's one compiled program;
-the image BigAE differs from it only in its input key, without VGG's
-padding: ``test_fcae_step_takes_the_first_frame``)."""
+flow maps, against the jitted JAX step (this file's one compiled program,
+which also computes the BigAEs' JAX outputs; the image BigAE differs from
+it only in its input key, without VGG's padding:
+``test_fcae_step_takes_the_first_frame``)."""
 
 import copy
 
@@ -77,22 +78,54 @@ def _input(channels, seed):
     return {"flow": x} if channels == 2 else {"images": x[:, None]}
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    """This file's one JAX program, jitted: the FCAE step on flow maps,
+    which also returns, from the weights it is given, both BigAEs' (flow
+    maps and frames) encode (mu, logvar) and decode of the posterior sample
+    with the JAX draw, and the decode of mu.  ``first`` holds its call on
+    the initial state at factor 1 with ``K(40)``."""
+    nets = {c: _nets(c) for c in (2, 3)}
+    cfg, (model, disc), values, _ = nets[2]
+    tx = joptim.gan_adam(LR)
+    step = jfc.make_fcae_train_step(Config(cfg), model, disc, _jnp(values["vgg"]), tx, tx)
+    xs = {c: jnp.asarray(_x((B, S, S, c), 30)) for c in (2, 3)}
+
+    @jax.jit
+    def run(state, batch, key, factor, gs):
+        state, metrics = step(state, batch, key, factor)
+        out = {}
+        for c, g in gs.items():
+            m = nets[c][1][0]
+            rec, mu, logvar = m.apply(g, xs[c], rng=K(31))
+            out[c] = (rec, mu, logvar, m.apply(g, mu, method=jbig.BigAE.decode))
+        return state, metrics, out
+
+    v = _jnp(values)
+    state = jfc.FCAETrainState(
+        params=v["g"]["params"], params_d=v["d"]["params"], stats_d=v["d"]["batch_stats"],
+        opt=tx.init(v["g"]["params"]), opt_d=tx.init(v["d"]["params"]),
+        prev_d_loss=jnp.zeros(()), step=jnp.zeros((), jnp.int32))
+    gs = {c: {"params": _jnp(nets[c][2]["g"]["params"])} for c in (2, 3)}
+    batch = _jnp(_input(2, 34))
+    call = lambda state, key, factor: run(state, batch, key, factor, gs)
+    return {"nets": nets, "call": call, "state0": state,
+            "first": call(state, K(40), 1.0)}
+
+
 @pytest.mark.parametrize("channels", [2, 3])
-def test_big_ae_matches_flax(channels):
+def test_big_ae_matches_flax(jax_run, channels):
     """encode (mu, logvar) and decode of the posterior sample with the JAX
-    draw, eagerly."""
-    cfg, (model, _), values, (port, _, _) = _nets(channels)
+    draw, and the decode of mu."""
+    _, _, _, (port, _, _) = jax_run["nets"][channels]
+    rec, mu, logvar, dec_mu = jax_run["first"][2][channels]
     x = _x((B, S, S, channels), 30)
-    g = {"params": _jnp(values["g"]["params"])}
-    with jax.disable_jit():
-        rec, mu, logvar = model.apply(g, jnp.asarray(x), rng=K(31))
     noise = jax.random.normal(K(31), mu.shape)
     got, got_mu, got_logvar = port(_t(x), _t(noise))
     for a, b in ((got_mu, mu), (got_logvar, logvar), (got, rec)):
         np.testing.assert_allclose(a.detach().numpy(), _np(b), rtol=1e-4, atol=1e-4)
     assert port.gen_z_dim == 12 and got.shape == (B, S, S, channels)
-    np.testing.assert_allclose(port.decode(got_mu).detach().numpy(),
-                               _np(model.apply(g, mu, method=jbig.BigAE.decode)),
+    np.testing.assert_allclose(port.decode(got_mu).detach().numpy(), _np(dec_mu),
                                rtol=1e-4, atol=1e-4)
 
 
@@ -124,20 +157,13 @@ def _check_net(name, net, tx, p0, m0, params, stats, adam, gated):
                     _like(net, adam.mu, stats), names)
 
 
-def test_fcae_steps_match_jax():
+def test_fcae_steps_match_jax(jax_run):
     """Two steps at discriminator factor 1 then 0 from the same state
     (after step 1, JAX's params, u, Adam moments and previous d_loss are
     loaded into the port)."""
     channels = 2
-    cfg, (model, disc), values, (port, pdisc, vgg) = _nets(channels)
-    tx = joptim.gan_adam(LR)
-    run = jax.jit(jfc.make_fcae_train_step(Config(cfg), model, disc, _jnp(values["vgg"]),
-                                           tx, tx))
-    v = _jnp(values)
-    state = jfc.FCAETrainState(
-        params=v["g"]["params"], params_d=v["d"]["params"], stats_d=v["d"]["batch_stats"],
-        opt=tx.init(v["g"]["params"]), opt_d=tx.init(v["d"]["params"]),
-        prev_d_loss=jnp.zeros(()), step=jnp.zeros((), jnp.int32))
+    cfg, _, values, (port, pdisc, vgg) = _nets(channels)
+    state = jax_run["state0"]
     txs = [gan_adam(list(n.parameters()), LR) for n in (port, pdisc)]
     port_step = tfc.FCAEStep(cfg, port, pdisc, vgg, *txs)
     batch = _input(channels, 34)
@@ -145,7 +171,8 @@ def test_fcae_steps_match_jax():
         before = [[p.detach().clone() for p in n.parameters()] for n in (port, pdisc)]
         moments = [[{k: s.clone() for k, s in t.adam.state[q].items()} for q in t.params]
                    for t in txs]
-        state, want = run(state, _jnp(batch), key, factor)
+        state, want, _ = jax_run["first"] if factor == 1.0 else \
+            jax_run["call"](state, key, factor)
         noise = jax.random.normal(key, (B, Z))
         got = port_step({k: _t(x) for k, x in batch.items()}, factor, _t(noise))
         assert got.keys() == want.keys()

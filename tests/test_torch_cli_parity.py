@@ -266,7 +266,10 @@ def test_lr_totals_match_jax(custom):
 # the poke embedder
 # ---------------------------------------------------------------------------
 
-def test_poke_embedder_steps_match_jax():
+def test_poke_embedder_steps_match_jax(tmp_path):
     """Poke -> flow, no discriminator: two steps beside the jitted JAX step
-    by ``test_torch_image_ae.check_image_ae_steps``'s rule."""
-    check_image_ae_steps("poke_embedder")
+    by ``test_torch_image_ae.check_image_ae_steps``'s rule, the port
+    starting from the JAX state saved as a JAX run and converted by
+    ``tools/jax_run_to_torch.py`` (one port step from a converted state
+    against the JAX step from the same state)."""
+    check_image_ae_steps("poke_embedder", via=str(tmp_path))

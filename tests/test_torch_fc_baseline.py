@@ -18,7 +18,8 @@ package's, fp32 on the CPU, with the same weights carried by
 * ``first_stage_fc.yaml``'s 64 px with four ``dec_channels``, which render
   32 px: the JAX step fails to trace, the port's build raises.
 
-The JAX forwards run eagerly (``jax.disable_jit``)."""
+The JAX forwards are outputs of the step's jitted program (``jax_run``):
+one trace and compile in place of ~430 eagerly compiled primitives."""
 
 import copy
 
@@ -73,10 +74,11 @@ def test_gru_cell_matches_flax():
     _close(port(_t(h), _t(x)), want, 1e-6)
 
 
-@pytest.mark.parametrize("variant", ["deterministic", "variational", "poke_and_image"])
-def test_fc_wrapper_matches_flax(variant):
-    """encode (with the JAX draw where variational), decode, and the train
-    forward with every spectral norm's new u."""
+WRAPPERS = ("deterministic", "variational", "poke_and_image")
+
+
+def _wrapper_case(variant):
+    """(flax wrapper, input, numpy values, port kwargs) of one variant."""
     nf_in = 2 if variant == "poke_and_image" else 3
     kw = dict(deterministic=variant != "variational",
               poke_and_image=variant == "poke_and_image")
@@ -84,23 +86,38 @@ def test_fc_wrapper_matches_flax(variant):
     x = _x((B, S, S, nf_in + (3 if kw["poke_and_image"] else 0)), 4)
     values = _fill(jax.eval_shape(lambda: jmodel.init(
         {"params": K(0)}, jnp.asarray(x), train=False)), np.random.default_rng(5))
+    return jmodel, x, values, dict(kw, nf_in=nf_in)
+
+
+def _wrapper_outputs(jmodel, x, v):
+    z, mean, logstd = jmodel.apply(v, x, rng=K(6), method=jmodel.encode)
+    rec = jmodel.apply(v, mean, method=jmodel.decode)
+    rec_t, new = jmodel.apply(v, x, train=True, mutable=["batch_stats"])
+    return {"z": z, "mean": mean, "logstd": logstd, "rec": rec, "rec_t": rec_t,
+            "stats": new["batch_stats"]}
+
+
+@pytest.mark.parametrize("variant", WRAPPERS)
+def test_fc_wrapper_matches_flax(jax_run, variant):
+    """encode (with the JAX draw where variational), decode, and the train
+    forward with every spectral norm's new u."""
+    _, x, values, kw = jax_run["wrappers"][variant]
+    kw = dict(kw)
+    want = jax_run["first"][2]["wrappers"][variant]
+    nf_in = kw.pop("nf_in")
     port = tfcb.FirstStageFCWrapper(S, nf_in, 16, **kw)
     load_flax(port, values["params"], values["batch_stats"])
-    v = _jnp(values)
-    with jax.disable_jit():
-        z, mean, logstd = jmodel.apply(v, jnp.asarray(x), rng=K(6), method=jmodel.encode)
-        rec = jmodel.apply(v, mean, method=jmodel.decode)
-        rec_t, new = jmodel.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    mean = want["mean"]
     noise = jax.random.normal(K(6), mean.shape) if variant == "variational" else None
     got_z, got_mean, got_logstd = port.encode(_t(x), noise=None if noise is None else _t(noise))
-    _close(got_z, z, what="z")
+    _close(got_z, want["z"], what="z")
     _close(got_mean, mean, what="mean")
-    assert (got_logstd is None) == (logstd is None)
-    if logstd is not None:
-        _close(got_logstd, logstd, what="logstd")
-    _close(port.decode(got_mean), rec, what="decode")
-    _close(port(_t(x), train=True), rec_t, what="train forward")
-    assert _assert_stats(port, new["batch_stats"], rtol=1e-4, atol=1e-5) > 0
+    assert (got_logstd is None) == (want["logstd"] is None)
+    if want["logstd"] is not None:
+        _close(got_logstd, want["logstd"], what="logstd")
+    _close(port.decode(got_mean), want["rec"], what="decode")
+    _close(port(_t(x), train=True), want["rec_t"], what="train forward")
+    assert _assert_stats(port, want["stats"], rtol=1e-4, atol=1e-5) > 0
 
 
 @pytest.fixture(scope="module")
@@ -131,19 +148,52 @@ def _port_nets(values):
     return nets
 
 
+@pytest.fixture(scope="module")
+def jax_run(tiny):
+    """This file's one JAX program, jitted: the first-stage step with the FC
+    model, which also returns, from the initial weights it is given, the FC
+    model's eval and train forwards (the clip's encoding with the JAX draw,
+    the GRU rollout and the decode) and every wrapper variant's encode,
+    decode and train forward.  ``first`` holds its call on the initial
+    state at gate 1 with ``K(20)``."""
+    (model, disc_s, disc_t), values, batch = tiny
+    tx = joptim.gan_adam(LR)
+    jstep = jfs.make_first_stage_train_step(
+        Config(CFG), model, disc_s, disc_t, _jnp(values["vgg"]), tx, tx, tx)
+    wrappers = {v: _wrapper_case(v) for v in WRAPPERS}
+
+    @jax.jit
+    def run(state, batch, key, gate, g, wv):
+        state, metrics = jstep(state, batch, key, gate)
+        out = {}
+        for train in (False, True):
+            if train:
+                (X_hat, mu, logvar), new = model.apply(g, batch["images"], rng=K(12),
+                                                       train=True, mutable=["batch_stats"])
+                out["stats"] = new["batch_stats"]
+            else:
+                X_hat, mu, logvar = model.apply(g, batch["images"], rng=K(12), train=False)
+            out["train" if train else "eval"] = (X_hat, mu, logvar)
+        out["wrappers"] = {v: _wrapper_outputs(wrappers[v][0], wrappers[v][1], wv[v])
+                           for v in WRAPPERS}
+        return state, metrics, out
+
+    g = _jnp(values["g"])
+    wv = {v: _jnp(wrappers[v][2]) for v in WRAPPERS}
+    call = lambda state, key, gate: run(state, {"images": jnp.asarray(batch)}, key,
+                                        gate, g, wv)
+    state0 = _jax_state(values, tx)
+    return {"call": call, "state0": state0, "first": call(state0, K(20), 1.0),
+            "wrappers": wrappers}
+
+
 @pytest.mark.parametrize("train", [False, True])
-def test_fc_baseline_forward_matches_flax(tiny, train):
+def test_fc_baseline_forward_matches_flax(tiny, jax_run, train):
     """The clip's encoding with the JAX draw, the GRU rollout and the
     decode: frame by frame in train mode (each u advanced T times), one
     batched call in eval."""
-    (model, _, _), values, batch = tiny
-    g = _jnp(values["g"])
-    with jax.disable_jit():
-        if train:
-            (X_hat, mu, logvar), new = model.apply(g, jnp.asarray(batch), rng=K(12),
-                                                   train=True, mutable=["batch_stats"])
-        else:
-            X_hat, mu, logvar = model.apply(g, jnp.asarray(batch), rng=K(12), train=False)
+    _, values, batch = tiny
+    X_hat, mu, logvar = jax_run["first"][2]["train" if train else "eval"]
     port = _port_nets(values)[0]
     noise = jax.random.normal(K(12), mu.shape)
     assert isinstance(port, tfcb.FCBaselineModel) and mu.shape == (B, 8)
@@ -153,7 +203,7 @@ def test_fc_baseline_forward_matches_flax(tiny, train):
         _close(a, b, what=what)
     assert got.shape == (B, T, S, S, 3)
     if train:
-        assert _assert_stats(port, new["batch_stats"], rtol=1e-4, atol=1e-5) > 0
+        assert _assert_stats(port, jax_run["first"][2]["stats"], rtol=1e-4, atol=1e-5) > 0
 
 
 def _draws(rng):
@@ -184,7 +234,7 @@ def _float64_moments(nets, txs, batch, draws, gate):
     return [[t.adam.state[q]["exp_avg"] for q in t.params] for t in txs64]
 
 
-def test_fc_first_stage_steps_match_jax(tiny):
+def test_fc_first_stage_steps_match_jax(tiny, jax_run):
     """Two steps of the jitted JAX step and of the port's ``FirstStageStep``
     on the FC model at gate 1 then 0, each from the same state (after step
     1 JAX's params, u and Adam moments are loaded into the port): every
@@ -197,18 +247,16 @@ def test_fc_first_stage_steps_match_jax(tiny):
     where the port's fp32 holds it: there the port's first moments are
     held to float64 by the rule, and to JAX by leaf norm within 1e-2 of
     the moment (the step's mean of old moment and new gradient)."""
-    (model, disc_s, disc_t), values, batch = tiny
-    tx = joptim.gan_adam(LR)
-    jstep = jax.jit(jfs.make_first_stage_train_step(
-        Config(CFG), model, disc_s, disc_t, _jnp(values["vgg"]), tx, tx, tx))
+    _, values, batch = tiny
     nets = _port_nets(values)
     txs = tfs.create_first_stage_state(*nets[:3], lambda ps: gan_adam(ps, LR))
     step = tfs.FirstStageStep(CFG, *nets, *txs)
-    state = _jax_state(values, tx)
+    state = jax_run["state0"]
     for gate, key in ((1.0, K(20)), (0.0, K(21))):
         before = [[t.detach().clone() for t in net.parameters()] for net in nets[:3]]
         moments = [_moments(t) for t in txs]
-        state, want = jstep(state, {"images": jnp.asarray(batch)}, key, gate)
+        state, want, _ = jax_run["first"] if gate == 1.0 else \
+            jax_run["call"](state, key, gate)
         f64 = _float64_moments(nets, txs, batch, _draws(key), gate) if gate == 0.0 else None
         got = step({"images": _t(batch)}, _draws(key), gate)
         assert got.keys() == want.keys()

@@ -2,8 +2,8 @@
 fp32 params, as the JAX package's ``dtype=bfloat16`` nets) against the
 jitted JAX step at the TINY config, and ``full_sequence: false`` (the motion
 encoder's stride plan and the clip without its start frame) against the
-JAX model in fp32, eager.  Weights, batch and draws as in
-``tests/test_torch_first_stage.py``."""
+JAX model in fp32, computed in the step's jitted program (``jax_run``).
+Weights, batch and draws as in ``tests/test_torch_first_stage.py``."""
 
 import copy
 
@@ -73,7 +73,7 @@ def _first_moments(txs):
     return [[t.adam.state[q]["exp_avg"].clone() for q in t.params] for t in txs]
 
 
-def test_bf16_steps_match_jax(tiny):
+def test_bf16_steps_match_jax(tiny, jax_run):
     """Two steps of the jitted JAX bf16 step (``build_first_stage`` with
     ``mixed_prec``: every conv, dense and the decoder's norms in bf16 over
     fp32 params, ``gan_adam`` on the fp32 params) and of the port, at
@@ -111,10 +111,6 @@ def test_bf16_steps_match_jax(tiny):
       were and moves the generator; outputs bf16, params fp32."""
     values, batch = tiny
     cfg = _config(mixed_prec=True)
-    model, disc_s, disc_t = jfs.build_first_stage(Config(cfg))
-    tx = joptim.gan_adam(LR)
-    jstep = jax.jit(jfs.make_first_stage_train_step(
-        Config(cfg), model, disc_s, disc_t, _jnp(values["vgg"]), tx, tx, tx))
     make = lambda ps: gan_adam(ps, LR)
     nets = _port_nets(values, cfg)
     txs = tfs.create_first_stage_state(*nets[:3], make)
@@ -130,11 +126,12 @@ def test_bf16_steps_match_jax(tiny):
         {"images": _t(batch)}, _jax_draws(K(20), cfg), 1.0)
     fp32 = _first_moments(txs32)
 
-    state = _jax_state(values, tx)
+    state = jax_run["state0"]
     for gate, key in ((1.0, K(20)), (0.0, K(21))):
         before = [[t.detach().clone() for t in net.parameters()] for net in nets[:3]]
         moments = [_moments(t) for t in txs]
-        state, want = jstep(state, {"images": jnp.asarray(batch)}, key, gate)
+        state, want, _ = jax_run["first"] if gate == 1.0 else \
+            jax_run["call"](state, key, gate)
         got = step({"images": _t(batch)}, _jax_draws(key, cfg), gate)
         assert got.keys() == want.keys()
         for k in want:
@@ -171,45 +168,84 @@ def test_bf16_steps_match_jax(tiny):
                     t.adam.state[q][key_t].copy_(w)
 
 
-@pytest.mark.parametrize("max_frames,channels", [(3, (16, 16, 32, 32)),
-                                                 (16, (8, 8, 16, 16, 16))])
-def test_motion_encoder_partial_sequence_matches_flax(max_frames, channels):
-    """``full_seq`` False: stage 1 keeps time where the channels suffice for
-    log2(max_frames) and no time-only stage 4 runs at 16 frames; against
-    flax, deterministic, fp32, within 1e-4."""
+ENCODERS = ((3, (16, 16, 32, 32)), (16, (8, 8, 16, 16, 16)))
+
+
+def _encoder_case(max_frames, channels):
+    """(flax motion encoder with ``full_seq`` False, input, numpy values)."""
     kw = dict(channels=channels, z_dim=8, spatial_size=32, max_frames=max_frames,
               min_spatial_size=4, deterministic=True)
     x = np.random.default_rng(max_frames).standard_normal(
         (2, max_frames, 32, 32, 3)).astype(np.float32)
     jenc = JMotion(full_seq=False, **kw)
     shapes = jax.eval_shape(lambda: jenc.init(K(0), jnp.asarray(x)))
-    values = _fill(shapes, np.random.default_rng(1))
-    want = jenc.apply(_jnp(values), jnp.asarray(x))
-    port = ResNetMotionEncoder(kw["channels"], 8, 32, max_frames, 4, True, False)
+    return jenc, x, _fill(shapes, np.random.default_rng(1))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tiny):
+    """This file's one JAX program, jitted: the bf16 first-stage step, which
+    also returns, from the weights it is given, the fp32 ``full_sequence:
+    false`` model's ``encode`` and train-mode forward and both
+    ``full_seq``-False motion encoders' outputs.  ``first`` holds its call
+    on the initial state at gate 1 with ``K(20)``."""
+    values, batch = tiny
+    cfg = _config(mixed_prec=True)
+    model, disc_s, disc_t = jfs.build_first_stage(Config(cfg))
+    partial = jfs.build_first_stage(Config(_config(full_sequence=False)))[0]
+    tx = joptim.gan_adam(LR)
+    jstep = jfs.make_first_stage_train_step(
+        Config(cfg), model, disc_s, disc_t, _jnp(values["vgg"]), tx, tx, tx)
+    encoders = [_encoder_case(*case) for case in ENCODERS]
+
+    @jax.jit
+    def run(state, batch, key, gate, g, encoder_values):
+        state, metrics = jstep(state, batch, key, gate)
+        X = batch["images"]
+        out = {"encode": partial.apply(g, X, method=partial.encode),
+               "forward": partial.apply(g, X, train=True,
+                                        mutable=["batch_stats"])[0][0],
+               "encoders": [jenc.apply(v, x) for (jenc, x, _), v in
+                            zip(encoders, encoder_values)]}
+        return state, metrics, out
+
+    g, ev = _jnp(values["g"]), [_jnp(v) for _, _, v in encoders]
+    call = lambda state, key, gate: run(state, {"images": jnp.asarray(batch)}, key,
+                                        gate, g, ev)
+    state0 = _jax_state(values, tx)
+    return {"call": call, "state0": state0, "first": call(state0, K(20), 1.0),
+            "encoders": encoders}
+
+
+@pytest.mark.parametrize("max_frames,channels", ENCODERS)
+def test_motion_encoder_partial_sequence_matches_flax(jax_run, max_frames, channels):
+    """``full_seq`` False: stage 1 keeps time where the channels suffice for
+    log2(max_frames) and no time-only stage 4 runs at 16 frames; against
+    flax, deterministic, fp32, within 1e-4."""
+    case = ENCODERS.index((max_frames, channels))
+    _, x, values = jax_run["encoders"][case]
+    want = jax_run["first"][2]["encoders"][case]
+    port = ResNetMotionEncoder(channels, 8, 32, max_frames, 4, True, False)
     load_flax(port, values["params"])
     got = port(_t(x))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.detach().numpy(), _np(b), rtol=1e-4, atol=1e-4)
 
 
-def test_partial_sequence_encode_and_forward_match_jax(tiny):
+def test_partial_sequence_encode_and_forward_match_jax(tiny, jax_run):
     """``training.full_sequence: false``: the generator encodes the T frames
     after the start frame; ``encode`` and the train-mode forward against the
-    JAX model's, eager, fp32, within 1e-4."""
+    JAX model's, fp32, within 1e-4."""
     values, batch = tiny
     cfg = _config(full_sequence=False)
-    model = jfs.build_first_stage(Config(cfg))[0]
-    g = _jnp(values["g"])
     port = _port_nets(values, cfg)[0]
     assert not port.full_seq
-    with jax.disable_jit():
-        z, mu, logvar = model.apply(g, jnp.asarray(batch), method=model.encode)
-        X_hat = model.apply(g, jnp.asarray(batch), train=True,
-                            mutable=["batch_stats"])[0][0]
-    for a, b in zip(port.encode(_t(batch)), (z, mu, logvar)):
+    out = jax_run["first"][2]
+    for a, b in zip(port.encode(_t(batch)), out["encode"]):
         np.testing.assert_allclose(a.detach().numpy(), _np(b), rtol=1e-4, atol=1e-4)
     got = port(_t(batch), train=True)[0]
-    np.testing.assert_allclose(got.detach().numpy(), _np(X_hat), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.detach().numpy(), _np(out["forward"]), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_mixed_first_stage_feeds_fp32_second_stage():

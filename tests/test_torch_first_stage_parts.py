@@ -49,13 +49,56 @@ def _carried_disc(kind, seed):
     return jdisc, port, shape, _jnp(values)
 
 
+def _vgg_case():
+    shapes = jax.eval_shape(
+        lambda: jvgg.VGG19Features().init(K(0), jnp.zeros((1, S, S, 3))))
+    values = _fill(shapes, np.random.default_rng(8))
+    x, y = np.tanh(_x((3, S, S, 3), 9)), np.tanh(_x((3, S, S, 3), 10))
+    return values, x, y
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """This file's one JAX program, jitted: both discriminators' logits,
+    feature maps and new u (eval and train), the 3D discriminator's R1
+    penalty per sample with ``jax.grad`` of its mean in the params, and the
+    perceptual loss, mean and weighted."""
+    discs = {kind: _carried_disc(kind, 3) for kind in ("2d", "3d")}
+    gp = _carried_disc("3d", 5)
+    x_gp = jnp.asarray(_x(gp[2], 6))
+    vgg_values, vx, vy = _vgg_case()
+
+    def jgp(params):
+        jdisc, values = gp[0], gp[3]
+        apply = lambda v: jdisc.apply({"params": params,
+                                       "batch_stats": values["batch_stats"]}, v)[0]
+        return jd.gradient_penalty(apply, x_gp)
+
+    @jax.jit
+    def run(disc_values, gp_params, vgg):
+        out = {}
+        for kind, (jdisc, _, shape, _) in discs.items():
+            x = _x(shape, 4)
+            for train in (False, True):
+                out[f"{kind}-{train}"] = jdisc.apply(disc_values[kind], x, train=train,
+                                                     mutable=["batch_stats"])
+        out["gp"] = (jgp(gp_params), jax.grad(lambda q: jnp.mean(jgp(q)))(gp_params))
+        out["vgg"] = [jvgg.vgg_loss(vgg, vx, vy, w) for w in (False, True)]
+        return out
+
+    out = run({k: v[3] for k, v in discs.items()}, gp[3]["params"], _jnp(vgg_values))
+    return discs, gp, (vgg_values, vx, vy), out
+
+
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("kind", ["2d", "3d"])
-def test_discriminator_matches_flax(kind, train):
+def test_discriminator_matches_flax(jax_run, kind, train):
     """Logits, every feature map and the new u of every spectral norm."""
-    jdisc, port, shape, values = _carried_disc(kind, 3)
+    discs, _, _, out = jax_run
+    _, port, shape, _ = discs[kind]
+    port = copy.deepcopy(port)  # train mode stores its u
     x = _x(shape, 4)
-    (logits, fmaps), new = jdisc.apply(values, x, train=train, mutable=["batch_stats"])
+    (logits, fmaps), new = out[f"{kind}-{train}"]
     got_logits, got_fmaps = port(_t(x), train)
     np.testing.assert_allclose(got_logits.detach().numpy(), _np(logits),
                                rtol=1e-4, atol=1e-5)
@@ -65,20 +108,13 @@ def test_discriminator_matches_flax(kind, train):
     _assert_stats(port, new["batch_stats"])
 
 
-def test_gradient_penalty_matches_jax_grad():
+def test_gradient_penalty_matches_jax_grad(jax_run):
     """The R1 penalty of the 3D disc per sample against ``jax.grad``, and
     its mean's gradient in the disc's params (the double backward) against
     ``jax.grad`` of it, leaf by leaf."""
-    jdisc, port, shape, values = _carried_disc("3d", 5)
+    _, (_, port, shape, values), _, out = jax_run
     x = _x(shape, 6)
-
-    def jgp(params):
-        apply = lambda v: jdisc.apply({"params": params,
-                                       "batch_stats": values["batch_stats"]}, v)[0]
-        return jd.gradient_penalty(apply, jnp.asarray(x))
-
-    want, want_grads = jax.jit(lambda p: (jgp(p), jax.grad(
-        lambda q: jnp.mean(jgp(q)))(p)))(values["params"])
+    want, want_grads = out["gp"]
     got = td.gradient_penalty(lambda v: port(v)[0], _t(x))
     np.testing.assert_allclose(got.detach().numpy(), _np(want), rtol=1e-4)
     names, params = zip(*port.named_parameters())
@@ -112,18 +148,15 @@ def test_gan_losses_match_jax():
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
-def test_vgg_loss_matches_jax():
+def test_vgg_loss_matches_jax(jax_run):
     """The perceptual loss, mean and weighted, with VGG's params carried."""
-    shapes = jax.eval_shape(
-        lambda: jvgg.VGG19Features().init(K(0), jnp.zeros((1, S, S, 3))))
-    values = _fill(shapes, np.random.default_rng(8))
+    _, _, (values, x, y), out = jax_run
     vgg = tv.VGG19Features()
     load_flax(vgg, values["params"])
-    x, y = np.tanh(_x((3, S, S, 3), 9)), np.tanh(_x((3, S, S, 3), 10))
-    for weighted in (False, True):
-        want = jvgg.vgg_loss(_jnp(values), x, y, weighted)
+    for weighted, want in zip((False, True), out["vgg"]):
         got = tv.vgg_loss(vgg, _t(x), _t(y), weighted)
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+
 
 def test_gan_adam_matches_optax():
     """``gan_adam`` against the JAX package's (optax chain: decayed weights,

@@ -94,12 +94,36 @@ def _moments(tx):
             else torch.zeros_like(q) for q in tx.params]
 
 
-def check_image_ae_steps(kind):
+def _converted(kind, state, cfg, root):
+    """The port's checkpoint state of the JAX ``state``: saved by the JAX
+    package's store as a run of its experiment, converted by
+    ``tools/jax_run_to_torch.py`` and restored by the port's store."""
+    import os
+
+    import yaml
+
+    from ipoke_tpu.core.checkpoint import CheckpointStore as JStore
+    from ipoke_tpu_torch.core.checkpoint import CheckpointStore
+    from tools.jax_run_to_torch import convert_runs
+
+    exp = {"conditioner": "img_encoder", "poke_embedder": "poke_encoder"}[kind]
+    src, dst = os.path.join(root, "jax"), os.path.join(root, "port")
+    JStore(os.path.join(src, exp, "ckpt", "toy", "0")).save(state, 0)
+    os.makedirs(os.path.join(src, exp, "config", "toy"))
+    with open(os.path.join(src, exp, "config", "toy", "0.yaml"), "w") as f:
+        yaml.safe_dump(dict(copy.deepcopy(cfg), general={"experiment": exp}), f)
+    assert convert_runs(src, dst, log=lambda line: None) == 1
+    return CheckpointStore(os.path.join(dst, exp, "ckpt", "toy", "0")).restore()
+
+
+def check_image_ae_steps(kind, via=None):
     """Two steps of the jitted JAX step and of the port, gates 1 then 0;
     after step 1 the JAX state is loaded into the port.  Per step: every
     metric within 1e-4 relative; every spectral norm's u and sigma within
     1e-4; params within 2 lr with at most 1% of the entries past lr / 10;
-    Adam's first moments by the first-stage rule (3e-4 of the leaf norm)."""
+    Adam's first moments by the first-stage rule (3e-4 of the leaf norm).
+    With ``via`` (a directory) the port starts from the JAX state converted
+    as a JAX run (``_converted``), its optimizer fresh as JAX's is."""
     cfg = CONFIGS[kind]
     use_disc = kind == "conditioner"
     jcfg = Config(copy.deepcopy(cfg))
@@ -118,8 +142,15 @@ def check_image_ae_steps(kind):
     pdisc = entry.materialize(pdisc, "cpu", gen) if use_disc else None
     pvgg = VGG19Features()
     load_flax(pvgg, vgg["params"])
-    load_image_ae(port, state.params, state.stats,
-                  *((pdisc, state.params_d, state.stats_d) if use_disc else ()))
+    if via is None:
+        load_image_ae(port, state.params, state.stats,
+                      *((pdisc, state.params_d, state.stats_d) if use_disc else ()))
+    else:
+        converted = _converted(kind, state, cfg, via)
+        assert converted["tx"] is None
+        port.load_state_dict(converted["model"])
+        if use_disc:
+            pdisc.load_state_dict(converted["disc"])
     ptx, ptx_d = tae.create_image_ae_state(port, pdisc, lambda ps: gan_adam(ps, LR),
                                            use_disc=use_disc)
     step = tae.make_image_ae_train_step(cfg, port, pdisc, pvgg, ptx, ptx_d, use_disc)

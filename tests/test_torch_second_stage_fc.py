@@ -14,7 +14,9 @@ JAX side's draws handed to the port as noise tensors:
   rounding gives, ``tests/test_torch_train.py``), with the Gaussian and
   the radial base.
 
-The JAX side runs eagerly (``jax.disable_jit``): no program is compiled."""
+The JAX side is one jitted program (``jax_outputs``): the density, DDI and
+sampling, then per base DDI, the perturbation and the three steps (a
+``lax.scan``), in place of ~1000 eagerly compiled primitives."""
 
 import copy
 
@@ -33,14 +35,14 @@ from ipoke_tpu.models import fc_baseline as jfcb
 from ipoke_tpu.models import first_stage as jfs
 from ipoke_tpu.models.second_stage import FrozenBundle
 from ipoke_tpu_torch import entry
-from ipoke_tpu_torch.convert import flow_params, load_flax, to_numpy_tree
+from ipoke_tpu_torch.convert import flow_params, load_flax
 from ipoke_tpu_torch.core.optim import flow_adam
 from ipoke_tpu_torch.models import fc_baseline as tfcb
 from ipoke_tpu_torch.models import first_stage as tfs
 from ipoke_tpu_torch.models.second_stage import (create_second_stage_state,
                                                  make_second_stage_train_step)
 
-from test_torch_ops import _few_threads, _jnp, _np, _t  # noqa: F401 (_few_threads)
+from test_torch_ops import _few_threads, _jnp, _t  # noqa: F401 (_few_threads)
 from test_torch_sampling import _fill
 
 K = jax.random.PRNGKey
@@ -101,73 +103,103 @@ def _noise(key):
     return _t(jax.random.normal(key, (B, Z)))
 
 
-def test_forward_density_ddi_and_sample_match_jax(frozen_nets):
+BASES = ("gaussian", "radial")
+
+
+@pytest.fixture(scope="module")
+def jax_outputs(frozen_nets):
+    """This file's one JAX program, jitted: ``forward_density`` (K10),
+    ``ddi`` (K11) and ``forward_sample`` (K12) with the Gaussian base; then
+    per base JAX's DDI (K20), every ActNorm of the result moved by N(0,
+    0.05^2) (drawn here in numpy, seed 21) and three steps of the JAX
+    experiment's step (keys K30..K32) from it at lr 1e-3, AMSGrad at a
+    constant lr."""
     _, values, batch, _ = frozen_nets
-    jmodel, frozen, port = _models(frozen_nets, "gaussian", values["flow"])
-    p, jb = {"flow": _jnp(values["flow"])}, _jnp(batch)
+    jmods = {base: _models(frozen_nets, base, values["flow"])[:2] for base in BASES}
+    jb, p0 = _jnp(batch), {"flow": _jnp(values["flow"])}
+    jmodel, frozen = jmods["gaussian"]
+    shapes = jax.eval_shape(lambda: jmodel.ddi(p0, frozen, jb, K(20))["flow"])
+    rng = np.random.default_rng(21)
+    leaves, tdef = jax.tree_util.tree_flatten_with_path(shapes)
+    noise = jax.tree_util.tree_unflatten(tdef, [
+        (0.05 * rng.standard_normal(l.shape)).astype(np.float32)
+        if str(path[-1]) in ("['log_scale']", "['bias']") and _actnorm(shapes, path)
+        else np.zeros(l.shape, l.dtype) for path, l in leaves])
+    keys = jnp.stack([K(30 + i) for i in range(3)])
+
+    def steps(jmodel, frozen, start):
+        tx = joptim.flow_adam(LR, params={"flow": start})
+
+        def jstep(carry, rng):  # SecondStageFCExperiment's step
+            params, opt = carry
+            r1, r2 = jax.random.split(rng)
+
+            def loss_fn(p):
+                z, logdet = jmodel.forward_density(p, frozen, jb, r1)
+                return jflow_loss(z, logdet, rng=r2, radial=jmodel.radial)
+
+            (_, log), grads = jax.value_and_grad(loss_fn, has_aux=True,
+                                                 allow_int=True)(params)
+            grads = joptim.zero_buffer_grads(grads, params)
+            upd, opt = tx.update(grads, opt, params)
+            return (optax.apply_updates(params, upd), opt), log
+
+        params = {"flow": start}
+        return jax.lax.scan(jstep, (params, tx.init(params)), keys)[1]
+
+    @jax.jit
+    def run(p0, noise):
+        out = {"density": jmodel.forward_density(p0, frozen, jb, K(10)),
+               "ddi": jmodel.ddi(p0, frozen, jb, K(11))["flow"],
+               "video": jmodel.forward_sample(p0, frozen, jb, K(12), length=T)}
+        for base in BASES:
+            jm, fr = jmods[base]
+            start = jax.tree_util.tree_map(jnp.add, jm.ddi(p0, fr, jb, K(20))["flow"],
+                                           noise)
+            out[base] = {"start": start, "logs": steps(jm, fr, start)}
+        return out
+
+    return jax.tree_util.tree_map(np.asarray, run(p0, noise))
+
+
+def _actnorm(tree, path):
+    """Whether the leaf at ``path`` sits in an ActNorm node (one holding
+    both ``log_scale`` and ``bias``)."""
+    node = tree
+    for key in path[:-1]:
+        node = node[key.key if hasattr(key, "key") else key.idx]
+    return isinstance(node, dict) and {"log_scale", "bias"} <= node.keys()
+
+
+def test_forward_density_ddi_and_sample_match_jax(frozen_nets, jax_outputs):
+    _, values, batch, _ = frozen_nets
+    _, _, port = _models(frozen_nets, "gaussian", values["flow"])
+    z, ld = jax_outputs["density"]
     tb = {k: _t(v) for k, v in batch.items()}
-    with jax.disable_jit():
-        z, ld = jmodel.forward_density(p, frozen, jb, K(10))
-        new = jmodel.ddi(p, frozen, jb, K(11))
-        video = jmodel.forward_sample(p, frozen, jb, K(12), length=T)
     got_z, got_ld = port.forward_density(tb, noise=_noise(K(10)))
-    np.testing.assert_allclose(got_z.numpy(), _np(z), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got_ld.numpy(), _np(ld), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_z.numpy(), z, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_ld.numpy(), ld, rtol=1e-4, atol=1e-4)
     got_new = port.ddi(tb, noise=_noise(K(11)))
-    want = jax.tree_util.tree_leaves(to_numpy_tree(new["flow"]))
-    got = jax.tree_util.tree_leaves(to_numpy_tree(
-        jax.tree_util.tree_map(lambda t: t.numpy(), got_new)))
+    want = jax.tree_util.tree_leaves(jax_outputs["ddi"])
+    got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda t: t.numpy(), got_new))
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
     z0 = _t(jax.random.normal(K(12), (B, Z)))  # sample_base's Gaussian draw
     got_video = port.forward_sample(tb, T, z=z0)
     assert got_video.shape == (B, T, S, S, 3) and torch.isfinite(got_video).all()
-    np.testing.assert_allclose(got_video.numpy(), _np(video), atol=2e-3)
+    np.testing.assert_allclose(got_video.numpy(), jax_outputs["video"], atol=2e-3)
 
 
-def _perturbed(tree, rng):
-    """Every ActNorm's log_scale and bias moved by N(0, 0.05^2)."""
-    if isinstance(tree, list):
-        return [_perturbed(v, rng) for v in tree]
-    if isinstance(tree, dict):
-        out = {k: _perturbed(v, rng) for k, v in tree.items()}
-        for k in ("log_scale", "bias"):
-            if k in tree and "log_scale" in tree:
-                out[k] = tree[k] + 0.05 * rng.standard_normal(tree[k].shape).astype(np.float32)
-        return out
-    return tree
-
-
-@pytest.mark.parametrize("base", ["gaussian", "radial"])
-def test_train_steps_match_jax(frozen_nets, base):
+@pytest.mark.parametrize("base", BASES)
+def test_train_steps_match_jax(frozen_nets, jax_outputs, base):
     """JAX's DDI, the same ActNorm perturbation on both sides, then three
     steps of the JAX experiment's step and of the port's at lr 1e-3, the
     losses as the module docstring says (the reference NLL diagnostic draws
     its own sample on each side: finite)."""
     _, values, batch, _ = frozen_nets
-    jmodel, frozen, _ = _models(frozen_nets, base, values["flow"])
-    jb = _jnp(batch)
-    with jax.disable_jit():
-        new = jmodel.ddi({"flow": _jnp(values["flow"])}, frozen, jb, K(20))
-    start = _perturbed(to_numpy_tree(new["flow"]), np.random.default_rng(21))
-    jmodel, frozen, port = _models(frozen_nets, base, start)
-    tx = joptim.flow_adam(LR, params={"flow": _jnp(start)})
-    params = {"flow": _jnp(start)}
-    opt = tx.init(params)
-
-    def jstep(params, opt, rng):  # SecondStageFCExperiment's step
-        r1, r2 = jax.random.split(rng)
-
-        def loss_fn(p):
-            z, logdet = jmodel.forward_density(p, frozen, jb, r1)
-            return jflow_loss(z, logdet, rng=r2, radial=jmodel.radial)
-
-        (_, log), grads = jax.value_and_grad(loss_fn, has_aux=True, allow_int=True)(params)
-        grads = joptim.zero_buffer_grads(grads, params)
-        upd, opt = tx.update(grads, opt, params)
-        return optax.apply_updates(params, upd), opt, log
-
+    start = jax_outputs[base]["start"]
+    _, _, port = _models(frozen_nets, base, start)
     tx_port = create_second_stage_state(port, lambda ps: flow_adam(ps, LR))
     step = make_second_stage_train_step(port, tx_port)
     tb = {k: _t(v) for k, v in batch.items()}
@@ -175,8 +207,7 @@ def test_train_steps_match_jax(frozen_nets, base):
     gen = torch.Generator().manual_seed(22)
     for i in range(3):
         key = K(30 + i)
-        with jax.disable_jit():
-            params, opt, want = jstep(params, opt, key)
+        want = {k: v[i] for k, v in jax_outputs[base]["logs"].items()}
         port.forward_density = lambda b, g=None: density(
             b, noise=_noise(jax.random.split(key)[0]))
         got = step(tb, gen)
