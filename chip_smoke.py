@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's sampling pass, second-stage train step,
-reproduction recipes, first-stage VAE-GAN train step (fp32 and bf16), conv
+"""Drive the PyTorch/CUDA port's sampling pass, second-stage train step and
+options, reproduction recipes, first-stage VAE-GAN train step (fp32 and bf16), conv
 third stage, CLI, ``--test`` modes, FC tower, FC third stage, data prep,
 RAFT training and poke UI on one NVIDIA GPU.
 
@@ -232,6 +232,30 @@ Phases, in order; any failure raises and exits non-zero:
       ``phase_raft_train(dev, smi, processed)``, ``phase_ui(dev, smi, root,
       processed)``.
 
+  (s) the second stage's options (``OPTION_VARIANTS``): A flow_ae, a
+      poke_and_image embedder at 2x and a variational conditioner at 1/2 of
+      the first stage's latent size (both conv_adapt adapters), bf16; B
+      additive steps over relu priors without a conditioner, bf16; C a
+      MultiscaleStack (reshape up, levels [[4, 3, 2], [4, 3, 2]], factors
+      [16, 4]) with use1x1, fp32; C' that stack without use1x1 in bf16,
+      NICE hidden 64 x C (512 at 16x16x8).  (s1) SMALL, each variant card against the CPU
+      port: one ``forward_sample`` with every K1, K2 and K3 launch held
+      against its plain version on its inputs and the frames by phase (d)'s
+      rule (bf16) or within 1e-3 abs + rel (fp32), then 2 train steps by
+      phase (f)'s rule with every K1 and K4 launch of the first held so (and
+      A's adapters moved); (s2) A, B and C at the shipped widths (128 px,
+      B = 40, T = 10): one pass with the launch counts zeroed before and
+      read after and every launch held against its plain version (A's
+      shapes timed), 3 timed passes, peak memory, and for A a
+      ``torch.profiler`` table of one pass; (s3), after (l') in the same
+      ``cli_tree``: ``main.run`` of img_encoder (variational, min 4),
+      poke_encoder (poke_and_image, flow_ae, min 16) and a second_stage over
+      them and (k)'s first stage (depth OPTION_CLI_STEPS), its restore
+      check and --resume, each against ``expected_cli_launches``.  Alone:
+      ``_build.load()``, ``phase_options_small(dev)``,
+      ``phase_options_shipped(dev, smi)``; (s3) after ``phase_cli`` in a
+      ``cli_tree``.
+
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
 (their sum, and per path), its largest error over the phase (c)/(c') cases,
@@ -256,9 +280,11 @@ import torch
 import torch.nn.functional as F
 
 # K1/K4 (M, C1, Hid, Cout): the level-0 step coupling, a prior, the level-0
-# coupling of the 8x16 latent (phase h), SMALL's level-0 coupling
+# coupling of the 8x16 latent (phase h), SMALL's level-0 coupling, an
+# additive level-0 coupling (N = 9 x 16 = 144), a MultiscaleStack's 16x16x8
+# block at B = 40 (hidden 512)
 K1_CASES = ((2560, 16, 2048, 32), (2560, 30, 2048, 4), (5120, 16, 2048, 32),
-            (512, 16, 256, 32))
+            (512, 16, 256, 32), (2560, 16, 2048, 16), (10240, 4, 512, 8))
 # K2 (H = W, C) at B = 40, hid = 4C, 128 conditioning channels: the first,
 # a middle and the last level's 8x8 unit, and a 16x16 latent
 K2_CASES = ((8, 32), (8, 18), (8, 4), (16, 32))
@@ -285,6 +311,10 @@ K3_TRAIN_FRAMES = 20
 # of spade_gn_plain, in bf16 and fp32
 K3_GRAD_CASE = (32, 256, 400, 40)
 K1_TOL, K2_TOL, K5_TOL = 5e-2, 1e-4, 1e-4
+# K1 and K4 in situ: K1_TOL abs + rel with the abs part scaled by the
+# output's magnitude where that is below 1 (a flow's out convs start with
+# g ~ 0.01, so u is ~1e-2 there, where K1_TOL alone would pass zeros);
+# phase (c)'s random unit weights give outputs of order 1, its plain K1_TOL
 # K3 against its plain version, abs + rel: bf16 rounds the normalised value
 # and each op of the modulation once; the statistics' sums run in another
 # order (one bf16 step where normed sits on a rounding edge)
@@ -929,10 +959,67 @@ def phase_small_train(dev):
         raise AssertionError("SMALL train: card losses disagree with the CPU port")
 
 
-def profiled(name, fn):
+class ProfiledKey:
+    """One name's events of a profiled run: ``count`` and, for device
+    events, their summed duration in us (``self_device_time_total``, the
+    field of ``key_averages``' rows)."""
+
+    __slots__ = ("key", "device_type", "count", "self_device_time_total")
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type = key, device_type
+        self.count, self.self_device_time_total = 0, 0.0
+
+
+def profile_keys(prof):
+    """The raw profiler events of ``prof`` grouped by name and device type,
+    as ``key_averages`` groups them, without building its per-event
+    objects: a step's ~180k events group in seconds where
+    ``key_averages`` took minutes."""
+    cuda = torch.autograd.DeviceType.CUDA
+    keys, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        raw, dtype = e.name(), e.device_type()
+        k = keys.get((raw, dtype))
+        if k is None:
+            if raw not in names:
+                names[raw] = torch._C._demangle(raw)
+            k = keys[(raw, dtype)] = ProfiledKey(names[raw], dtype)
+        k.count += 1
+        if dtype == cuda:
+            k.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(keys.values())
+
+
+def cross_check_keys(name, prof, kernels):
+    """``profile_keys``' device events of ``prof`` against ``key_averages``'
+    (how the busy shares before it were taken): the launch counts and device
+    times in total and by name must agree."""
+    t0 = time.perf_counter()
+    theirs = {e.key: e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours = {e.key: e for e in kernels}
+    total = lambda es: (sum(e.count for e in es),
+                        sum(e.self_device_time_total for e in es) / 1e3)
+    (n_ours, ms_ours), (n_theirs, ms_theirs) = total(ours.values()), total(theirs.values())
+    both = ours.keys() & theirs.keys()
+    counts = sum(ours[k].count != theirs[k].count for k in both)
+    dt = max((abs(ours[k].self_device_time_total - theirs[k].self_device_time_total)
+              for k in both), default=0.0)
+    print(f"{name}: key_averages (in {time.perf_counter() - t0:.1f} s) reads {n_theirs} "
+          f"device launches, {ms_theirs:.4f} ms of device time; profile_keys {n_ours}, "
+          f"{ms_ours:.4f} ms; {len(both)} names in both, {len(ours) - len(both)} / "
+          f"{len(theirs) - len(both)} in one only, {counts} counts differ, device times "
+          f"by name within {dt:.3f} us")
+    if n_ours != n_theirs or abs(ms_ours - ms_theirs) > 1e-3 * ms_theirs or counts:
+        raise AssertionError(f"{name}: profile_keys and key_averages disagree")
+
+
+def profiled(name, fn, cross_check=False):
     """Run ``fn`` once under ``torch.profiler``; print its device launches,
     device time against its (profiled) wall time and the 20 kernels with the
-    most device time.  Returns (all events, device events)."""
+    most device time (with ``cross_check``, ``cross_check_keys`` too).
+    Returns (all events, device events) by name (``profile_keys``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -942,18 +1029,20 @@ def profiled(name, fn):
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    events = prof.key_averages()
+    events = profile_keys(prof)
     # device-side events only (the kernels and memcpys/memsets themselves;
     # the CPU ops that launched them carry the same time again)
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"{name} under torch.profiler: {sum(e.count for e in kernels)} device "
           f"launches, {dev_ms:.1f} ms of device time in {wall:.1f} ms of "
-          f"(profiled) wall ({100 * dev_ms / wall:.1f}% busy); events averaged "
+          f"(profiled) wall ({100 * dev_ms / wall:.1f}% busy); events grouped "
           f"in {time.perf_counter() - t0:.1f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} x  "
               f"{e.key[:90]}")
+    if cross_check:
+        cross_check_keys(name, prof, kernels)
     return events, kernels
 
 
@@ -1766,10 +1855,11 @@ def run_cli(argv):
     return out
 
 
-def drive_cli(dev, smi, data_root, exp, path, *extra):
-    """One CLI run of ``exp`` from the config at ``path``, with the launch
-    counts zeroed before and read after (the path's run, held against
-    ``expected_cli_launches``); returns the experiment and its record."""
+def drive_cli(dev, smi, data_root, exp, path, *extra, model_name="smoke"):
+    """One CLI run of ``exp`` from the config at ``path`` as ``model_name``,
+    with the launch counts zeroed before and read after (the path's run,
+    held against ``expected_cli_launches``); returns the experiment and its
+    record."""
     from ipoke_tpu_torch import ops
 
     probe_us = host_probe(dev)
@@ -1779,7 +1869,7 @@ def drive_cli(dev, smi, data_root, exp, path, *extra):
     stats0 = torch.cuda.memory_stats()
     ops.reset_launches()  # this CLI run
     t_run = time.perf_counter()
-    e = run_cli(["--config", path, "--model_name", "smoke", "--data_root", data_root,
+    e = run_cli(["--config", path, "--model_name", model_name, "--data_root", data_root,
                  *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
@@ -1787,7 +1877,8 @@ def drive_cli(dev, smi, data_root, exp, path, *extra):
     tm = e.timings
     n_train, n_val = len(tm["step_s"]), len(tm["val_s"])
     want = expected_cli_launches(exp, e.config, n_train, n_val * e.max_val_batches)
-    label = f"CLI {exp}{' --resume' if extra else ''}"
+    label = f"CLI {exp}{'' if model_name == 'smoke' else f' ({model_name})'}" \
+        f"{' --resume' if extra else ''}"
     print(f"{label} kernel launches: {got} (expected {want})")
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want}")
@@ -1847,7 +1938,6 @@ def phase_cli(dev, smi, tree):
 
     import yaml
 
-    from ipoke_tpu_torch import main as cli
     from ipoke_tpu_torch.core.config import load_config
 
     release()  # what earlier phases left in reference cycles
@@ -1891,29 +1981,9 @@ def phase_cli(dev, smi, tree):
     if e1.ddi_runs != 1:
         raise AssertionError(f"CLI second_stage: DDI ran {e1.ddi_runs} times")
     # restore check: the state a --resume loads equals the run's own
-    args = cli.parse_args(["--config", ss_path, "--model_name", "smoke",
-                           "--data_root", data_root, "--resume"])
-    cfg_r, dirs, _ = cli.load_parameters(args)
-    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
-    e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device="cuda")
-    e2.build()
-    e2.restore_last()
-    checks = {"step": e2.step == e1.step,
-              "lr count": e2.tx.count == e1.tx.count,
-              "masters fp32, bitwise": all(
-                  a.dtype == torch.float32 and torch.equal(a, b)
-                  for a, b in zip(e2.tx.master, e1.tx.master)),
-              "params bf16, bitwise": all(
-                  a.dtype == torch.bfloat16 and torch.equal(a, b)
-                  for a, b in zip(e2.model.flow_params.parameters(),
-                                  e1.model.flow_params.parameters()))}
-    e2.metrics_logger.close()
-    print(f"CLI second_stage restore check (step {e2.step}, lr count "
-          f"{e2.tx.count}): {checks}")
-    if not all(checks.values()):
-        raise AssertionError(f"CLI second_stage restore: {checks}")
+    check_second_stage_restore(e1, ss_path, data_root, "smoke", dev)
     step1, count1 = e1.step, e1.tx.count
-    del e1, e2
+    del e1
     release()
     e3, results["second_stage_resume"] = drive("second_stage", ss_path, "--resume")
     launches["cli_second_stage_resume"] = results["second_stage_resume"]["launches"]
@@ -2747,8 +2817,11 @@ def phase_fc_third_test(dev, smi, tree, conditional=True):
     print(f"(n4) third_stage_fc sample_video B={B} T={FC_THIRD_T}: "
           f"{', '.join(f'{t:.2f}' for t in times)} ms (host clock, each closed by a "
           f"synchronize) on {smi}")
+    # the smallest profile of the script (~3400 launches) is also grouped by
+    # key_averages: the grouping does not depend on the path, and
+    # key_averages' cost grows with the events (~18 s at a SHIPPED pass's)
     events, kernels = profiled("(n4) third_stage_fc sample_video",
-                               lambda: e.sample_video(batch, FC_THIRD_T))
+                               lambda: e.sample_video(batch, FC_THIRD_T), cross_check=True)
     k3_ms = report_in_situ(kernels, "sample_video", "K3", "spade_gn_kernel", levels)
     results["sample_video"] = {"ms": times, "k3_in_situ_ms": k3_ms, "B": B}
     del e, video
@@ -3116,75 +3189,139 @@ def poke_kernel_check(experiment, tag):
         expected_ui_launches(experiment.config, 1))
 
 
-def launch_check(tag, run, want):
-    """K2 and K3 at the shapes ``run()`` gives them: ``run`` once with every
-    launch's inputs and output kept, its launches counted against ``want``,
-    then each kept output held against the plain version on the same inputs
-    (K2 at K2_TOL, K3 at K3_TOL of its dtype, abs + rel), and each distinct
-    shape timed, kernel and plain, with its bound.  Returns the rows by
-    kernel."""
-    from ipoke_tpu_torch.ops import masked_conv, spade_gn
+def _checked_kernels():
+    """Per kernel that ``launch_check`` can hold: (module, wrapper name,
+    plain version, (tol, rel, scaled) by the first argument's dtype, (dims,
+    work, peak) of the arguments); ``scaled``: tol times min(1, max |ref|)
+    per output."""
+    from ipoke_tpu_torch.ops import masked_conv, nice_net, spade_gn
 
-    launch = {"macow_unit_inverse": masked_conv.macow_unit_inverse_cuda,
-              "spade_gn": spade_gn.spade_gn_cuda}
-    kept = {name: [] for name in launch}
+    def unit(args):
+        b, s, _, c = args[0].shape
+        hid = args[1].shape[-1]
+        return {"B": b, "S": s, "C": c, "hid": hid}, unit_work(b, s, c, hid), FP32_FLOPS
+
+    def spade(args):
+        n, s, _, ch = args[0].shape
+        return ({"N": n, "clips": args[1].shape[0], "S": s, "Ch": ch},
+                spade_work(n, args[1].shape[0], s, ch, args[0].element_size()), FP32_FLOPS)
+
+    def nice(train):
+        def dims(args):
+            (m, k1), (hid, n) = args[0].shape, args[3].shape
+            return ({"M": m, "K1": k1, "Hid": hid, "N": n},
+                    nice_work(m, k1, hid, n, train), BF16_FLOPS)
+        return dims
+
+    return {
+        "macow_unit_inverse": (masked_conv, "macow_unit_inverse_cuda",
+                               masked_conv.macow_unit_inverse_plain,
+                               lambda dt: (K2_TOL, 0.0, False), unit),
+        "spade_gn": (spade_gn, "spade_gn_cuda", spade_gn.spade_gn_plain,
+                     lambda dt: (K3_TOL[dt], K3_TOL[dt], False), spade),
+        "nice_net": (nice_net, "nice_net_cuda", nice_net.nice_net_plain,
+                     lambda dt: (K1_TOL, K1_TOL, True), nice(False)),
+        "nice_net_train": (nice_net, "nice_net_train_cuda", nice_net.nice_net_train_plain,
+                           lambda dt: (K1_TOL, K1_TOL, True), nice(True)),
+    }
+
+
+def launch_check(tag, run, want, names=("macow_unit_inverse", "spade_gn"), timed=True):
+    """The kernels ``names`` (K2 and K3 by default; K1 ``nice_net`` and K4
+    ``nice_net_train`` too) at the shapes ``run()`` gives them: ``run`` once
+    with every launch's inputs and output kept, its launches counted against
+    ``want``, then each kept output held against the plain version on the
+    same inputs (K2 at K2_TOL, K3 at K3_TOL of its dtype abs + rel, K1 and
+    K4 (u, a and b) at K1_TOL abs + rel with the abs part times min(1,
+    max |ref|) of each output; the smallest max |ref| of the u outputs,
+    what a zeroed output would read, is printed), and (``timed``) each distinct
+    shape timed, kernel and plain, with its bound (those launches are left
+    out of ``ops.LAUNCHES``).  Returns the rows by kernel."""
+    from ipoke_tpu_torch import ops
+
+    table = _checked_kernels()
+    launch = {name: getattr(table[name][0], table[name][1]) for name in names}
+    kept = {name: [] for name in names}
+    clone = lambda t: t.clone() if torch.is_tensor(t) else t
 
     def keeping(name):
         def call(*args):
             out = launch[name](*args)
-            kept[name].append(([a.clone() if torch.is_tensor(a) else a for a in args],
-                               out.clone()))
+            kept[name].append(([clone(a) for a in args],
+                               tuple(map(clone, out)) if isinstance(out, tuple)
+                               else clone(out)))
             return out
         return call
 
-    masked_conv.macow_unit_inverse_cuda = keeping("macow_unit_inverse")
-    spade_gn.spade_gn_cuda = keeping("spade_gn")
+    for name in names:
+        setattr(table[name][0], table[name][1], keeping(name))
     try:
         run()
     finally:
-        masked_conv.macow_unit_inverse_cuda = launch["macow_unit_inverse"]
-        spade_gn.spade_gn_cuda = launch["spade_gn"]
+        for name in names:
+            setattr(table[name][0], table[name][1], launch[name])
     rows = {}
-    for name, plain in (("macow_unit_inverse", masked_conv.macow_unit_inverse_plain),
-                        ("spade_gn", spade_gn.spade_gn_plain)):
+    for name in names:
+        _, _, plain, tols, describe = table[name]
         if len(kept[name]) != want[name]:
             raise AssertionError(f"{tag} {name}: {len(kept[name])} launches kept, "
                                  f"{want[name]} expected")
         by_shape = {}
         for i, (args, out) in enumerate(kept[name]):
-            tol = K2_TOL if name == "macow_unit_inverse" else K3_TOL[args[0].dtype]
-            rel = 0.0 if name == "macow_unit_inverse" else tol
-            shape = tuple(tuple(a.shape) for a in args[:3])
-            err = check_close(f"{tag} {name} launch {i} {shape[0]}", out, plain(*args), tol,
-                              rel)
-            row = by_shape.setdefault(shape, {"launches_a_poke": 0, "max_abs_err": 0.0,
-                                              "args": args, "tol": tol})
-            row["launches_a_poke"] += 1
+            tol, rel, scaled = tols(args[0].dtype)
+            ref = plain(*args)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            shape = tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
+            peaks = [r.float().abs().max().item() for r in refs]
+            err = max(check_close(f"{tag} {name} launch {i} {shape[0]}", o, r,
+                                  tol * min(1.0, m) if scaled else tol, rel)
+                      for o, r, m in zip(outs, refs, peaks))
+            row = by_shape.setdefault(shape, {"launches_a_pass": 0, "max_abs_err": 0.0,
+                                              "args": args, "tol": tol, "rel": rel,
+                                              "ref_max": math.inf, "scaled": scaled})
+            row["launches_a_pass"] += 1
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ref_max"] = min(row["ref_max"], peaks[0])
+        del kept[name]
         rows[name] = []
+        held = dict(ops.LAUNCHES)  # the timing's launches are not the run's
         for shape, row in by_shape.items():
             args = row.pop("args")
-            ms = cuda_ms(lambda: launch[name](*args), 20)
-            plain_ms = cuda_ms(lambda: plain(*args), 3)
-            if name == "macow_unit_inverse":
-                b, s, _, c = args[0].shape
-                work, dims = unit_work(b, s, c, args[1].shape[-1]), \
-                    {"B": b, "S": s, "C": c, "hid": args[1].shape[-1]}
-            else:
-                n, s, _, ch = args[0].shape
-                work = spade_work(n, args[1].shape[0], s, ch, args[0].element_size())
-                dims = {"N": n, "clips": args[1].shape[0], "S": s, "Ch": ch}
-            bound_ms, bound_by = bound(*work, FP32_FLOPS)
-            rows[name].append({**dims, **row, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": None})
-            print(f"{tag} {name} at the shape {dims} ({row["launches_a_poke"]} launches a "
-                  f"pass): every launch against its plain version on its inputs, max_abs_err "
-                  f"{row['max_abs_err']:.3e} (tol {row['tol']:g}"
-                  f"{' abs+rel' if rel else ''}), kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us ({bound_by})")
-        del kept[name]
+            ref_max, scaled = row.pop("ref_max"), row.pop("scaled")
+            if scaled:
+                row["ref_max"] = ref_max
+            dims, work, peak = describe(args)
+            bound_ms, bound_by = bound(*work, peak)
+            out = {**dims, **row, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+            times = ""
+            if timed:
+                out["ms"] = cuda_ms(lambda: launch[name](*args), 20)
+                out["plain_ms"] = cuda_ms(lambda: plain(*args), 3)
+                times = f", kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms"
+            rows[name].append(out)
+            if timed:
+                print(f"{tag} {name} at the shape {dims} ({row['launches_a_pass']} launches "
+                      f"a pass): every launch against its plain version on its inputs, "
+                      f"max_abs_err {row['max_abs_err']:.3e} ({_tol_text([row])}){times}, "
+                      f"bound {1e3 * bound_ms:.2f} us ({bound_by})")
+        ops.LAUNCHES.update(held)
+        if not timed and rows[name]:
+            r = rows[name]
+            print(f"{tag} {name}: {sum(x['launches_a_pass'] for x in r)} launches at "
+                  f"{len(r)} shapes, each against its plain version on its inputs, "
+                  f"max_abs_err {max(x['max_abs_err'] for x in r):.3e} ({_tol_text(r)})")
     return rows
+
+
+def _tol_text(rows):
+    """``launch_check``'s limit for ``rows`` of one kernel, with (K1, K4)
+    the smallest max |ref| of u: what a zeroed output would read."""
+    tol, rel = rows[0]["tol"], rows[0]["rel"]
+    if "ref_max" in rows[0]:
+        return (f"tol {tol:g} x min(1, max |ref|) abs + {rel:g} rel; u's max |ref| "
+                f">= {min(x['ref_max'] for x in rows):.3e}, a zeroed output's error")
+    return f"tol {tol:g}{' abs+rel' if rel else ''}"
 
 
 def drive_ui(experiment, smi, tag, n_pokes, save=True, profile_poke=False):
@@ -3866,6 +4003,372 @@ def phase_reference(dev, smi, cfg=None):
                       "on_again_passes_ms": times2, "in_situ_ms": in_situ}, rows
 
 
+# ---------------------------------------------------------------------------
+# (s) the second stage's options
+# ---------------------------------------------------------------------------
+
+# The variants of phase (s), keys of an ``entry`` config dict (on SMALL's or
+# SHIPPED's widths): A the conditioning options (flow_ae, a poke_and_image
+# embedder at 4x the first stage's latent size and a variational
+# conditioner at half of it: both conv_adapt adapters), bf16; B the
+# non-affine transforms without a conditioner, bf16; C a MultiscaleStack
+# with reshape up and use1x1, fp32; C' the same stack without use1x1 in
+# bf16 (SMALL only) at SHIPPED's NICE hidden widths, 64 x C (2048 at 8x8x32,
+# 512 at 16x16x8), so that K1 runs in both blocks.
+OPTION_VARIANTS = {
+    "A": dict(flow_ae=True, poke_and_image=True, cond_deterministic=False),
+    "B": dict(transform="additive", prior_transform="relu", conditioner=False),
+    "C": dict(multistack=True, reshape="up", levels=[[4, 3, 2], [4, 3, 2]],
+              factors=[16, 4], use1x1=True, mixed=False),
+    "C'": dict(multistack=True, reshape="up", levels=[[4, 3, 2], [4, 3, 2]],
+               factors=[16, 4], mid_factor=64),
+}
+# (s1) SMALL card vs CPU: sampling in bf16 by phase (d)'s rule, in fp32
+# within OPTION_FP32_TOL abs + rel (both sides fp32, TF32 off, summing in
+# other orders); 2 train steps by phase (f)'s rule
+OPTION_FP32_TOL, OPTION_TRAIN_STEPS = 1e-3, 2
+# (s3) the CLI second stage's depth over the variant A encoders (phase (k)'s
+# widths and step counts; the depth cut further than (k)'s for the disk)
+OPTION_CLI_STEPS = [2, 1]
+
+
+def option_config(base, name):
+    """A variant on ``base``'s widths (SMALL or SHIPPED): A's embedders at 2x
+    and 1/2 of the first stage's latent size."""
+    cfg = dict(base, **OPTION_VARIANTS[name])
+    if name == "A":
+        cfg.update(poke_min_spatial=2 * base["min_spatial"],
+                   cond_min_spatial=base["min_spatial"] // 2)
+    return cfg
+
+
+def flow_blocks(model):
+    """[(MultiScaleInternal, latent size)] of a second stage's flow, walked
+    from the model's own blocks: a MultiscaleStack's blocks from its
+    reshape step on see its output shape."""
+    from ipoke_tpu_torch.flows.macow import MultiscaleStack
+
+    s, flow = model.min_spatial_size, model.flow
+    if not isinstance(flow, MultiscaleStack):
+        return [(flow, s)]
+    after, step = flow.output_shape((s, s, model.flow_in_channels))[0], flow._reshape_step
+    return [(b, s if step is None or i < step else after)
+            for i, b in enumerate(flow._blocks())]
+
+
+def expected_option_launches(model, cfg, bf16, train=False):
+    """Per sampling pass (or, ``train``, per step) of a variant: K1 in
+    every NICE coupling of its bf16 family (hidden a multiple of 128, at
+    most 512 pixels; steps' and priors' alike, whatever the transform), K2
+    in each affine unit that ``unit_fits``, K3 once a decode level; a step
+    runs K1 in each step's 4 couplings (the remat's no-grad pass) and K4 in
+    their recompute and the priors.  No K5: a non-affine masked-conv flow
+    takes the plain row scan, as in the JAX package."""
+    from ipoke_tpu_torch.flows.macow import default_mcf_hidden
+    from ipoke_tpu_torch.ops.masked_conv import unit_fits
+
+    want = dict.fromkeys(CLI_KERNELS, 0)
+    for block, s in flow_blocks(model):
+        steps, c, hid = block.num_steps, block.in_channels, block.hidden_channels
+        n, levels = sum(steps), len(steps)
+        k1 = bf16 and hid % 128 == 0 and s * s <= 512
+        if train:
+            want["nice_net"] += 4 * n if k1 else 0
+            want["nice_net_train"] += 4 * n + levels if k1 else 0
+            continue
+        want["nice_net"] += 4 * n + levels if k1 else 0
+        for i, k in enumerate(steps):
+            ci = c - i * (c // block.factor)
+            if block.transform == "affine" and unit_fits(
+                    (cfg["batch_size"], s, s, ci), default_mcf_hidden(ci), (2, 3)):
+                want["macow_unit_inverse"] += 4 * k
+    if not train:
+        want["spade_gn"] = len(cfg["dec_ch"]) - 1
+    return want
+
+
+def phase_options_small(dev):
+    """(s1) SMALL, each variant card against the CPU port from the same
+    perturbed weights: one ``forward_sample`` (the same z) with every K1,
+    K2 and K3 launch held against its plain version on its inputs and the
+    frames compared; then from the same post-DDI weights 2 train steps
+    with every K1 and K4 launch of the first held so, and the losses
+    compared.  Returns the launches by path."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    paths, t_phase = {}, time.perf_counter()
+    for name in OPTION_VARIANTS:
+        cfg = option_config(entry.SMALL, name)
+        bf16 = cfg.get("mixed", True)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        gen = torch.Generator().manual_seed(0)
+        model = entry.build(cfg, "cpu", gen)
+        entry.perturb(model.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
+        cpu = model.to(dtype)
+        card = copy.deepcopy(cpu).to(dev)
+        batch = entry.make_batch(cfg, "cpu", dtype, seed=0)
+        z = torch.randn((cfg["batch_size"], *cpu.z_shape()), generator=gen).to(dtype)
+        tag = f"(s1) SMALL {name}"
+        want = expected_option_launches(model, cfg, bf16)
+        frames = []
+        ops.reset_launches()  # this variant's sampling path
+        launch_check(tag, lambda: frames.append(card.forward_sample(
+            {k: v.to(dev) for k, v in batch.items()}, cfg["T"], z=z.to(dev))),
+            want, ("nice_net", "macow_unit_inverse", "spade_gn"), timed=False)
+        torch.cuda.synchronize()
+        paths[f"options_small_{name}_sample"] = check_launches(f"{tag} pass", want)
+        ref = cpu.forward_sample(batch, cfg["T"], z=z)
+        got = frames[0].cpu()
+        shape = (cfg["batch_size"], cfg["T"], cfg["spatial"], cfg["spatial"], 3)
+        if tuple(got.shape) != shape:
+            raise AssertionError(f"{tag}: frames {tuple(got.shape)}, want {shape}")
+        diff = (got.float() - ref.float()).abs()
+        if bf16:
+            print(f"{tag} bf16 card vs CPU: frames max_abs_err {diff.max().item():.3e} "
+                  f"mean {diff.mean().item():.3e} (tol max {SMALL_MAX_TOL}, mean "
+                  f"{SMALL_MEAN_TOL})")
+            if not bool(torch.isfinite(got).all()) or diff.max().item() > SMALL_MAX_TOL \
+                    or diff.mean().item() > SMALL_MEAN_TOL:
+                raise AssertionError(f"{tag}: card frames disagree with the CPU port")
+        else:
+            err = check_close(f"{tag} fp32 frames", got, ref, OPTION_FP32_TOL,
+                              OPTION_FP32_TOL)
+            print(f"{tag} fp32 card vs CPU: frames max_abs_err {err:.3e} (tol "
+                  f"{OPTION_FP32_TOL} abs+rel)")
+        del card, cpu, frames
+
+        # 2 train steps from the same post-DDI weights (phase (f)'s rule)
+        model = entry.build(cfg, "cpu", torch.Generator().manual_seed(0))
+        tbatch = entry.make_batch(cfg, "cpu", seed=0)
+        SecondStageTrainer(model, SMALL_TRAIN_LR).ddi(tbatch)  # fp32
+        entry.perturb(model.flow_params, gen, SMALL_PERTURB, SMALL_PERTURB)
+        models = {"card": copy.deepcopy(model).to(dev), "cpu": model}
+        want = expected_option_launches(model, cfg, bf16, train=True)
+        adapters = {}
+        losses = {}
+        for side, m in models.items():
+            trainer = SecondStageTrainer(m, SMALL_TRAIN_LR)
+            trainer.start()
+            before = {n: p.detach().clone() for n, p in m.flow_params.named_parameters()
+                      if n.startswith("adapt")}
+            b = {k: v.to(dev if side == "card" else "cpu") for k, v in tbatch.items()}
+            losses[side] = []
+            for step in range(OPTION_TRAIN_STEPS):
+                ops.reset_launches()
+                if side == "card" and step == 0:
+                    out = []
+                    launch_check(f"{tag} train step", lambda: out.append(
+                        trainer.train_step(b)["flow_loss"].item()), want,
+                        ("nice_net", "nice_net_train"), timed=False)
+                    loss = out[0]
+                else:
+                    loss = trainer.train_step(b)["flow_loss"].item()
+                if side == "card":
+                    torch.cuda.synchronize()
+                    got = check_launches(f"{tag} train step {step}", want)
+                    if step == 0:
+                        paths[f"options_small_{name}_train"] = got
+                losses[side].append(loss)
+            adapters[side] = all(not torch.equal(p.detach(), before[n])
+                                 for n, p in m.flow_params.named_parameters() if n in before)
+        rel = [abs(a - c) / abs(c) for a, c in zip(losses["card"], losses["cpu"])]
+        print(f"{tag} train {'bf16' if bf16 else 'fp32'}, {OPTION_TRAIN_STEPS} steps at lr "
+              f"{SMALL_TRAIN_LR}: card {losses['card']}, CPU {losses['cpu']} (rel diff "
+              f"{', '.join(f'{r:.2e}' for r in rel)}, tol {SMALL_TRAIN_TOL})"
+              + (f"; adapters moved on card and CPU: {adapters}" if name == "A" else ""))
+        if not all(map(math.isfinite, losses["card"])) or max(rel) > SMALL_TRAIN_TOL:
+            raise AssertionError(f"{tag} train: card losses disagree with the CPU port")
+        if name == "A" and not all(adapters.values()):
+            raise AssertionError(f"{tag} train: an adapter did not move ({adapters})")
+        del models, model
+    print(f"(s1) in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def phase_options_shipped(dev, smi):
+    """(s2) variants A, B and C at the shipped widths (128 px, B = 40, T =
+    10, the cINN's 1054.43M-param widths; weights drawn on the card,
+    couplings perturbed): per variant one pass with the launch counts zeroed
+    before and read after and every K1, K2 and K3 launch held against its
+    plain version on its inputs (A's distinct shapes also timed), then 3
+    timed passes (host clock, each closed by a synchronize) and the peak
+    memory; A's busy share from a ``torch.profiler`` table of one pass.
+    Returns (launches by path, results, A's kernel rows)."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.flows import count_params
+
+    release()
+    paths, results, rows = {}, {}, {}
+    for name in ("A", "B", "C"):
+        cfg = option_config(entry.SHIPPED, name)
+        bf16 = cfg.get("mixed", True)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        model = entry.build(cfg, dev, gen)
+        entry.perturb(model.flow_params, gen)
+        model = model.to(dtype)
+        batch = entry.make_batch(cfg, dev, dtype, seed=0)
+        torch.cuda.synchronize()
+        tag = f"(s2) SHIPPED {name}"
+        n_params = count_params(model.flow_params.tree())
+        print(f"{tag} built in {time.perf_counter() - t0:.1f} s: second-stage params "
+              f"{n_params / 1e6:.2f}M, {'bf16' if bf16 else 'fp32'}")
+        want = expected_option_launches(model, cfg, bf16)
+        torch.cuda.reset_peak_memory_stats()
+        frames = []
+        ops.reset_launches()  # this variant's main path run
+        r = launch_check(tag, lambda: frames.append(
+            model.forward_sample(batch, cfg["T"], gen)), want,
+            [k for k in ("nice_net", "macow_unit_inverse", "spade_gn") if want[k]],
+            timed=name == "A")
+        torch.cuda.synchronize()
+        paths[f"options_shipped_{name}"] = check_launches(f"{tag} pass", want)
+        shape = (cfg["batch_size"], cfg["T"], cfg["spatial"], cfg["spatial"], 3)
+        if tuple(frames[0].shape) != shape or not bool(torch.isfinite(frames[0]).all()):
+            raise AssertionError(f"{tag}: frames {tuple(frames[0].shape)}, want finite "
+                                 f"{shape}")
+        del frames
+        if name == "A":
+            rows = r
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            model.forward_sample(batch, cfg["T"], gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        ms = sum(times) / len(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results[name] = {"ms_per_pass": ms, "passes_ms": times, "peak_gib": peak,
+                         "params_m": n_params / 1e6,
+                         "launches": paths[f"options_shipped_{name}"]}
+        print(f"{tag} B={cfg['batch_size']} T={cfg['T']} {cfg['spatial']}px: {ms:.1f} "
+              f"ms/pass ({', '.join(f'{t:.1f}' for t in times)}), "
+              f"{cfg['batch_size'] / (ms / 1e3):.2f} clips/s, peak {peak:.2f} GiB "
+              f"(the checked pass's kept inputs included) on {smi}")
+        if name == "A":
+            _, kernels = profiled(f"{tag} sampling pass",
+                                  lambda: model.forward_sample(batch, cfg["T"], gen))
+            results[name]["in_situ_ms"] = {
+                k: report_in_situ(kernels, "the pass", k, key, paths["options_shipped_A"][n])
+                for k, key, n in (("K1", "nice_net_stage", "nice_net"),
+                                  ("K2", "macow_unit_inverse_kernel",
+                                   "macow_unit_inverse"),
+                                  ("K3", "spade_gn_kernel", "spade_gn"))}
+        del model, batch
+        release()
+    return paths, results, rows
+
+
+def check_second_stage_restore(e1, path, data_root, model_name, dev):
+    """The state a ``--resume`` of the run ``e1`` loads (step, lr count,
+    fp32 masters, bf16 params) on ``dev`` against the run's own, bit for
+    bit."""
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch.cli.experiments import SecondStageExperiment
+
+    args = cli.parse_args(["--config", path, "--model_name", model_name,
+                           "--data_root", data_root, "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    e2 = SecondStageExperiment(cfg_r, dirs, data_root=data_root, device=dev)
+    e2.build()
+    e2.restore_last()
+    checks = {"step": e2.step == e1.step,
+              "lr count": e2.tx.count == e1.tx.count,
+              "masters fp32, bitwise": all(
+                  a.dtype == torch.float32 and torch.equal(a, b)
+                  for a, b in zip(e2.tx.master, e1.tx.master)),
+              "params bf16, bitwise": all(
+                  a.dtype == torch.bfloat16 and torch.equal(a, b)
+                  for a, b in zip(e2.model.flow_params.parameters(),
+                                  e1.model.flow_params.parameters()))}
+    e2.metrics_logger.close()
+    print(f"CLI second_stage ({model_name}) restore check (step {e2.step}, lr count "
+          f"{e2.tx.count}): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"CLI second_stage ({model_name}) restore: {checks}")
+
+
+def phase_options_cli(dev, smi, tree):
+    """(s3) ``ipoke_tpu_torch.main`` over variant A's options from the
+    shipped YAMLs on (k)'s tree, model name ``options``: img_encoder
+    variational at a min spatial size of 4, poke_encoder with
+    poke_and_image and flow_ae at 16, then second_stage over them and (k)'s
+    first_stage with poke_embedder.flow_ae (both conv_adapt adapters; depth
+    OPTION_CLI_STEPS), a restore check and --resume; each run with the
+    launch counts zeroed before and read after (``expected_cli_launches``).
+    Returns (launches by path, results)."""
+    import os
+    import shutil
+
+    import yaml
+
+    from ipoke_tpu_torch.core.config import load_config
+
+    release()
+    root, data_root, base = tree["root"], tree["data_root"], tree["base"]
+    name, t0 = "options", time.perf_counter()
+
+    def run_dir(exp, model):
+        return {"config": os.path.join(base, exp, "config", model, "0.yaml"),
+                "ckpt": os.path.join(base, exp, "ckpt", model, "0")}
+
+    def config(exp, arch):
+        cfg = load_config(os.path.join("config", f"{exp}.yaml")).to_dict()
+        cfg["data"]["dataset"] = "PlantDataset"
+        cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES,
+                               max_val_batches=1)
+        cfg["architecture"].update(arch)
+        if exp == "second_stage":
+            cfg["first_stage"].update(run_dir("first_stage", "smoke"))
+            cfg["conditioner"].update(run_dir("img_encoder", name))
+            cfg["poke_embedder"].update(run_dir("poke_encoder", name), flow_ae=True)
+        path = os.path.join(root, f"{exp}_{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    drive = lambda exp, path, *extra: drive_cli(dev, smi, data_root, exp, path, *extra,
+                                                model_name=name)
+    launches, results = {}, {}
+    for exp, arch in (("img_encoder", {"deterministic": False, "min_spatial_size": 4}),
+                      ("poke_encoder", {"poke_and_image": True, "flow_ae": True,
+                                        "min_spatial_size": 16})):
+        e, results[exp] = drive(exp, config(exp, arch))
+        launches[f"options_cli_{exp}"] = results[exp]["launches"]
+        del e
+        release()
+    path = config("second_stage", {"num_steps": OPTION_CLI_STEPS})
+    e1, results["second_stage"] = drive("second_stage", path)
+    launches["options_cli_second_stage"] = results["second_stage"]["launches"]
+    m = e1.model
+    if (m.poke_key, set(m.adapters), e1.ddi_runs) != (
+            "flow", {"adapt_poke", "adapt_cond"}, 1):
+        raise AssertionError(f"(s3) second_stage: poke key {m.poke_key}, adapters "
+                             f"{m.adapters}, DDI runs {e1.ddi_runs}")
+    print(f"(s3) second_stage embeds {m.poke_key}, adapters {m.adapters} (latent "
+          f"size, channels) to the first stage's {m.min_spatial_size}; variational "
+          f"conditioner: {not m.conditioner.deterministic}, poke_and_image embedder: "
+          f"{m.poke_embedder.poke_and_image}")
+    check_second_stage_restore(e1, path, data_root, name, dev)
+    step1, count1 = e1.step, e1.tx.count
+    del e1, m
+    release()
+    e3, results["second_stage_resume"] = drive("second_stage", path, "--resume")
+    launches["options_cli_second_stage_resume"] = results["second_stage_resume"]["launches"]
+    n3 = len(e3.timings["step_s"])
+    if (e3.step, e3.tx.count, e3.ddi_runs) != (step1 + n3, count1 + n3, 0):
+        raise AssertionError(
+            f"(s3) second_stage --resume: step {e3.step}, lr count {e3.tx.count}, "
+            f"DDI runs {e3.ddi_runs}; want {step1 + n3}, {count1 + n3}, 0")
+    del e3
+    release()
+    shutil.rmtree(os.path.join(base, "second_stage", "ckpt", name), ignore_errors=True)
+    print(f"(s3) in {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -3924,6 +4427,15 @@ def main():
         kernels[name]["reference_sample_shapes"] = r
     kernels["macow_unit_inverse"]["reference_in_situ_ms"] = ref_out["in_situ_ms"]["K2"]
     kernels["spade_gn"]["reference_in_situ_ms"] = ref_out["in_situ_ms"]["K3"]
+    # (s1) the second stage's options, SMALL card vs CPU; (s2) variants A,
+    # B and C at the shipped widths
+    paths.update(phase_options_small(dev))
+    s_launches, s_out, rows = phase_options_shipped(dev, smi)
+    paths.update(s_launches)
+    for name, r in rows.items():
+        kernels[name]["options_A_shapes"] = r
+    for name, key in (("nice_net", "K1"), ("macow_unit_inverse", "K2"), ("spade_gn", "K3")):
+        kernels[name]["options_A_in_situ_ms"] = s_out["A"]["in_situ_ms"][key]
     # (i) the first-stage VAE-GAN train step; (q3) K3 in bf16 at its
     # training shapes, forward and backward; (q1) TINY under mixed_prec and
     # a full_sequence: false step, card vs CPU; (q2) the yaml's step in bf16
@@ -3969,6 +4481,9 @@ def main():
         paths.update(ui_launches)
         for name, rows in ui_out["kernel_shapes"].items():
             kernels[name]["ui_restored_poke_shapes"] = rows
+        # (s3) the CLI over variant A's options, on (k)'s first stage
+        s3_launches, _ = phase_options_cli(dev, smi, tree)
+        paths.update(s3_launches)
         # (p3) the recipe through the CLI on (k)'s frozen runs; (k)'s second
         # stage and third-stage runs are read by no later phase
         free_runs(tree, ("second_stage", "flow_vae", "flow_motion"))

@@ -519,7 +519,7 @@ class _AEExperiment(Experiment):
         return 1.0 if (self.use_disc and epoch >= self.disc_start) else 0.0
 
     def train_step(self, batch, epoch):
-        return self._step(batch, self.disc_gate(epoch))
+        return self._step(batch, self.disc_gate(epoch), generator=self.generator)
 
     def checkpoint_state(self):
         state = {"model": self.model.state_dict(), "tx": self.tx.state_dict()}
@@ -545,7 +545,9 @@ class _AEExperiment(Experiment):
         lp, ss, ps, reals, recs = [], [], [], [], []
         for batch in self.val_batches(epoch):
             x, tgt = self._step.io(batch)
-            rec = self.model.ae(x, train=False)
+            # a variational AE: the JAX validation samples (apply with an rng)
+            rec = self.model.ae(x, train=False,
+                                noise=self._step.noise(x, self.generator))
             a, b = (tgt, rec) if tgt.shape[-1] == 3 else (pad3(tgt), pad3(rec))
             lp.append(perceptual_distance(self.vgg, a, b).cpu().numpy())
             ss.append(ssim(a, b).cpu().numpy())
@@ -606,17 +608,17 @@ def load_frozen_net(config, section: str, build, generator):
 
 def load_frozen(config, generator):
     """The three frozen submodels (first stage, conditioner, poke embedder)
-    of a second- or third-stage config (``load_frozen_net``)."""
+    of a second- or third-stage config (``load_frozen_net``); the
+    conditioner is None under ``conditioner.use: false``."""
     from ..models import first_stage as fs
     from ..models.image_ae import build_image_ae
 
-    if not config.get_path("conditioner.use", True):
-        raise NotImplementedError("a second stage without conditioner is not "
-                                  "ported yet (ROADMAP queue 1 item 3)")
     first = load_frozen_net(config, "first_stage",
                             lambda c: fs.build_first_stage(c)[0], generator)
-    cond = load_frozen_net(config, "conditioner", lambda c: build_image_ae(c).ae,
-                           generator)
+    cond = None
+    if config.get_path("conditioner.use", True):
+        cond = load_frozen_net(config, "conditioner",
+                               lambda c: build_image_ae(c).ae, generator)
     poke = load_frozen_net(config, "poke_embedder", lambda c: build_image_ae(c).ae,
                            generator)
     return first, cond, poke

@@ -112,12 +112,10 @@ class _FCEncoderExperiment(_AEExperiment):
         from ..models.image_ae import ImageAE
 
         arch = config["architecture"]
-        if not arch.get("deterministic", True) or arch.get("poke_and_image", False):
-            raise NotImplementedError(
-                "training the variational FC encoder or poke_and_image is not "
-                "ported yet (ROADMAP queue 1 item 3)")
-        return ImageAE(FirstStageFCWrapper(config["data"]["spatial_size"][0],
-                                           arch.get("nf_in", 3), arch["nf_max"]))
+        return ImageAE(FirstStageFCWrapper(
+            config["data"]["spatial_size"][0], arch.get("nf_in", 3), arch["nf_max"],
+            deterministic=arch.get("deterministic", True),
+            poke_and_image=arch.get("poke_and_image", False)))
 
     def weight_decay(self, config) -> float:
         return 1e-5

@@ -9,7 +9,8 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   ``jax_second_stage_params``: with ``augmented_input`` its ``flow_params``
   is JAX's whole tree, ``scale_augment`` and ``shift_augment`` included.  Stacked
   ``ScannedSteps`` leaves keep their leading n axis; the port walks them
-  like the JAX scan does.
+  like the JAX scan does.  Under ``conv_adapt`` the tree also holds the
+  adapters ``adapt_poke`` / ``adapt_cond`` in flax's layout.
 * The flax nets map path by path onto the port's modules, whose names
   repeat flax's (``load_flax``).  Conv kernels go from HWIO to OIHW (3D
   kernels from DHWIO to OIDHW), transpose-conv kernels are flipped (under
@@ -22,7 +23,8 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   sigma.
 * The image AE's state, ``{'ae', 'logvar'}`` with its discriminator
   (``load_image_ae``); the FirstStageWrapper's decoder maps like any flax
-  net.
+  net, and so do a variational encoder's ``NormConv2d`` heads (their ``v``
+  stays HWIO).
 * The FC tower maps like any flax net, by name, through ``load_flax``:
   the BigAE (its conditional batch norms' Dense layers, the attention's
   ``gamma``), ``FirstStageFCWrapper`` and ``FCBaselineModel`` with every
@@ -69,19 +71,22 @@ def flow_params(tree, device="cpu", dtype=None):
 
 def second_stage_params(params, device="cpu", dtype=None):
     """The port's ``flow_params`` tree of the JAX package's second-stage
-    params ``{"flow": ..., ["scale_augment", "shift_augment"]}``: the whole
-    tree with ``augmented_input``, the flow's alone without."""
-    tree = params if "scale_augment" in params else params["flow"]
+    params ``{"flow": ..., ["scale_augment", "shift_augment"], ["adapt_poke"],
+    ["adapt_cond"]}``: the whole tree when it holds more than the flow
+    (``augmented_input``, ``conv_adapt``), the flow's alone otherwise.  The
+    adapters keep flax's layout (HWIO kernels)."""
+    tree = params if len(params) > 1 else params["flow"]
     return flow_params(tree, device, dtype)
 
 
 def jax_second_stage_params(model):
     """The JAX package's second-stage params, as numpy, of the port's
-    ``SecondStageModel``: ``{"flow": ...}`` and, with ``augmented_input``,
-    ``scale_augment`` and ``shift_augment`` (float leaves as fp32)."""
+    ``SecondStageModel``: ``{"flow": ...}`` and the leaves beside it
+    (``augmented_input``'s scale and shift, the ``conv_adapt`` adapters);
+    float leaves as fp32."""
     tree = tree_map(lambda t: (t.detach().float() if t.is_floating_point() else t)
                     .cpu().numpy(), model.flow_params.tree())
-    return tree if model.augment_channels else {"flow": tree}
+    return tree if model.wraps_flow else {"flow": tree}
 
 
 def _l2_normalize(x, eps):

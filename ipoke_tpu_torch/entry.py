@@ -4,7 +4,9 @@
 
 ``SHIPPED`` is the shipped configuration (128 px, B=40, T=10, the 1054M-param
 15-level cINN with NICE hidden 2048, motion encoder channels
-(64,128,256,256,256)); ``SMALL`` its small variant (64 px, B=8).  ``build``
+(64,128,256,256,256)); ``SMALL`` its small variant (64 px, B=8).  The second
+stage's options are keys of such a dict (``second_stage_config``,
+``make_model``).  ``build``
 makes the model directly on a device from a ``torch.Generator``, or on
 ``meta`` to count parameters.  A config without ``enc_ch`` builds no motion
 encoder (sampling does not run it).
@@ -181,32 +183,52 @@ FLOW_MOTION_TINY = {
 
 
 def second_stage_config(cfg) -> dict:
-    return {"architecture": {
+    """The second stage's config tree of ``cfg``: the shipped architecture,
+    or the options its keys set (``transform``, ``prior_transform``,
+    ``use1x1``, ``multistack`` with ``levels``, ``factors`` and
+    ``reshape``, ``flow_ae``); ``mixed`` False trains in fp32."""
+    arch = {
         "flow_mid_channels_factor": cfg["mid_factor"],
         "factor": cfg.get("factor", 16),
         "num_steps": list(cfg["num_steps"]), "kernel_size": [2, 3],
-        "transform": "affine", "prior_transform": "affine",
-        "activation": "elu",
+        "transform": cfg.get("transform", "affine"),
+        "prior_transform": cfg.get("prior_transform", "affine"),
+        "activation": "elu", "use1x1": bool(cfg.get("use1x1", False)),
         "augmented_input": bool(cfg.get("augment_channels", 0)),
-        "augment_channels": int(cfg.get("augment_channels", 0))},
-        # the shipped recipe (config/second_stage.yaml): bf16-resident
-        # params with fp32 masters; K4 runs in every bf16 NICE coupling
-        "training": {"spatial_mean": False, "mixed_prec_master": True}}
+        "augment_channels": int(cfg.get("augment_channels", 0))}
+    if cfg.get("multistack"):
+        arch.update(multistack=True, levels=[list(l) for l in cfg["levels"]],
+                    factors=list(cfg["factors"]), reshape=cfg.get("reshape", "none"))
+    return {"architecture": arch,
+            "poke_embedder": {"flow_ae": bool(cfg.get("flow_ae", False))},
+            # the shipped recipe (config/second_stage.yaml): bf16-resident
+            # params with fp32 masters; K4 runs in every bf16 NICE coupling
+            "training": {"spatial_mean": False,
+                         "mixed_prec_master": bool(cfg.get("mixed", True))}}
 
 
 def make_model(cfg, flow_params=None) -> SecondStageModel:
     """The model's modules (on the current default device), with
-    ``flow_params`` as its flow tree if given."""
+    ``flow_params`` as its flow tree if given.  The embedders take the
+    options ``cfg`` sets: ``conditioner`` False builds none,
+    ``cond_min_spatial`` / ``poke_min_spatial`` their latent sizes
+    (``conv_adapt`` where they differ from ``min_spatial``),
+    ``cond_deterministic`` False a variational conditioner,
+    ``poke_and_image`` the embedder over poke and start frame."""
     s, m = cfg["spatial"], cfg["min_spatial"]
     fs = FirstStageModel(s, z_dim=cfg["z_dim"], dec_channels=cfg["dec_ch"],
                          n_gru_layers=2, min_spatial_size=m,
                          enc_channels=cfg.get("enc_ch"), max_frames=cfg["T"],
                          deterministic=cfg.get("deterministic", False),
                          torch_compat=cfg.get("torch_compat", False))
-    cond = FirstStageWrapper(s, nf_in=3, nf_max=cfg["nf_cond"],
-                             min_spatial_size=m)
+    cond = FirstStageWrapper(
+        s, nf_in=3, nf_max=cfg["nf_cond"],
+        min_spatial_size=cfg.get("cond_min_spatial", m),
+        deterministic=cfg.get("cond_deterministic", True)) \
+        if cfg.get("conditioner", True) else None
     poke = FirstStageWrapper(s, nf_in=2, nf_max=cfg["nf_cond"],
-                             min_spatial_size=m)
+                             min_spatial_size=cfg.get("poke_min_spatial", m),
+                             poke_and_image=cfg.get("poke_and_image", False))
     return SecondStageModel(second_stage_config(cfg), fs, cond, poke,
                             flow_params)
 

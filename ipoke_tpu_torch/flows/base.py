@@ -6,11 +6,13 @@ A flow is a small frozen dataclass holding static configuration, with
   * ``forward(params, x, h=None) -> (y, logdet)``   logdet (B,) fp32
   * ``inverse(params, y, h=None) -> x``
   * ``ddi(params, x, h=None) -> (y, logdet, params')``  data-dependent init
+  * ``output_shape(x_shape)``   the per-sample output shape
 
 exactly as in the JAX package, so that a parameter tree converted from JAX
 (``ipoke_tpu_torch.convert``) drives the same code path as one made here.
 Arrays are NHWC; channel ops act on the last axis.  Leaves under keys that
-start with ``buf_`` (the shuffle permutations) are buffers, not parameters.
+start with ``buf_`` (the shuffle permutations, the LU permutation and
+signs) are buffers, not parameters.
 
 :class:`ParamTree` registers such a tree in an ``nn.Module`` so that
 ``.to(device/dtype)``, ``state_dict`` and ``parameters()`` work on it.
@@ -79,6 +81,11 @@ class Flow:
 
     def inverse(self, params, y, h=None):
         raise NotImplementedError
+
+    def output_shape(self, x_shape):
+        """The per-sample shape of ``forward``'s output for an input of
+        per-sample shape ``x_shape``: the same, unless the flow reshapes."""
+        return tuple(x_shape)
 
     def ddi(self, params, x, h=None):
         """Default: forward with the params unchanged."""

@@ -30,7 +30,9 @@ from torch.utils.checkpoint import checkpoint
 from .base import Chain, Flow, tree_flatten, tree_map
 from .primitives import (
     ActNorm,
+    InvConvLU,
     Shuffle,
+    SpaceToDepth,
     conv1x1_dot,
     conv_init,
     get_transform,
@@ -117,9 +119,10 @@ class MaskedConvFlow(Flow):
     def inverse(self, params, y, h=None):
         """Row by row: row i of x needs the rows of x before it (orders A/C)
         or after it (B/D).  An affine/ELU flow goes through K5 (its plain
-        version on CPU tensors); another activation has no kernel, here or in
-        the JAX package, and takes the plain row scan.  Computed in fp32,
-        returned in ``y.dtype``, as the JAX package's portable path."""
+        version on CPU tensors); another transform or activation has no
+        kernel, here or in the JAX package, and takes the plain row scan
+        (the JAX package's ``_inverse_portable``).  Computed in fp32,
+        returned in ``y.dtype``."""
         from ..ops.masked_conv import (
             masked_conv_inverse,
             masked_conv_inverse_plain,
@@ -131,15 +134,15 @@ class MaskedConvFlow(Flow):
                 f"MaskedConvFlow built with h_channels={self.h_channels} "
                 "requires conditioning input h")
         hh = h if self.h_channels else None
-        alpha = self._tr.alpha  # raises for a transform other than affine
-        if self.activation == "elu":
-            x = masked_conv_inverse(y, hh, params, self.order, alpha)
+        if self.transform == "affine" and self.activation == "elu":
+            x = masked_conv_inverse(y, hh, params, self.order, self.alpha)
         else:
             act = _act(self.activation)
+            tr = None if self.transform == "affine" else self._tr
             x = scan_inverse(
-                functools.partial(masked_conv_inverse_plain, act=act), y,
+                functools.partial(masked_conv_inverse_plain, act=act, tr=tr), y,
                 None if hh is None else act(hh.to(torch.float32)), params,
-                self.order, alpha)
+                self.order, self.alpha)
         return x.to(y.dtype)
 
 
@@ -333,9 +336,7 @@ def make_macow_step(in_channels, kernel_size, hidden_channels, h_channels=0,
 
 
 def _permutation(use_1x1: bool, channels: int) -> Flow:
-    if use_1x1:
-        raise NotImplementedError("use1x1 (InvConvLU) is not ported yet")
-    return Shuffle(channels)
+    return InvConvLU(channels) if use_1x1 else Shuffle(channels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -559,3 +560,116 @@ class MultiScaleInternal(Flow):
             out = prior.inverse(p["prior"], out, h)
             out = steps.inverse(p["steps"], out, h)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiscaleStack(Flow):
+    """MultiScaleInternal blocks in sequence (``architecture.multistack``),
+    block i with ``levels[i]`` steps per level, ``factors[i]`` and a NICE
+    hidden width of ``mid_channels_factor`` times its channels.  With
+    ``reshape`` "down" ("up") the blocks from the middle one on see the
+    latent space-to-depth (depth-to-space) reshaped, and their conditioning
+    passes a 3x3 conv of its own (``h_transforms``, no bias): stride 2 with
+    XLA's SAME padding (0 before, 1 after on an even size) for "down", stride
+    1 then a nearest 2x upsample for "up"."""
+
+    levels: Tuple[Tuple[int, ...], ...]
+    factors: Tuple[int, ...]
+    in_channels: int
+    mid_channels_factor: int = 8
+    h_channels: int = 0
+    reshape: str = "none"  # none | down | up
+    transform: str = "affine"
+    prior_transform: str = "affine"
+    kernel_size: Tuple[int, int] = (2, 3)
+    activation: str = "elu"
+    use_1x1: bool = False
+    condition_nice: bool = False
+
+    def __post_init__(self):
+        if len(self.levels) != len(self.factors):
+            raise ValueError("need one factor per block")
+        if self.reshape not in ("none", "down", "up"):
+            raise ValueError(f"reshape {self.reshape!r}")
+
+    @property
+    def _reshape_step(self):
+        return len(self.levels) // 2 if self.reshape != "none" else None
+
+    def _blocks(self):
+        blocks, c = [], self.in_channels
+        for i, (steps, f) in enumerate(zip(self.levels, self.factors)):
+            if i == self._reshape_step:
+                c = c * 4 if self.reshape == "down" else c // 4
+            blocks.append(MultiScaleInternal(
+                num_steps=tuple(steps), in_channels=c,
+                hidden_channels=self.mid_channels_factor * c,
+                h_channels=self.h_channels, factor=f, transform=self.transform,
+                prior_transform=self.prior_transform,
+                kernel_size=self.kernel_size, activation=self.activation,
+                use_1x1=self.use_1x1, condition_nice=self.condition_nice))
+        return blocks
+
+    @property
+    def _reshaper(self):
+        return SpaceToDepth(inverse_direction=(self.reshape == "up"))
+
+    def init(self, generator, device):
+        params = {"blocks": [b.init(generator, device) for b in self._blocks()]}
+        if self.h_channels and self._reshape_step is not None:
+            n = len(self.levels) - self._reshape_step
+            params["h_transforms"] = [
+                conv_init(generator, device, 3, 3, self.h_channels, self.h_channels)
+                for _ in range(n)]
+        return params
+
+    def _cond_for(self, params, i, h):
+        if h is None or self._reshape_step is None or i < self._reshape_step:
+            return h
+        w = params["h_transforms"][i - self._reshape_step]
+        hc = h.permute(0, 3, 1, 2)
+        if self.reshape == "down":
+            hc = F.conv2d(F.pad(hc, (0, 1, 0, 1)), w.permute(3, 2, 0, 1), stride=2)
+        else:
+            hc = F.conv2d(hc, w.permute(3, 2, 0, 1), padding=1)
+            hc = hc.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return hc.permute(0, 2, 3, 1)
+
+    def forward(self, params, x, h=None):
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        out = x
+        for i, (b, p) in enumerate(zip(self._blocks(), params["blocks"])):
+            if i == self._reshape_step:
+                out, _ = self._reshaper.forward({}, out)
+            out, l = b.forward(p, out, self._cond_for(params, i, h))
+            ld = ld + l
+        return out, ld
+
+    def inverse(self, params, y, h=None):
+        blocks, out = self._blocks(), y
+        for i in reversed(range(len(blocks))):
+            out = blocks[i].inverse(params["blocks"][i], out,
+                                    self._cond_for(params, i, h))
+            if i == self._reshape_step:
+                out = self._reshaper.inverse({}, out)
+        return out
+
+    def ddi(self, params, x, h=None):
+        """Data-dependent init through every block."""
+        ld = x.new_zeros(x.shape[0], dtype=torch.float32)
+        out, new_blocks = x, []
+        for i, (b, p) in enumerate(zip(self._blocks(), params["blocks"])):
+            if i == self._reshape_step:
+                out, _ = self._reshaper.forward({}, out)
+            out, l, p2 = b.ddi(p, out, self._cond_for(params, i, h))
+            new_blocks.append(p2)
+            ld = ld + l
+        return out, ld, dict(params, blocks=new_blocks)
+
+    def output_shape(self, x_shape):
+        h, w, c = x_shape
+        if self.reshape == "down":
+            return (h // 2, w // 2, c * 4)
+        if self.reshape == "up":
+            return (h * 2, w * 2, c // 4)
+        return tuple(x_shape)

@@ -18,6 +18,26 @@ def _sum_logdet(t):
     return t.reshape(t.shape[0], -1).float().sum(dim=1)
 
 
+class Additive:
+    """``y = z + mu``; logdet 0."""
+
+    n_params = 1
+
+    @staticmethod
+    def calc(raw):
+        return (raw,)
+
+    @staticmethod
+    def fwd(z, params):
+        (mu,) = params
+        return z + mu, z.new_zeros(z.shape[0], dtype=torch.float32)
+
+    @staticmethod
+    def bwd(z, params):
+        (mu,) = params
+        return z - mu
+
+
 class Affine:
     """``y = scale*z + mu`` with ``scale = 1 + alpha*tanh(log_scale/2)``."""
 
@@ -42,11 +62,39 @@ class Affine:
         return (z - mu) / (scale + 1e-12)
 
 
-def get_transform(name: str, alpha: float = 1.0) -> Affine:
+class ReLUTransform:
+    """Piecewise scaling of the positive pre-images: ``y = s*z + mu`` with
+    ``s = 1 + tanh(log_scale)`` where z > 0, else 1."""
+
+    n_params = 2
+
+    @staticmethod
+    def calc(raw):
+        mu, log_scale = torch.chunk(raw, 2, dim=-1)
+        return mu, torch.tanh(log_scale)
+
+    @staticmethod
+    def fwd(z, params):
+        mu, scale = params
+        s = scale * (z > 0.0).to(z.dtype) + 1.0
+        return s * z + mu, _sum_logdet(torch.log(s))
+
+    @staticmethod
+    def bwd(z, params):
+        mu, scale = params
+        z = z - mu
+        s = scale * (z > 0.0).to(z.dtype) + 1.0
+        return z / (s + 1e-12)
+
+
+def get_transform(name: str, alpha: float = 1.0):
+    if name == "additive":
+        return Additive()
     if name == "affine":
         return Affine(alpha)
-    raise NotImplementedError(
-        f"transform {name!r} is not ported yet (only 'affine', the shipped one)")
+    if name == "relu":
+        return ReLUTransform()
+    raise ValueError(f"unknown transform {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +144,83 @@ class Shuffle(Flow):
 
     def inverse(self, params, y, h=None):
         return torch.index_select(y, -1, params["buf_inv_perm"])
+
+
+@dataclasses.dataclass(frozen=True)
+class InvConvLU(Flow):
+    """Invertible 1x1 conv, LU-parameterised: W = P (L + I) (U + diag(sign_s
+    * exp(log_s))), with L strictly lower and U strictly upper triangular;
+    the permutation ``buf_p`` and the signs ``buf_sign_s`` are buffers.  The
+    init is the LU factorisation of the Q of a QR of a normal draw, in
+    float64 on the CPU.  W is formed in fp32 whatever the params' dtype, as
+    the JAX package's fp32 masks promote it, so that its inverse exists
+    under bf16 params too; the outputs come back in the input's dtype."""
+
+    channels: int
+
+    def init(self, generator, device):
+        c = self.channels
+        if torch.device(device).type == "meta":
+            e = lambda: torch.empty((c, c), device="meta")
+            return {"buf_p": e(), "buf_sign_s": torch.empty((c,), device="meta"),
+                    "l": e(), "u": e(), "log_s": torch.empty((c,), device="meta")}
+        w = torch.randn((c, c), generator=generator, device=device)
+        q, _ = torch.linalg.qr(w.cpu().double())
+        p, lower, upper = torch.linalg.lu(q)
+        s = torch.diagonal(upper)
+        f32 = lambda t: t.to(device=device, dtype=torch.float32)
+        return {"buf_p": f32(p), "buf_sign_s": f32(torch.sign(s)), "l": f32(lower),
+                "u": f32(torch.triu(upper, 1)), "log_s": f32(torch.log(s.abs()))}
+
+    def weight(self, params):
+        """W (out, in) in fp32."""
+        f32 = lambda k: params[k].float()
+        c = self.channels
+        lmask = torch.tril(torch.ones((c, c), device=params["l"].device), -1)
+        wl = f32("l") * lmask + torch.eye(c, device=lmask.device)
+        wu = f32("u") * lmask.t() + torch.diag(f32("buf_sign_s") * torch.exp(f32("log_s")))
+        return f32("buf_p") @ wl @ wu
+
+    def forward(self, params, x, h=None):
+        y = torch.matmul(x.float(), self.weight(params).t()).to(x.dtype)
+        hw = x.shape[1] * x.shape[2] if x.ndim == 4 else 1
+        ld = (params["log_s"].float().sum() * hw).expand(x.shape[0])
+        return y, ld
+
+    def inverse(self, params, y, h=None):
+        w_inv = torch.linalg.inv(self.weight(params))
+        return torch.matmul(y.float(), w_inv.t()).to(y.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpaceToDepth(Flow):
+    """(B, H, W, C) <-> (B, H/2, W/2, 4C), channels in (dy, dx, c) order;
+    volume-preserving, logdet 0.  ``inverse_direction``: depth-to-space
+    forward."""
+
+    inverse_direction: bool = False
+
+    def init(self, generator, device):
+        return {}
+
+    @staticmethod
+    def down(x):
+        b, h, w, c = x.shape
+        x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+
+    @staticmethod
+    def up(x):
+        b, h, w, c = x.shape
+        x = x.reshape(b, h, w, 2, 2, c // 4)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * 2, w * 2, c // 4)
+
+    def forward(self, params, x, h=None):
+        y = self.up(x) if self.inverse_direction else self.down(x)
+        return y, x.new_zeros(x.shape[0], dtype=torch.float32)
+
+    def inverse(self, params, y, h=None):
+        return self.down(y) if self.inverse_direction else self.up(y)
 
 
 # ---------------------------------------------------------------------------

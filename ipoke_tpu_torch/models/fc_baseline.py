@@ -111,7 +111,7 @@ class FirstStageFCWrapper(nn.Module):
     """The FC AE of the FC image and poke encoders: ``encode`` gives (z,
     mean, logstd) with a vector latent, as ``FirstStageWrapper.encode``
     gives maps.  ``poke_and_image``: the encoder also takes the start frame
-    (3 more input channels)."""
+    (3 more input channels).  ``latent_shape``: one sample's latent."""
 
     min_spatial_size = 1  # a vector latent
 
@@ -120,6 +120,7 @@ class FirstStageFCWrapper(nn.Module):
         super().__init__()
         self.nf_max, self.deterministic = nf_max, deterministic
         self.poke_and_image = poke_and_image
+        self.latent_shape = (nf_max,)
         self.encoder_net = BaselineFCEncoder(nf_in + (3 if poke_and_image else 0),
                                              nf_max, spatial_size,
                                              variational=not deterministic)

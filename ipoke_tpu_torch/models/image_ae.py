@@ -16,8 +16,14 @@ discriminator, with its new params and u in eval mode.  The weight of the
 GAN term is ||grad nll|| / (||grad adv|| + 1e-4) over the AE's leaves,
 clipped to [0, 1e4], times ``disc_weight`` and the gate.  With
 ``disc_gate`` 0 the discriminator's step is skipped (its u still
-advances), as ``gated_update`` keeps it in JAX.  Nothing is drawn at
-random: the AEs are deterministic.
+advances), as ``gated_update`` keeps it in JAX.
+
+A variational AE (``architecture.deterministic: false``) reconstructs from
+its sample mean + exp(logstd) * eps, one eps a step for all three forwards
+(the JAX step's one rng), given as ``noise`` or drawn from the step's
+generator.  The JAX step reads ``training.w_kl`` but adds no KL term, and
+neither does this one.  ``poke_and_image``: the AE's input is the poke (or
+flow) with the clip's first frame appended on the channel axis.
 
 ``freeze_spectral_norm`` turns a trained net into the frozen one that the
 second stage runs: each spectral norm collapsed into its weight by flax's
@@ -26,7 +32,7 @@ eval rule.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -48,14 +54,11 @@ class ImageAE(nn.Module):
 
 def build_image_ae(config) -> ImageAE:
     arch = config["architecture"]
-    if not arch.get("deterministic", True) or arch.get("poke_and_image", False):
-        raise NotImplementedError(
-            "the variational image AE and poke_and_image are not ported yet "
-            "(ROADMAP queue 1 item 3)")
     return ImageAE(FirstStageWrapper(
         config["data"]["spatial_size"][0], nf_in=arch.get("nf_in", 3),
         nf_max=arch["nf_max"], min_spatial_size=arch.get("min_spatial_size", 8),
-        decoder=True))
+        decoder=True, deterministic=arch.get("deterministic", True),
+        poke_and_image=arch.get("poke_and_image", False)))
 
 
 def build_image_disc(config) -> PatchDiscriminator2D:
@@ -120,18 +123,30 @@ class ImageAEStep:
             p.requires_grad_(False)
 
     def io(self, batch):
-        """(input, target): the last frame of a clip for ``images``."""
+        """(input, target): the last frame of a clip for ``images``; with
+        ``poke_and_image`` the input has the clip's first frame appended."""
         x_in, tgt = batch[self.input_key], batch[self.target_key]
         if self.input_key == "images" and x_in.dim() == 5:
             x_in = x_in[:, -1]
+        if self.model.ae.poke_and_image:
+            x_in = torch.cat([x_in, batch["images"][:, 0]], dim=-1)
         if self.target_key == "images" and tgt.dim() == 5:
             tgt = tgt[:, -1]
         return x_in, tgt
 
-    def update_disc(self, x_in, target, disc_gate):
+    def noise(self, x_in, generator=None):
+        """eps for a variational AE's sample: N(0, 1) of one latent per item,
+        drawn from ``generator`` (None without one, or when deterministic)."""
+        ae = self.model.ae
+        if ae.deterministic or generator is None:
+            return None
+        return torch.randn((x_in.shape[0], *ae.latent_shape), generator=generator,
+                           device=x_in.device, dtype=x_in.dtype)
+
+    def update_disc(self, x_in, target, disc_gate, noise=None):
         d = self.disc
         with torch.no_grad():
-            rec0 = self.model.ae(x_in, train=False)
+            rec0 = self.model.ae(x_in, train=False, noise=noise)
         pred_true = d(target, train=False)[0]
         gp = target.new_zeros(())
         if self.gp_weight > 0:
@@ -146,13 +161,18 @@ class ImageAEStep:
             self.tx_d.step()
         return loss.detach()
 
-    def __call__(self, batch, disc_gate: float):
+    def __call__(self, batch, disc_gate: float, noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        """One step; a variational AE's eps is ``noise`` or drawn from
+        ``generator`` (the mean without either)."""
         x_in, target = self.io(batch)
-        loss_d = self.update_disc(x_in, target, disc_gate) if self.use_disc \
+        if noise is None:
+            noise = self.noise(x_in, generator)
+        loss_d = self.update_disc(x_in, target, disc_gate, noise) if self.use_disc \
             else target.new_zeros(())
         params = self.tx.params
         logvar = self.model.logvar.detach().clone()
-        rec = self.model.ae(x_in, train=True)
+        rec = self.model.ae(x_in, train=True, noise=noise)
         nll, p_loss = nll_recon_loss(target, rec, self.model.logvar, self.vgg,
                                      self.perc_w)
         zeros = lambda gs: [torch.zeros_like(p) if g is None else g

@@ -2,36 +2,52 @@
 ``ipoke_tpu/models/second_stage.py``): a multi-scale MaCow cINN maps the
 frozen first stage's motion latent to z ~ N(0, I) (the density direction that
 training fits by NLL) and back (sampling), conditioned on
-``h = [phi(x_0), phi(poke)]`` from the frozen conditioner and poke embedder;
-the first stage decodes a sampled latent to video.
+``h = [phi(x_0), phi(poke)]`` from the frozen conditioner and poke embedder
+(``phi(poke)`` alone without a conditioner); the first stage decodes a
+sampled latent to video.
 
-With ``architecture.augmented_input`` the flow's input is the motion latent
-and ``augment_channels`` more: ``scale_augment * N(0, 1) + shift_augment``
-per channel, drawn for each density pass and DDI and dropped after the
-sampling inverse.  ``flow_params`` then holds the JAX package's whole
-second-stage tree, ``{"flow": ..., "scale_augment": ones, "shift_augment":
-zeros}`` (``init_params``); otherwise the flow's tree alone."""
+``poke_embedder.flow_ae`` embeds the batch's ``flow`` in place of its
+``poke``; a ``poke_and_image`` embedder takes the start frame appended to
+it.  A variational conditioner conditions on its mean.
+
+``flow_params`` holds the JAX package's whole second-stage tree when the
+model has more than the flow to train: ``{"flow": ...}`` with
+``scale_augment`` and ``shift_augment`` under ``architecture.augmented_input``
+(``scale_augment * N(0, 1) + shift_augment``, drawn for each density pass
+and DDI, appended to the motion latent and dropped after the sampling
+inverse), and ``adapt_poke`` / ``adapt_cond`` under ``conv_adapt``, when an
+embedder's latent is larger or smaller than the first stage's: a strided 3x3
+conv (flax ``nn.Conv(padding=1)``: ``{"kernel", "bias"}``) or a
+``Conv2dTransposeBlock(norm="group")`` (``{"ConvTranspose_0",
+"GroupNorm_0"}``), in flax's layout.  The adapters train with the flow and
+run outside the frozen nets' ``no_grad``.  Otherwise ``flow_params`` is the
+flow's tree alone (``init_params``)."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.optim import cast_floats
 from ..flows import ParamTree, build_macow_transformer, flow_loss
+from ..flows.base import randn
+from ..nn.blocks import _num_groups, conv_transpose, group_norm, promote
 from ..nn.encoders import FirstStageWrapper
 from .first_stage import FirstStageModel
 
 
 class SecondStageModel(nn.Module):
     """``flow`` is the static cINN description, ``flow_params`` its parameter
-    tree; the three frozen nets are submodules.  ``config`` carries the
-    ``architecture`` block and, for training, the ``training`` block."""
+    tree; the frozen nets are submodules (``conditioner`` may be None).
+    ``config`` carries the ``architecture`` block, optionally the
+    ``poke_embedder`` block (``flow_ae``) and, for training, the
+    ``training`` block."""
 
     def __init__(self, config, first_stage: FirstStageModel,
-                 conditioner: FirstStageWrapper,
+                 conditioner: Optional[FirstStageWrapper],
                  poke_embedder: FirstStageWrapper, flow_params=None):
         super().__init__()
         self.config = config
@@ -39,39 +55,58 @@ class SecondStageModel(nn.Module):
         self.first_stage = first_stage
         self.conditioner = conditioner
         self.poke_embedder = poke_embedder
-        for size, name in ((poke_embedder.min_spatial_size, "poke embedder"),
-                           (conditioner.min_spatial_size, "conditioner")):
-            if size != first_stage.min_spatial_size:
-                raise NotImplementedError(
-                    f"conv_adapt ({name} latent {size} vs first stage "
-                    f"{first_stage.min_spatial_size}) is not ported yet")
+        self.poke_key = "flow" if (config.get("poke_embedder") or {}).get(
+            "flow_ae", False) else "poke"
+        self.min_spatial_size = s = first_stage.min_spatial_size
+        # conv_adapt: the embedders' latent sizes, where they differ from s
+        self.adapters = {
+            key: (net.min_spatial_size, net.nf_max)
+            for key, net in (("adapt_poke", poke_embedder), ("adapt_cond", conditioner))
+            if net is not None and net.min_spatial_size != s}
+        for src, _ in self.adapters.values():
+            if max(src, s) % min(src, s):
+                raise ValueError(f"conv_adapt: latent size {src} against {s}")
         self.augment_channels = int(arch.get("augment_channels", 0)) \
             if arch.get("augmented_input", False) else 0
+        self.wraps_flow = bool(self.augment_channels or self.adapters)
         flow_in = first_stage.z_dim + self.augment_channels
-        h_channels = poke_embedder.nf_max + conditioner.nf_max
+        h_channels = poke_embedder.nf_max + (conditioner.nf_max if conditioner else 0)
         self.flow = build_macow_transformer(dict(
             arch, flow_in_channels=flow_in, h_channels=h_channels,
             flow_mid_channels=int(arch.get("flow_mid_channels_factor", 8)
                                   * flow_in)))
         self.flow_in_channels = flow_in
-        self.min_spatial_size = first_stage.min_spatial_size
         self.flow_params = ParamTree(flow_params) if flow_params is not None \
             else None
 
     def init_params(self, generator, device):
-        """A new second-stage tree: the flow's init, and the augmentation's
-        scale (ones) and shift (zeros) with ``augmented_input``."""
+        """A new second-stage tree: the flow's init, with ``augmented_input``
+        the augmentation's scale (ones) and shift (zeros), and each
+        ``conv_adapt`` adapter (fan-in-scaled normal kernels, zero biases,
+        unit GroupNorm scales)."""
         tree = self.flow.init(generator, device)
-        if not self.augment_channels:
+        if not self.wraps_flow:
             return tree
-        c = self.augment_channels
-        return {"flow": tree, "scale_augment": torch.ones(c, device=device),
-                "shift_augment": torch.zeros(c, device=device)}
+        tree = {"flow": tree}
+        if self.augment_channels:
+            c = self.augment_channels
+            tree.update(scale_augment=torch.ones(c, device=device),
+                        shift_augment=torch.zeros(c, device=device))
+        for key, (src, nf) in self.adapters.items():
+            kernel = randn((3, 3, nf, nf), generator, device, (9 * nf) ** -0.5)
+            bias = torch.zeros(nf, device=device)
+            if src > self.min_spatial_size:
+                tree[key] = {"kernel": kernel, "bias": bias}
+            else:
+                tree[key] = {"ConvTranspose_0": {"kernel": kernel, "bias": bias},
+                             "GroupNorm_0": {"scale": torch.ones(nf, device=device),
+                                             "bias": torch.zeros(nf, device=device)}}
+        return tree
 
     def flow_tree(self):
         """The flow's parameter tree (inside ``flow_params``)."""
         tree = self.flow_params.tree()
-        return tree["flow"] if self.augment_channels else tree
+        return tree["flow"] if self.wraps_flow else tree
 
     def augment(self, motion, generator=None, noise=None):
         """``motion`` with the augmentation channels appended: ``noise``
@@ -87,11 +122,52 @@ class SecondStageModel(nn.Module):
         aug = tree["scale_augment"] * noise.to(motion.dtype) + tree["shift_augment"]
         return torch.cat([motion, aug], dim=-1)
 
+    def embed_frozen(self, batch):
+        """(phi(x_0) or None, phi(poke)) from the frozen nets at their own
+        latent sizes: the poke (or flow, ``flow_ae``) with the start frame
+        appended for a ``poke_and_image`` embedder; a variational
+        conditioner's mean."""
+        X = batch["images"]
+        poke = batch[self.poke_key]
+        if self.poke_embedder.poke_and_image:
+            poke = torch.cat([poke, X[:, 0]], dim=-1)
+        poke_emb = self.poke_embedder.encode(poke)[0]
+        if self.conditioner is None:
+            return None, poke_emb
+        z, mean, _ = self.conditioner.encode(X[:, 0])
+        return (z if self.conditioner.deterministic else mean), poke_emb
+
+    def adapt(self, key, x):
+        """The ``conv_adapt`` adapter ``key`` on an embedder's latent ``x``
+        (``x`` itself where the sizes agree): flax's promotion of input and
+        params, as its layers are built without a dtype."""
+        if key not in self.adapters:
+            return x
+        p = self.flow_params.tree()[key]
+        src, nf = self.adapters[key]
+        dst = self.min_spatial_size
+        if src > dst:
+            x, w, b = promote(None, x, p["kernel"], p["bias"])
+            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                         stride=src // dst, padding=1)
+            return y.permute(0, 2, 3, 1)
+        ct, gn = p["ConvTranspose_0"], p["GroupNorm_0"]
+        x, w, b = promote(None, x, ct["kernel"], ct["bias"])
+        y = conv_transpose(x, torch.flip(w, (0, 1)).permute(2, 3, 0, 1), b, 3,
+                           dst // src)
+        return F.elu(group_norm(y, _num_groups(nf), gn["scale"], gn["bias"]))
+
+    def join(self, cond, poke_emb):
+        """h: the adapted embeddings, [phi(x_0), phi(poke)] on the channel
+        axis (phi(poke) alone without a conditioner)."""
+        poke_emb = self.adapt("adapt_poke", poke_emb)
+        if cond is None:
+            return poke_emb
+        return torch.cat([self.adapt("adapt_cond", cond), poke_emb], dim=-1)
+
     def embed_conditioning(self, batch):
-        """h = [phi(x_0), phi(poke)] (B, s, s, Ch)."""
-        poke_emb, _, _ = self.poke_embedder.encode(batch["poke"])
-        cond, _, _ = self.conditioner.encode(batch["images"][:, 0])
-        return torch.cat([cond, poke_emb], dim=-1)
+        """h (B, s, s, Ch)."""
+        return self.join(*self.embed_frozen(batch))
 
     def encode_first_stage(self, X, generator: Optional[torch.Generator] = None):
         """The motion latent of the clip ``X``: a sample drawn from
@@ -100,16 +176,17 @@ class SecondStageModel(nn.Module):
         return motion
 
     def _flow_input(self, batch, generator):
-        """(motion, h) from the frozen nets, outside autograd: the
-        stop-gradient of the JAX package, which differentiates the flow
-        params only."""
+        """(motion, h): the frozen nets outside autograd (the JAX package's
+        stop-gradient: it differentiates the flow params and the adapters
+        only), then the adapters."""
         with torch.no_grad():
-            cond = self.embed_conditioning(batch)
+            cond, poke_emb = self.embed_frozen(batch)
             motion = self.encode_first_stage(batch["images"], generator)
         # a first stage trained under mixed_prec computes in bf16: the flow
         # takes its input in its params' dtype, as JAX promotes it
         dtype = next(self.flow_params.parameters()).dtype
-        return motion.to(dtype), cond.to(dtype)
+        cast = lambda t: None if t is None else t.to(dtype)
+        return motion.to(dtype), self.join(cast(cond), cast(poke_emb))
 
     def forward_density(self, batch, generator: Optional[torch.Generator] = None,
                         aug_noise: Optional[torch.Tensor] = None):
@@ -128,24 +205,28 @@ class SecondStageModel(nn.Module):
         motion, cond = self._flow_input(batch, generator)
         x = self.augment(motion, generator, aug_noise)
         new = self.flow.ddi(self.flow_tree(), x, cond)[2]
-        if not self.augment_channels:
+        if not self.wraps_flow:
             return new
         return dict(self.flow_params.tree(), flow=new)
+
+    def z_shape(self):
+        """One sample's base draw: the flow's output shape at the motion
+        latent's (the reshaped one of a ``MultiscaleStack``)."""
+        s = self.min_spatial_size
+        return self.flow.output_shape((s, s, self.flow_in_channels))
 
     @torch.no_grad()
     def forward_sample(self, batch, length: int,
                        generator: Optional[torch.Generator] = None,
                        z: Optional[torch.Tensor] = None):
-        """Sample videos (B, T, H, W, 3): z ~ N(0, I) (or the given ``z``),
-        the cINN inverse, then the first-stage decode.  z and the work run in
-        the dtype of ``batch["images"]``."""
+        """Sample videos (B, T, H, W, 3): z ~ N(0, I) at ``z_shape`` (or the
+        given ``z``), the cINN inverse, then the first-stage decode.  z and
+        the work run in the dtype of ``batch["images"]``."""
         x = batch["images"]
-        s = self.min_spatial_size
         cond = self.embed_conditioning(batch)
         if z is None:
-            z = torch.randn((x.shape[0], s, s, self.flow_in_channels),
-                            generator=generator, device=x.device,
-                            dtype=x.dtype)
+            z = torch.randn((x.shape[0], *self.z_shape()), generator=generator,
+                            device=x.device, dtype=x.dtype)
         motion = self.flow.inverse(self.flow_tree(), z, cond)
         motion = motion[..., :self.first_stage.z_dim]
         return self.first_stage.decode(motion, x[:, 0], length)

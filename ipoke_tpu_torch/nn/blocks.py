@@ -99,18 +99,26 @@ class GroupNorm(Typed, nn.Module):
             self.scale = self.bias = None
 
     def forward(self, x):
-        c, g = x.shape[-1], self.num_groups
-        xg = x.float().reshape(x.shape[0], -1, g, c // g)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
-                          min=0.0)
-        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        out = self.compute_dtype or x.dtype
-        if self.scale is not None:
-            y = y * self.scale.float() + self.bias.float()
-            if self.compute_dtype is None:
-                out = torch.promote_types(out, self.scale.dtype)
-        return y.to(out)
+        return group_norm(x, self.num_groups, self.scale, self.bias, self.eps,
+                          self.compute_dtype)
+
+
+def group_norm(x, num_groups: int, scale=None, bias=None, eps: float = 1e-5,
+               compute_dtype=None):
+    """``GroupNorm``'s computation on a channels-last ``x`` with the given
+    scale and bias (None: no affine)."""
+    c, g = x.shape[-1], num_groups
+    xg = x.float().reshape(x.shape[0], -1, g, c // g)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean,
+                      min=0.0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    out = compute_dtype or x.dtype
+    if scale is not None:
+        y = y * scale.float() + bias.float()
+        if compute_dtype is None:
+            out = torch.promote_types(out, scale.dtype)
+    return y.to(out)
 
 
 def _l2_normalize(x, eps: float = 1e-12):
@@ -211,18 +219,23 @@ class ConvTranspose(Typed, SpectralNormed):
 
     def forward(self, x, train: bool = False):
         x, w, b = promote(self.compute_dtype, x, self.normed_weight(train), self.bias)
-        h, wd, s = x.shape[1], x.shape[2], self.stride
-        short = max(s - self.ks, 0)  # rows the full output lacks (k < s)
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w,
-                               None if short else b, stride=s)
-        if self.torch_crop:
-            y = y[:, :, 1:, 1:]
-        else:
-            a = _same_transpose_start(self.ks, s)
-            y = y[:, :, a:a + h * s, a:a + wd * s]
-            if short:
-                y = F.pad(y, (0, short, 0, short)) + b[:, None, None]
-        return y.permute(0, 2, 3, 1)
+        return conv_transpose(x, w, b, self.ks, self.stride, self.torch_crop)
+
+
+def conv_transpose(x, w, b, ks: int, stride: int, torch_crop: bool = False):
+    """``ConvTranspose``'s computation on an NHWC ``x`` with its (in, out,
+    kh, kw) ``w`` and bias ``b``."""
+    h, wd, s = x.shape[1], x.shape[2], stride
+    short = max(s - ks, 0)  # rows the full output lacks (k < s)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None if short else b, stride=s)
+    if torch_crop:
+        y = y[:, :, 1:, 1:]
+    else:
+        a = _same_transpose_start(ks, s)
+        y = y[:, :, a:a + h * s, a:a + wd * s]
+        if short:
+            y = F.pad(y, (0, short, 0, short)) + b[:, None, None]
+    return y.permute(0, 2, 3, 1)
 
 
 class ConvTransposeTK(Typed, nn.Module):

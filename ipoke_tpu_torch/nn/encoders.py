@@ -1,7 +1,7 @@
 """Conv encoder and decoders (counterpart of ``ipoke_tpu/nn/encoders.py``),
-NHWC.  Of the encoders only the deterministic branch is ported (no
-variational heads): the conditioning encoders, the image AE and the flow
-VAE run nothing else.  ``ConvEncoder`` defaults to flax's spectral norm in its
+NHWC.  ``ConvEncoder`` is deterministic, or with ``variational`` adds the
+``NormConv2d`` mean and sigmoid log-std heads, its sample's noise given as
+a tensor (``models.image_ae.ImageAEStep.noise`` draws it).  ``ConvEncoder`` defaults to flax's spectral norm in its
 convs and ``ConvDecoder`` always has it in its ResBlocks, as in the JAX
 package (the flow VAE trains them so); the frozen ``FirstStageWrapper`` builds its encoder
 without it and takes the collapsed weights (``convert``).  The SPADE
@@ -9,23 +9,26 @@ decoder also trains (first stage), with spectral norm in its conv blocks."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 from torch import nn
 
-from .blocks import Conv2dBlock, ResBlock, Spade
+from .blocks import Conv2dBlock, NormConv2d, ResBlock, Spade
 
 
 class ConvEncoder(nn.Module):
     """Strided Conv2dBlock stem, stride-2 ResBlocks, bottleneck ResBlock;
     ``snorm``: spectral norm in the stem and every ResBlock conv.
     ``depths``: the per-stage widths, shallowest last (the ``ConvDecoder``
-    input spec)."""
+    input spec).  ``variational``: the mean and log-std heads, 3x3
+    ``NormConv2d`` each, the log-std squashed by a sigmoid."""
 
     def __init__(self, nf_in: int, nf_max: int, n_stages: int,
-                 snorm: bool = True):
+                 snorm: bool = True, variational: bool = False):
         super().__init__()
+        self.variational = variational
         nf = 32
         sn = dict(norm="group", activation="elu", snorm=snorm)
         self.Conv2dBlock_0 = Conv2dBlock(nf_in, nf, 3, 2, 1, **sn)
@@ -37,16 +40,27 @@ class ConvEncoder(nn.Module):
             depths.insert(0, nf)
         self.n_res, self.depths = n_stages, tuple(depths)
         self.add_module(f"ResBlock_{n_stages - 1}", ResBlock(nf, nf_max, **sn))
+        if variational:
+            self.NormConv2d_0 = NormConv2d(nf_max, nf_max, 3, padding=1)
+            self.NormConv2d_1 = NormConv2d(nf_max, nf_max, 3, padding=1)
 
-    def forward(self, x, train: bool = False):
-        """(h, mean_pre, None), as the deterministic JAX encoder returns;
-        ``train`` stores each spectral norm's new u and sigma."""
+    def forward(self, x, train: bool = False, noise: Optional[torch.Tensor] = None):
+        """(h, mean_pre, None) when deterministic, as the JAX encoder
+        returns; else (z, mean, logstd) with z = mean + exp(logstd) * noise
+        (z = mean without ``noise``).  ``train`` stores each spectral norm's
+        new u and sigma."""
         h = self.Conv2dBlock_0(x, train)
         for i in range(self.n_res - 1):
             h = getattr(self, f"ResBlock_{i}")(h, train)
         mean_pre = h
         h = getattr(self, f"ResBlock_{self.n_res - 1}")(h, train)
-        return h, mean_pre, None
+        if not self.variational:
+            return h, mean_pre, None
+        mean = self.NormConv2d_0(h)
+        logstd = torch.sigmoid(self.NormConv2d_1(h))
+        if noise is None:
+            return mean, mean, logstd
+        return noise.to(mean.dtype) * torch.exp(logstd) + mean, mean, logstd
 
 
 class ConvDecoder(nn.Module):
@@ -117,30 +131,38 @@ class SpadeCondConvDecoder(nn.Module):
 
 
 class FirstStageWrapper(nn.Module):
-    """The deterministic conv AE of the image conditioner and the poke
-    embedder.  With ``decoder`` it is the trainable AE of the image AE
+    """The conv AE of the image conditioner and the poke embedder,
+    deterministic or (``deterministic=False``) variational; with
+    ``poke_and_image`` its encoder also takes the start frame (3 more input
+    channels).  With ``decoder`` it is the trainable AE of the image AE
     stage: encoder and decoder, with flax's spectral norm in the stem and
     every ResBlock conv (the CLI's frozen copies are that net with its
     spectral norms collapsed, ``models.image_ae.freeze_spectral_norm``).
     Without it, the frozen encoder alone that ``entry``'s sampling models
-    build for converted weights (``convert``).  The variational heads and
-    ``poke_and_image`` are not ported (ROADMAP queue 1 item 3)."""
+    build for converted weights (``convert``).  ``latent_shape``: one
+    sample's latent (the shape of the encoder's noise)."""
 
     def __init__(self, spatial_size: int, nf_in: int, nf_max: int,
-                 min_spatial_size: int = 8, decoder: bool = False):
+                 min_spatial_size: int = 8, decoder: bool = False,
+                 deterministic: bool = True, poke_and_image: bool = False):
         super().__init__()
         self.nf_max, self.min_spatial_size = nf_max, min_spatial_size
+        self.deterministic, self.poke_and_image = deterministic, poke_and_image
+        self.latent_shape = (min_spatial_size, min_spatial_size, nf_max)
         n_stages = int(np.log2(spatial_size // min_spatial_size))
-        self.encoder = ConvEncoder(nf_in, nf_max, n_stages, snorm=decoder)
+        self.encoder = ConvEncoder(nf_in + (3 if poke_and_image else 0), nf_max,
+                                   n_stages, snorm=decoder,
+                                   variational=not deterministic)
         if decoder:
             self.decoder = ConvDecoder(nf_max, (nf_max,) + self.encoder.depths,
                                        out_channels=nf_in)
 
-    def encode(self, x, train: bool = False):
-        return self.encoder(x, train)
+    def encode(self, x, train: bool = False, noise: Optional[torch.Tensor] = None):
+        return self.encoder(x, train, noise)
 
-    def forward(self, x, train: bool = False):
-        """The reconstruction of ``x``; ``train`` advances every spectral
-        norm's u."""
-        z, _, _ = self.encoder(x, train)
+    def forward(self, x, train: bool = False, noise: Optional[torch.Tensor] = None):
+        """The reconstruction of ``x`` (of the sample ``noise`` gives, for a
+        variational AE; of the mean without it); ``train`` advances every
+        spectral norm's u."""
+        z, _, _ = self.encoder(x, train, noise)
         return self.decoder(z, train)

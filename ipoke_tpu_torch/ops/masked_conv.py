@@ -41,8 +41,9 @@ def _r4(n):
 
 
 def pack_mcf(h_act, params, transposed, batch, height, width):
-    """(w_shift (kh, kw, C, hid), w_hid (hid, 2C), hc (B, H, W, 2C)) of one
-    MaskedConvFlow in scan space, fp32.
+    """(w_shift (kh, kw, C, hid), w_hid (hid, P*C), hc (B, H, W, P*C)) of one
+    MaskedConvFlow in scan space, fp32 (P: the transform's params per
+    channel, 2 for affine).
 
     ``h_act``: the activation of the conditioning rows in fp32, or None.
     ``transposed``: orders C/D, which store their kernel with the dims
@@ -84,10 +85,14 @@ def pack_unit(h, mcf_params, an_params, batch, height, width):
 # K5: one masked-conv flow
 # ---------------------------------------------------------------------------
 
-def masked_conv_inverse_plain(y, w_shift, w_hid, hc, alpha, reverse, act=F.elu):
+def masked_conv_inverse_plain(y, w_shift, w_hid, hc, alpha, reverse, act=F.elu,
+                              tr=None):
     """Plain version of K5: one masked-conv recurrence in scan space (rows
     depend on the rows before them, or after them when ``reverse``), with
-    the elementwise activation ``act`` (ELU in the kernel)."""
+    the elementwise activation ``act`` (ELU in the kernel).  ``tr``: a
+    transform of ``flows.primitives`` in place of the kernel's affine one
+    with ``alpha`` (the JAX package's portable scan for every other
+    transform)."""
     b, height, width, c = y.shape
     kh, kw = w_shift.shape[0], w_shift.shape[1]
     cw = (kw - 1) // 2
@@ -99,9 +104,12 @@ def masked_conv_inverse_plain(y, w_shift, w_hid, hc, alpha, reverse, act=F.elu):
         window = buf[:, start:start + kh].permute(0, 3, 1, 2)
         hid = F.conv2d(window, w_conv)[:, :, 0].transpose(1, 2)  # (b, W, hid)
         raw = torch.matmul(act(hid), w_hid) + hc[:, row]
+        write_at = row if reverse else row + kh
+        if tr is not None:
+            buf[:, write_at, cw:cw + width] = tr.bwd(y[:, row], tr.calc(raw))
+            continue
         mu, log_scale = raw[..., :c], raw[..., c:]
         scale = torch.tanh(log_scale * 0.5) * alpha + 1.0
-        write_at = row if reverse else row + kh
         buf[:, write_at, cw:cw + width] = (y[:, row] - mu) / (scale + 1e-12)
     if reverse:
         return buf[:, :height, cw:cw + width]
@@ -180,7 +188,8 @@ def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
             f"(k5_fits: hid a multiple of 4, at most 32 a CTA; kw 3; "
             f"kh*ceil(C/4) <= 16; W*C <= 1024; "
             f"{k5_smem_bytes(width, c, hid, kh, kw, k)} B of shared memory "
-            f"per CTA within {SMEM_LIMIT})")
+            f"per CTA within {SMEM_LIMIT}); the JAX package's K5 takes any "
+            f"affine/ELU flow: ROADMAP queue 3 fault (d)")
     # contiguous, aligned copies are held here until the launch is queued
     y, w_shift, w_hid, hc = (_build.aligned(t) for t in tensors)
     x = torch.empty_like(y)
@@ -197,7 +206,7 @@ def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
 
 
 def scan_inverse(run, y, h_act, params, order, alpha):
-    """The inverse of one affine masked-conv flow of ``order`` by ``run``, a
+    """The inverse of one masked-conv flow of ``order`` by ``run``, a
     recurrence in scan space with ``masked_conv_inverse_plain``'s arguments;
     ``h_act`` is act(h) in fp32, or None.  fp32 result, as stored."""
     if order not in ("A", "B", "C", "D"):

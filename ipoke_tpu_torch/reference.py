@@ -145,8 +145,7 @@ def _res_block_up(state, key, snorm=True):
 
 def port_conv_encoder(state, n_stages: int, prefix: str = "") -> Dict:
     """A reference deterministic ``ConvEncoder`` -> flax
-    ``ConvEncoder(snorm=False)`` (the port's encoders have no variational
-    heads)."""
+    ``ConvEncoder(snorm=False)``."""
     state = _sub(state, prefix)
     params = {"Conv2dBlock_0": _conv_block(state, "model.0")}
     for i in range(1, n_stages):
@@ -347,8 +346,9 @@ def load_conv_encoder(wrapper, state, prefix: str = "") -> None:
 def load_flow(model, state, prefix: str = "") -> None:
     """A reference cINN into the ``flow_params`` of a ``SecondStageModel``,
     on the device and in the dtype of its current params."""
-    if model.augment_channels:
-        raise ValueError("the reference cINN has no augmented_input")
+    if model.wraps_flow:
+        raise ValueError("the reference cINN loads without augmented_input "
+                         "and conv_adapt")
     ref = next(model.flow_params.parameters())
     tree = port_multiscale_state(state, model.config["architecture"]["num_steps"],
                                  prefix)

@@ -212,14 +212,6 @@ def test_conditioner_steps_match_jax():
     check_image_ae_steps("conditioner")
 
 
-def test_image_ae_refuses_unported_branches():
-    for key in ("poke_and_image", "deterministic"):
-        cfg = copy.deepcopy(CONFIGS["conditioner"])
-        cfg["architecture"][key] = key == "poke_and_image"
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-            tae.build_image_ae(cfg)
-
-
 def test_freeze_spectral_norm_is_flax_eval():
     """A frozen copy (spectral norm collapsed) reconstructs as the live net
     does in eval mode, and has no u or sigma left."""
