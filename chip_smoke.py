@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's sampling pass, second-stage train step and
-options, reproduction recipes, first-stage VAE-GAN train step (fp32 and bf16), conv
+options, reproduction recipes, first-stage VAE-GAN train step (fp32 and bf16)
+and PokeVAE baseline, conv
 third stage, CLI, ``--test`` modes, FC tower, FC third stage, data prep,
 RAFT training and poke UI on one NVIDIA GPU.
 
@@ -26,7 +27,9 @@ Phases, in order; any failure raises and exits non-zero:
       coupling net, in bf16.
   (c) K5 against its plain version: the level-0 flow and the 8x16 latent
       in orders A-D, C=4 at 8x8 and 8x16, C=16 at 8x16 and a 32x32x32
-      latent; each with two calls bitwise equal, its shared memory (held
+      latent, and on its wide path (``K5_WIDE_CASES``) the `reshape: down`
+      stack's 4x4 flows at C = 128 / 96 / 64, hid 256 / 384 / 256, B = 40;
+      each with two calls bitwise equal, its shared memory (held
       against ``k5_smem_bytes``), its cluster size and the clusters the
       card holds at once, its time, bound and share of it.
   (c'') K2 against the per-flow route (4 K5 + 2 ActNorm inverses) on one
@@ -255,6 +258,22 @@ Phases, in order; any failure raises and exits non-zero:
       ``_build.load()``, ``phase_options_small(dev)``,
       ``phase_options_shipped(dev, smi)``; (s3) after ``phase_cli`` in a
       ``cli_tree``.
+  (t) variant D (``STACK_DOWN``: (s2)'s C with `reshape: down`, 8x8x32
+      then 4x4x128) at the shipped widths: the flow's fp32 round trip
+      within ROUNDTRIP_TOL with every K2 (36) and K5 (144) launch of the
+      inverse held against its plain version on its inputs (each shape
+      timed), 2 timed inverses; then in bf16 one ``forward_sample`` with
+      every K1, K2, K5 and K3 launch held so, 2 timed passes, peak memory.
+      Alone: ``_build.load()``, ``phase_down_stack(dev, smi)``.
+  (u) the PokeVAE baseline (``architecture.baseline``): (u1) TINY, 3 steps
+      card against CPU by the (i2) rule; (u2) config/first_stage.yaml with
+      ``baseline: true`` (64 px, B = 20, fp32): one step with every K3
+      launch (60) held against its plain version on its inputs, 3 steps
+      timed with CUDA events, peak memory; (u3), after (s3) in the same
+      ``cli_tree``: ``main.run`` of that config for one epoch, a bitwise
+      restore check and --resume.  Alone: ``_build.load()``,
+      ``phase_poke_vae(dev, smi)``, then in a ``cli_tree``
+      ``phase_poke_vae_cli(dev, smi, tree)``.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
@@ -301,6 +320,12 @@ K5_CASES = (*((40, 8, 8, 32, 128, o) for o in "ABCD"),
             *((40, 8, 16, 32, 128, o) for o in "ABCD"),
             (40, 8, 8, 4, 128, "A"), (40, 8, 16, 4, 128, "C"),
             (40, 8, 16, 16, 128, "A"), (40, 32, 32, 32, 128, "A"))
+# K5's wide path (B, H, W, C, hid, Ch, order): the three levels of a
+# `reshape: down` MultiscaleStack's second block over the shipped 8x8x32
+# first stage (phase t): 4x4 at C = 128, 96, 64 with MCF hidden
+# default_mcf_hidden(C) = 256, 384, 256
+K5_WIDE_CASES = ((40, 4, 4, 128, 256, 128, "A"), (40, 4, 4, 96, 384, 128, "A"),
+                 (40, 4, 4, 64, 256, 128, "A"))
 # K3 at the first-stage decoder's training shapes (S, Ch): fp32, the frame
 # batch B = 20 rendered one frame at a time, so one modulation per frame
 # (t = 1), 16 groups
@@ -719,9 +744,10 @@ def phase_k5(dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     lib = _build.load()
-    errs, times = [], []
-    for b, hh, ww, c, ch, order in K5_CASES:
-        hid, transposed, reverse = 4 * c, order in "CD", order in "BD"
+    errs, times, wide = [], [], []
+    cases = [(b, hh, ww, c, 4 * c, ch, o) for b, hh, ww, c, ch, o in K5_CASES]
+    for b, hh, ww, c, hid, ch, order in cases + list(K5_WIDE_CASES):
+        transposed, reverse = order in "CD", order in "BD"
         ks = (3, 2) if transposed else (2, 3)  # C/D store the kernel swapped
         params = {"w_shift": randn(*ks, c, hid) * (6 * c) ** -0.5,
                   "out": {"v": randn(1, 1, hid + ch, 2 * c) * 0.05,
@@ -745,19 +771,29 @@ def phase_k5(dev):
         errs.append(err)
         ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_cuda(*args), 20)
         bound_ms, bound_by = bound(*k5_work(b, hh, ww, c, hid), FP32_FLOPS)
+        regs = masked_conv.k5_registers(c, hid, 2)
         line = (f"K5 masked_conv_inverse order {order} B={b} H={hh} W={ww} C={c} "
                 f"hid={hid} Ch={ch}: max_abs_err {err:.3e} (tol {K5_TOL}), two "
                 f"calls bitwise equal, kernel {ms:.4f} ms, bound "
                 f"{1e3 * bound_ms:.2f} us ({bound_by}; {100 * bound_ms / ms:.1f}% "
-                f"of it); clusters of {k}, {smem} B of shared memory per CTA, "
+                f"of it); {'tap weights in registers' if regs else 'wide path'}, "
+                f"clusters of {k}, {smem} B of shared memory per CTA, "
                 f"{lib.masked_conv_inverse_max_clusters(sw, c, hid, 2, 3, k)} "
                 f"clusters resident at once")
-        if not times:  # the level-0 flow, order A
-            times = (ms, cuda_ms(lambda: masked_conv.masked_conv_inverse_plain(*args), 3))
-            line += f"; plain {times[1]:.4f} ms"
+        if not times or not regs:  # the level-0 flow, order A; the wide shapes
+            plain_ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_plain(*args), 3)
+            line += f"; plain {plain_ms:.4f} ms"
+            if not times:
+                times = (ms, plain_ms)
+            else:
+                wide.append({"B": b, "H": hh, "W": ww, "C": c, "hid": hid,
+                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": None, "cluster": k, "smem_bytes": smem})
         print(line)
     b, hh, ww, c, ch, _ = K5_CASES[0]
     out = row(max(errs), times, k5_work(b, hh, ww, c, 4 * c), FP32_FLOPS)
+    out["down_stack_shapes"] = wide
 
     # (c'') the level-0 unit (C=32, kernel (2, 3), 128 conditioning
     # channels, hid 128, 8x8, B=40), out convs and ActNorms perturbed: K2
@@ -3206,6 +3242,12 @@ def _checked_kernels():
         return ({"N": n, "clips": args[1].shape[0], "S": s, "Ch": ch},
                 spade_work(n, args[1].shape[0], s, ch, args[0].element_size()), FP32_FLOPS)
 
+    def flow(args):
+        b, hh, ww, c = args[0].shape
+        hid = args[1].shape[-1]
+        return ({"B": b, "H": hh, "W": ww, "C": c, "hid": hid},
+                k5_work(b, hh, ww, c, hid), FP32_FLOPS)
+
     def nice(train):
         def dims(args):
             (m, k1), (hid, n) = args[0].shape, args[3].shape
@@ -3217,6 +3259,9 @@ def _checked_kernels():
         "macow_unit_inverse": (masked_conv, "macow_unit_inverse_cuda",
                                masked_conv.macow_unit_inverse_plain,
                                lambda dt: (K2_TOL, 0.0, False), unit),
+        "masked_conv_inverse": (masked_conv, "masked_conv_inverse_cuda",
+                                masked_conv.masked_conv_inverse_plain,
+                                lambda dt: (K5_TOL, 0.0, False), flow),
         "spade_gn": (spade_gn, "spade_gn_cuda", spade_gn.spade_gn_plain,
                      lambda dt: (K3_TOL[dt], K3_TOL[dt], False), spade),
         "nice_net": (nice_net, "nice_net_cuda", nice_net.nice_net_plain,
@@ -3227,11 +3272,12 @@ def _checked_kernels():
 
 
 def launch_check(tag, run, want, names=("macow_unit_inverse", "spade_gn"), timed=True):
-    """The kernels ``names`` (K2 and K3 by default; K1 ``nice_net`` and K4
-    ``nice_net_train`` too) at the shapes ``run()`` gives them: ``run`` once
+    """The kernels ``names`` (K2 and K3 by default; K1 ``nice_net``, K4
+    ``nice_net_train`` and K5 ``masked_conv_inverse`` too) at the shapes
+    ``run()`` gives them: ``run`` once
     with every launch's inputs and output kept, its launches counted against
     ``want``, then each kept output held against the plain version on the
-    same inputs (K2 at K2_TOL, K3 at K3_TOL of its dtype abs + rel, K1 and
+    same inputs (K2 and K5 at K2_TOL / K5_TOL, K3 at K3_TOL of its dtype abs + rel, K1 and
     K4 (u, a and b) at K1_TOL abs + rel with the abs part times min(1,
     max |ref|) of each output; the smallest max |ref| of the u outputs,
     what a zeroed output would read, is printed), and (``timed``) each distinct
@@ -4060,10 +4106,11 @@ def expected_option_launches(model, cfg, bf16, train=False):
     """Per sampling pass (or, ``train``, per step) of a variant: K1 in
     every NICE coupling of its bf16 family (hidden a multiple of 128, at
     most 512 pixels; steps' and priors' alike, whatever the transform), K2
-    in each affine unit that ``unit_fits``, K3 once a decode level; a step
+    in each affine unit that ``unit_fits``, else K5 in each of its 4
+    masked-conv flows, K3 once a decode level; a step
     runs K1 in each step's 4 couplings (the remat's no-grad pass) and K4 in
-    their recompute and the priors.  No K5: a non-affine masked-conv flow
-    takes the plain row scan, as in the JAX package."""
+    their recompute and the priors.  A non-affine masked-conv flow takes
+    the plain row scan, as in the JAX package."""
     from ipoke_tpu_torch.flows.macow import default_mcf_hidden
     from ipoke_tpu_torch.ops.masked_conv import unit_fits
 
@@ -4079,9 +4126,12 @@ def expected_option_launches(model, cfg, bf16, train=False):
         want["nice_net"] += 4 * n + levels if k1 else 0
         for i, k in enumerate(steps):
             ci = c - i * (c // block.factor)
-            if block.transform == "affine" and unit_fits(
-                    (cfg["batch_size"], s, s, ci), default_mcf_hidden(ci), (2, 3)):
+            if block.transform != "affine":
+                continue
+            if unit_fits((cfg["batch_size"], s, s, ci), default_mcf_hidden(ci), (2, 3)):
                 want["macow_unit_inverse"] += 4 * k
+            else:
+                want["masked_conv_inverse"] += 16 * k
     if not train:
         want["spade_gn"] = len(cfg["dec_ch"]) - 1
     return want
@@ -4369,6 +4419,270 @@ def phase_options_cli(dev, smi, tree):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# (t) the `reshape: down` stack: K5's wide path
+# ---------------------------------------------------------------------------
+
+# Variant D: (s2)'s variant C with `reshape: down`: 8x8x32, then 4x4x128
+# (channel steps 128 -> 96 -> 64, MCF hidden 256 / 384 / 256, NICE hidden 64
+# x C); fp32, at the shipped widths (128 px, B = 40)
+STACK_DOWN = dict(multistack=True, reshape="down", levels=[[4, 3, 2], [4, 3, 2]],
+                  factors=[16, 4], use1x1=True, mixed=False)
+
+
+def phase_down_stack(dev, smi, cfg=None):
+    """(t) variant D at the shipped widths: the flow's fp32 round trip z ->
+    forward -> inverse within ROUNDTRIP_TOL, with every K2 and K5 launch of
+    the inverse held against its plain version on its inputs (each K5
+    shape timed); 2 timed fp32 inverses; then the model in bf16, one
+    ``forward_sample`` with every K1, K2, K5 and K3 launch held so, and 2
+    timed passes.  The launch counts are zeroed before each run and read
+    after.  Returns (launches by path, results, K5's rows)."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.flows import count_params
+
+    release()
+    t_phase = time.perf_counter()
+    cfg = cfg or dict(entry.SHIPPED, **STACK_DOWN)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = entry.build(cfg, dev, gen)
+    entry.perturb(model.flow_params, gen)
+    flow, b = model.flow, cfg["batch_size"]
+    n_params = count_params(model.flow_params.tree())
+    want = expected_option_launches(model, cfg, False)
+    want["spade_gn"] = 0
+    m = model.min_spatial_size
+    z = torch.randn((b, m, m, model.flow_in_channels), generator=gen, device=dev)
+    h = torch.randn((b, m, m, flow.h_channels), generator=gen, device=dev)
+    tag = "(t) SHIPPED D"
+    paths, results = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y, _ = flow.forward(model.flow_params.tree(), z, h)
+        xs = []
+        ops.reset_launches()  # the fp32 inverse's run
+        rows = launch_check(f"{tag} fp32 inverse", lambda: xs.append(
+            flow.inverse(model.flow_params.tree(), y, h)), want,
+            ("macow_unit_inverse", "masked_conv_inverse"))
+        torch.cuda.synchronize()
+        paths["down_stack_inverse"] = check_launches(f"{tag} fp32 inverse", want)
+        err = max_err(xs[0], z)
+        print(f"{tag} fp32 round trip z -> forward -> inverse at {tuple(z.shape)}: "
+              f"max |x - z| {err:.3e} (tol {ROUNDTRIP_TOL}), max |y| "
+              f"{y.abs().max().item():.3e}; {n_params / 1e6:.2f}M flow params")
+        if not bool(torch.isfinite(xs[0]).all()) or err > ROUNDTRIP_TOL:
+            raise AssertionError(f"{tag}: fp32 round trip out of bound")
+        del xs
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            flow.inverse(model.flow_params.tree(), y, h)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        results["fp32_inverse"] = {"ms": sum(times) / 2, "runs_ms": times,
+                                   "launches": paths["down_stack_inverse"]}
+        print(f"{tag} fp32 flow inverse B={b}: {sum(times) / 2:.1f} ms "
+              f"({', '.join(f'{t:.1f}' for t in times)}) on {smi}")
+        del y
+
+        model = model.to(torch.bfloat16)
+        batch = entry.make_batch(cfg, dev, torch.bfloat16, seed=0)
+        want16 = expected_option_launches(model, cfg, True)
+        frames = []
+        ops.reset_launches()  # the bf16 sampling pass's run
+        launch_check(f"{tag} bf16 pass", lambda: frames.append(
+            model.forward_sample(batch, cfg["T"], gen)), want16,
+            [k for k in ("nice_net", "macow_unit_inverse", "masked_conv_inverse",
+                         "spade_gn") if want16[k]], timed=False)
+        torch.cuda.synchronize()
+        paths["down_stack_sample"] = check_launches(f"{tag} bf16 pass", want16)
+        shape = (b, cfg["T"], cfg["spatial"], cfg["spatial"], 3)
+        if tuple(frames[0].shape) != shape or not bool(torch.isfinite(frames[0]).all()):
+            raise AssertionError(f"{tag}: frames {tuple(frames[0].shape)}, want finite "
+                                 f"{shape}")
+        del frames
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            model.forward_sample(batch, cfg["T"], gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    results["bf16_pass"] = {"ms": sum(times) / 2, "runs_ms": times,
+                            "launches": paths["down_stack_sample"]}
+    results.update(peak_gib=peak, params_m=n_params / 1e6)
+    print(f"{tag} bf16 sampling pass B={b} T={cfg['T']} {cfg['spatial']}px: "
+          f"{sum(times) / 2:.1f} ms ({', '.join(f'{t:.1f}' for t in times)}), peak "
+          f"{peak:.2f} GiB over the phase (the checked runs' kept inputs included) "
+          f"on {smi}")
+    del model, batch
+    release()
+    print(f"(t) in {time.perf_counter() - t_phase:.1f} s")
+    return paths, results, rows["masked_conv_inverse"]
+
+
+# ---------------------------------------------------------------------------
+# (u) the PokeVAE baseline
+# ---------------------------------------------------------------------------
+
+def poke_vae_config(base):
+    """``base`` (a first-stage config) with ``architecture.baseline``: the
+    PokeVAE, the poke as the GRU's input (the default)."""
+    cfg = copy.deepcopy(base)
+    cfg["architecture"]["baseline"] = True
+    return cfg
+
+
+def phase_poke_vae(dev, smi):
+    """(u1) the PokeVAE at TINY, 3 steps card against CPU by the (i2) rule;
+    (u2) config/first_stage.yaml with ``baseline: true`` (64 px, B = 20, T =
+    10, fp32, TF32 off): one checked step, the path's run, with the launch
+    counts zeroed before and read after and every K3 launch held against
+    its plain version on its inputs (each shape timed), then 3 timed steps
+    and the peak memory.  Returns (launches by path, results, K3's rows)."""
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.train import FirstStageTrainer
+
+    t_phase = time.perf_counter()
+    release()
+    phase_first_stage_tiny(dev, poke_vae_config(entry.FIRST_STAGE_TINY), 3,
+                           "(u1) PokeVAE TINY")
+    cfg, label = poke_vae_config(entry.FIRST_STAGE), "(u2) POKE_VAE"
+    B = cfg["data"]["batch_size"]
+    nets = entry.build_first_stage(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    batch = entry.make_first_stage_batch(cfg, dev)
+    trainer = FirstStageTrainer(cfg, *nets)
+    draw_gen = torch.Generator(device=dev).manual_seed(1)
+    before = [[p.detach().clone() for p in net.parameters()] for net in nets[:3]]
+    print(f"{label} params: " + ", ".join(
+        f"{name} {sum(p.numel() for p in net.parameters()) / 1e6:.2f}M"
+        for name, net in zip(("generator", "d_s", "d_t", "vgg"), nets)))
+    want = expected_first_stage_launches(cfg)
+    out = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # the PokeVAE step's run
+    rows = launch_check(f"{label} train step", lambda: out.append(
+        trainer.train_step(batch, 0, draw_gen)), want, ("spade_gn",))
+    torch.cuda.synchronize()
+    launches = check_launches(f"{label} train step", want)
+    metrics = {k: v.item() for k, v in out[0].items()}
+    if not all(map(math.isfinite, metrics.values())):
+        raise AssertionError(f"{label} metrics {metrics}")
+    # a discriminator's last bias starts at 0, and its gradient is exactly 0
+    # while every prediction sits inside the hinge's margin (as many real
+    # as fake terms, each +-1/N): coupled decay of 0 leaves it; the
+    # generator's params all move
+    held = {}
+    for name, net, p0 in zip(("generator", "d_s", "d_t"), nets[:3], before):
+        still = [(n, a) for (n, b), a in zip(net.named_parameters(), p0)
+                 if torch.equal(a, b)]
+        if name == "generator" and still or any(
+                a.dim() != 1 or bool(a.any()) for _, a in still):
+            raise AssertionError(f"{label}: {name} params did not move: "
+                                 f"{[n for n, _ in still]}")
+        held[name] = [n for n, _ in still]
+    print(f"{label} step 1: every generator param moved, the discriminators' but "
+          f"zero biases of zero gradient {held}; "
+          + ", ".join(f"{k} {v:.5g}" for k, v in metrics.items()))
+    del before, out
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        trainer.train_step(batch, 0, draw_gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label} train fp32 B={B} T={cfg['data']['max_frames']} "
+          f"{cfg['data']['spatial_size'][0]}px: {ms:.1f} ms/step "
+          f"({', '.join(f'{t:.1f}' for t in times)}), {B / (ms / 1e3):.2f} clips/s, "
+          f"peak {peak:.2f} GiB (the checked step's kept inputs included) on {smi}")
+    del nets, trainer, batch
+    release()
+    print(f"(u1, u2) in {time.perf_counter() - t_phase:.1f} s")
+    return ({"poke_vae_train": launches},
+            {"ms_per_step": ms, "steps_ms": times, "peak_gib": peak}, rows["spade_gn"])
+
+
+def check_first_stage_restore(e1, path, data_root, model_name, dev):
+    """The state a ``--resume`` of the first-stage run ``e1`` loads (step,
+    the three nets, each optimizer's count and Adam state) on ``dev``
+    against the run's own, bit for bit."""
+    from ipoke_tpu_torch import main as cli
+    from ipoke_tpu_torch.cli.experiments import FirstStageExperiment
+
+    args = cli.parse_args(["--config", path, "--model_name", model_name,
+                           "--data_root", data_root, "--resume"])
+    cfg_r, dirs, _ = cli.load_parameters(args)
+    e2 = FirstStageExperiment(cfg_r, dirs, data_root=data_root, device=dev)
+    e2.build()
+    e2.restore_last()
+    same = lambda a, b: all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+    checks = {"step": e2.step == e1.step,
+              "nets, bitwise": all(
+                  same(a.state_dict().values(), b.state_dict().values())
+                  for a, b in ((e2.model, e1.model), (e2.disc_s, e1.disc_s),
+                               (e2.disc_t, e1.disc_t))),
+              "optimizers, bitwise": all(
+                  ta.count == tb.count and all(
+                      same(ta.adam.state[p].values(), tb.adam.state[q].values())
+                      for p, q in zip(ta.params, tb.params))
+                  for ta, tb in zip(e2.trainer.tx, e1.trainer.tx))}
+    e2.metrics_logger.close()
+    print(f"CLI first_stage ({model_name}) restore check (step {e2.step}): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"CLI first_stage ({model_name}) restore: {checks}")
+
+
+def phase_poke_vae_cli(dev, smi, tree):
+    """(u3) ``ipoke_tpu_torch.main`` over config/first_stage.yaml with
+    ``baseline: true`` on (k)'s tree at (k)'s sizes, model name
+    ``pokevae``: one epoch, a restore check, then ``--resume`` for one
+    more, each run with the launch counts zeroed before and read after.
+    Returns (launches by path, results)."""
+    import os
+    import shutil
+
+    import yaml
+
+    from ipoke_tpu_torch.core.config import load_config
+
+    release()
+    t0, name = time.perf_counter(), "pokevae"
+    cfg = load_config(os.path.join("config", "first_stage.yaml")).to_dict()
+    cfg["data"]["dataset"] = "PlantDataset"
+    cfg["training"].update(n_epochs=1, max_batches_per_epoch=CLI_BATCHES,
+                           max_val_batches=1)
+    cfg["architecture"]["baseline"] = True
+    path = os.path.join(tree["root"], f"first_stage_{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    launches, results = {}, {}
+    e1, results["run"] = drive_cli(dev, smi, tree["data_root"], "first_stage", path,
+                                   model_name=name)
+    launches["poke_vae_cli"] = results["run"]["launches"]
+    check_first_stage_restore(e1, path, tree["data_root"], name, dev)
+    step1, count1 = e1.step, e1.tx.count
+    del e1
+    release()
+    e2, results["resume"] = drive_cli(dev, smi, tree["data_root"], "first_stage", path,
+                                      "--resume", model_name=name)
+    launches["poke_vae_cli_resume"] = results["resume"]["launches"]
+    n2 = len(e2.timings["step_s"])
+    if (e2.step, e2.tx.count) != (step1 + n2, count1 + n2):
+        raise AssertionError(f"(u3) --resume: step {e2.step}, count {e2.tx.count}; want "
+                             f"{step1 + n2}, {count1 + n2}")
+    del e2
+    release()
+    shutil.rmtree(os.path.join(tree["base"], "first_stage", "ckpt", name),
+                  ignore_errors=True)
+    print(f"(u3) in {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -4436,6 +4750,10 @@ def main():
         kernels[name]["options_A_shapes"] = r
     for name, key in (("nice_net", "K1"), ("macow_unit_inverse", "K2"), ("spade_gn", "K3")):
         kernels[name]["options_A_in_situ_ms"] = s_out["A"]["in_situ_ms"][key]
+    # (t) variant D, the `reshape: down` stack: K5's wide path in situ
+    t_launches, _, rows = phase_down_stack(dev, smi)
+    paths.update(t_launches)
+    kernels["masked_conv_inverse"]["down_stack_in_situ"] = rows
     # (i) the first-stage VAE-GAN train step; (q3) K3 in bf16 at its
     # training shapes, forward and backward; (q1) TINY under mixed_prec and
     # a full_sequence: false step, card vs CPU; (q2) the yaml's step in bf16
@@ -4456,6 +4774,10 @@ def main():
     print(f"(q2) first-stage step, same call: bf16 {fs16['ms_per_step']:.1f} ms, "
           f"{fs16['peak_gib']:.2f} GiB; fp32 {fs_times['ms_per_step']:.1f} ms, "
           f"{fs_times['peak_gib']:.2f} GiB; on {smi}")
+    # (u1, u2) the PokeVAE baseline: TINY card vs CPU, the yaml's step
+    u_launches, _, rows = phase_poke_vae(dev, smi)
+    paths.update(u_launches)
+    kernels["spade_gn"]["poke_vae_train_shapes"] = rows
     # (j) the conv third stage
     for name, cases in phase_third_stage_kernels(dev).items():
         kernels[name]["third_stage_shapes"] = cases
@@ -4484,6 +4806,9 @@ def main():
         # (s3) the CLI over variant A's options, on (k)'s first stage
         s3_launches, _ = phase_options_cli(dev, smi, tree)
         paths.update(s3_launches)
+        # (u3) the PokeVAE through the CLI, then --resume
+        u3_launches, _ = phase_poke_vae_cli(dev, smi, tree)
+        paths.update(u3_launches)
         # (p3) the recipe through the CLI on (k)'s frozen runs; (k)'s second
         # stage and third-stage runs are read by no later phase
         free_runs(tree, ("second_stage", "flow_vae", "flow_motion"))

@@ -127,6 +127,7 @@ class Experiment:
     def __init__(self, config: Config, dirs: Dict[str, str],
                  data_root: Optional[str] = None, meta=None,
                  device="cuda"):
+        self.prepare_config(config)
         self.config = config
         self.dirs = dirs
         self.logger = get_logger()
@@ -205,6 +206,10 @@ class Experiment:
         return tx
 
     # -- subclass API ------------------------------------------------------
+    def prepare_config(self, config) -> None:
+        """Set the keys this experiment derives from ``config`` before the
+        run is set up (the poke encoders' input and target keys)."""
+
     def build(self):
         raise NotImplementedError
 
@@ -226,10 +231,11 @@ class Experiment:
         return None
 
     def load_tx(self, tx, state) -> None:
-        """``tx``'s saved state; None (a run converted from reference or JAX
-        weights, ``reference.write_run``, ``tools/jax_run_to_torch.py``)
-        leaves the optimizer fresh: its moments and its schedule's count at
-        0."""
+        """``tx``'s saved state; None (a run made from the reference's
+        weights, ``reference.write_run``, which hold no optimizer) leaves
+        the optimizer fresh: its moments and its schedule's count at 0.  A
+        converted JAX run carries its optimizer
+        (``tools/jax_run_to_torch.py``)."""
         if state is None:
             self.logger.info("no optimizer state in the checkpoint: the "
                              "optimizer starts fresh")
@@ -451,8 +457,12 @@ class FirstStageExperiment(Experiment):
             noise = torch.randn((X.shape[0], *shape), generator=self.generator,
                                 device=X.device)
             # bf16 under mixed_prec: the metrics take it upcast, as the
-            # JAX package's promote it against the fp32 batch
-            X_hat = self.model(X, train=False, noise=noise)[0].float()
+            # JAX package's promote it against the fp32 batch.  The PokeVAE
+            # decodes under the batch's poke (the JAX validation applies it
+            # without one and fails: ROADMAP §3)
+            poke = {"poke": batch["poke"]} if getattr(self.model, "needs_poke", False) \
+                else {}
+            X_hat = self.model(X, train=False, noise=noise, **poke)[0].float()
             a = X[:, 1:].reshape(-1, *X.shape[2:])
             b = X_hat.reshape(-1, *X_hat.shape[2:])
             ssims.append(ssim(a, b).cpu().numpy())
@@ -574,11 +584,10 @@ class PokeEncoderExperiment(_AEExperiment):
     datakeys = ["images", "poke", "flow"]
     use_disc = False
 
-    def __init__(self, config, dirs, **kw):
+    def prepare_config(self, config) -> None:
         config["input_key"] = "flow" if config.get_path(
             "architecture.flow_ae", False) else "poke"
         config["target_key"] = "flow"
-        super().__init__(config, dirs, **kw)
 
 
 def load_frozen_net(config, section: str, build, generator):

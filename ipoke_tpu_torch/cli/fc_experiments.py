@@ -129,10 +129,9 @@ class PokeEncoderFCExperiment(_FCEncoderExperiment):
     datakeys = ["images", "poke", "flow"]
     use_disc = False
 
-    def __init__(self, config, dirs, **kw):
+    def prepare_config(self, config) -> None:
         config["input_key"] = "poke"
         config["target_key"] = "flow"
-        super().__init__(config, dirs, **kw)
 
 
 def load_frozen_fc(config, generator):

@@ -207,3 +207,102 @@ def load_lpips(net, params) -> None:
     load_flax(net.vgg, params["vgg"])
     for k, w in enumerate(params["lins"]):
         _copy(net.lins[k], w, f"lins/{k}")
+
+
+# ---------------------------------------------------------------------------
+# optimizer states
+# ---------------------------------------------------------------------------
+
+def _empty(node) -> bool:
+    """An empty optax state as restored: None (``to_numpy_tree`` makes it a
+    0-d object array), or an empty container."""
+    if isinstance(node, np.ndarray) and node.dtype == object and node.shape == ():
+        node = node.item()
+    return node is None or (isinstance(node, (dict, list, tuple)) and not node)
+
+
+def _rule_states(node, path):
+    """The rule state (``mu`` / ``v_row`` ...) and the schedule's ``{count}``
+    of one optax chain's state, as orbax restores it (named tuples as
+    dicts, tuples as lists, empty states None), under an optional
+    ``multi_transform`` mask (its ``train`` label)."""
+    if isinstance(node, dict) and "inner_states" in node:
+        node, path = node["inner_states"]["train"]["inner_state"], \
+            path + "/inner_states/train/inner_state"
+    items = node if isinstance(node, list) else [node]
+    rule = sched = None
+    for i, item in enumerate(items):
+        if _empty(item):
+            continue
+        if not isinstance(item, dict):
+            raise ValueError(f"{path}/{i}: an optax state the port cannot map")
+        if set(item) == {"count"}:
+            sched = int(np.asarray(item["count"]))
+        elif "count" in item and ({"mu", "nu"} <= set(item) or "v_row" in item):
+            rule = item
+        else:
+            raise ValueError(f"{path}/{i}: an optax state the port cannot map "
+                             f"(keys {sorted(item)})")
+    if rule is None:
+        raise ValueError(f"{path}: no optimizer rule state")
+    count = int(np.asarray(rule["count"]))
+    if sched is not None and sched != count:
+        raise ValueError(f"{path}: the schedule's count {sched} is not the rule's {count}")
+    return rule, count
+
+
+def optax_state_dict(state, tx, moments, path="opt"):
+    """``tx.state_dict()`` (a port optimizer of ``core.optim``) holding the
+    optax state ``state`` of the JAX package's counterpart, as orbax
+    restores it: ``optax.MultiSteps`` -> ``_MultiSteps`` (the mini-step
+    count and the accumulator), ``master_weights`` -> ``_MasterWeights``,
+    the torch-exact AMSGrad / ``gan_adam``'s and ``optax.adam``'s Adam ->
+    ``_Adam`` (each tensor's step, first, second and max second moments),
+    ``scale_by_factored_rms`` -> ``Adafactor``, ``scale_by_belief`` ->
+    ``AdaBelief``; the count of updates, which the lr schedule reads, from
+    the rule (and the schedule, which must agree).  ``moments(tree)`` maps a
+    tree shaped like the JAX params (a moment, an accumulator, the masters)
+    to tensors in ``tx.params`` order.  A state the port cannot map raises
+    and names its path; nothing starts fresh."""
+    from .core import optim
+
+    # copies: torch's Adam keeps the tensors it loads, and steps them in place
+    tensors = lambda tree: [t.detach().clone() for t in moments(tree)]
+    if isinstance(tx, optim._MultiSteps):
+        for key in ("mini_step", "acc_grads", "inner_opt_state"):
+            if not isinstance(state, dict) or key not in state:
+                raise ValueError(f"{path}: not an optax.MultiSteps state (no {key})")
+        return {"acc": tensors(state["acc_grads"]), "n": int(np.asarray(state["mini_step"])),
+                "inner": optax_state_dict(state["inner_opt_state"], tx.inner, moments,
+                                          path + "/inner_opt_state")}
+    if isinstance(tx, optim._MasterWeights):
+        if not isinstance(state, dict) or {"master", "inner"} - set(state):
+            raise ValueError(f"{path}: not a master_weights state")
+        return {"master": [t.float() for t in tensors(state["master"])],
+                "inner": optax_state_dict(state["inner"], tx.inner, moments,
+                                          path + "/inner")}
+    rule, count = _rule_states(state, path)
+    if isinstance(tx, optim.Adafactor):
+        if "v_row" not in rule:
+            raise ValueError(f"{path}: Adafactor wants scale_by_factored_rms's state")
+        return {"count": count, **{key: [t if dst is not None else None
+                                         for t, dst in zip(tensors(rule[key]), own)]
+                                   for key, own in tx._state().items()}}
+    if isinstance(tx, optim.AdaBelief):
+        if set(rule) != {"count", "mu", "nu"}:
+            raise ValueError(f"{path}: AdaBelief wants scale_by_belief's state")
+        return {"count": count, "mu": tensors(rule["mu"]), "nu": tensors(rule["nu"])}
+    if not isinstance(tx, optim._Adam):
+        raise ValueError(f"{path}: no mapping onto {type(tx).__name__}")
+    amsgrad = bool(tx.adam.defaults["amsgrad"])
+    if amsgrad != ("nu_max" in rule) or "mu" not in rule:
+        raise ValueError(f"{path}: the state (keys {sorted(rule)}) is not the "
+                         f"{'AMSGrad' if amsgrad else 'Adam'} rule of the port's optimizer")
+    keys = (("exp_avg", "mu"), ("exp_avg_sq", "nu")) + \
+        ((("max_exp_avg_sq", "nu_max"),) if amsgrad else ())
+    per = {k: tensors(rule[j]) for k, j in keys}
+    adam = {"state": {i: {"step": torch.tensor(float(count)),
+                          **{k: per[k][i] for k, _ in keys}}
+                      for i in range(len(tx.params))},
+            "param_groups": tx.adam.state_dict()["param_groups"]}
+    return {"count": count, "adam": adam}

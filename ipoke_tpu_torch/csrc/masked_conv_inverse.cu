@@ -24,8 +24,8 @@
 // number of rows.
 // - A cluster of k CTAs per batch item (k from the shape:
 //   ops/masked_conv.py::k5_cluster, the fewest that hold the hidden units
-//   at most 32 a CTA; 4 at hid = 128, so 160 CTAs at B = 40, two per SM,
-//   one wave; wider clusters measured slower).  The cluster splits the
+//   at most 32 a CTA, else 8; 4 at hid = 128, so 160 CTAs at B = 40, two
+//   per SM, one wave; wider clusters measured slower).  The cluster splits the
 //   hidden units: a CTA computes hk = hid/k (rounded up to 4) of them for
 //   every column of the row, and the partial (W, 2C) product of its
 //   hiddens with its rows of w_hid.  The partials go through distributed
@@ -43,6 +43,21 @@
 //   (dy, 4 channels) and all kw taps; a lane reads one float4 of 4 channels
 //   per column of the window, and the 8 lanes' sums for 8 columns are
 //   reduce-scattered with 7 shuffles, leaving each lane one column.
+// - Wide flows (the instance NQ = 0): where a lane's groups exceed NQ_MAX
+//   (Q = kh*ceil(C/4) > 16, C > 32 at kernel (2, 3)), where a CTA holds more
+//   than 32 hidden units (hid > 256 at the portable cluster of 8) or where
+//   2C exceeds the threads, the tap weights stay in shared memory and
+//   stream through registers one group (12 weights) at a time, summed into
+//   the same 8-column accumulators, so a hidden unit's dot runs over any
+//   number of groups; the CTA's hidden units go in passes of 32, and the
+//   out product loops over (2C x 4 columns) items.  A non-portable cluster
+//   of 16 would halve the hidden units a CTA holds at hid 384 but also the
+//   CTAs an SM holds; passes keep the portable cluster and one path for
+//   every width.  The shapes it opens: a `reshape: down` MultiscaleStack's
+//   4x4 blocks at C = 64-128 and hid 256-384, whose 2x3x128x32 weight slice
+//   (96 KB) fits shared memory and not the registers.  Shared memory stays
+//   the limit (SMEM_LIMIT): a 2x2x512 flow at hid 512 needs 786 KB of
+//   w_shift a CTA at a cluster of 8 and is refused.
 // - Shared memory grows with W and not with H: the weight slice, a ring of
 //   the last kh rebuilt rows, kh x (W rounded up to 8, plus 2) x C, one row
 //   of the CTA's hiddens and the two partial buffers (~48 KB a CTA at
@@ -71,7 +86,7 @@ constexpr int SPLIT = 8;                 // lanes sharing one hidden unit's tap 
 constexpr int JSLOTS = THREADS / SPLIT;  // hidden units a CTA can hold: 32
 constexpr int COLS = 8;                  // columns per pass of the tap dot
 constexpr int AMAX = 4;                  // affine elements per thread: W*C <= AMAX*THREADS
-constexpr int NQ_MAX = 2;                // tap groups per lane: kh*ceil(C/4) <= NQ_MAX*SPLIT
+constexpr int NQ_MAX = 2;                // tap groups per lane held in registers
 constexpr int KW = 3;                    // kernel width in scan space, as configured: (2, 3)
 constexpr int MAX_CLUSTER = 8;           // the portable cluster size
 
@@ -117,6 +132,9 @@ size_t smem_bytes(const Dims& d) {
   return 16 + 4 * (size_t)floats;
 }
 
+// NQ > 0: each lane's NQ tap groups in registers for all rows (Q <= NQ *
+// SPLIT, hk <= JSLOTS); NQ = 0: the wide path, weights read from shared
+// memory group by group, hidden units in passes of JSLOTS.
 template <int NQ>
 __global__ void __launch_bounds__(THREADS, 2)
 masked_conv_inverse_kernel(const float* __restrict__ y,
@@ -131,7 +149,8 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
   const int b = blockIdx.x / d.k;
   const int tid = threadIdx.x;
   const int s = tid & (SPLIT - 1);  // this lane's tap split
-  const int jl = tid / SPLIT;       // its hidden unit in the CTA's slice
+  const int jl0 = tid / SPLIT;      // its hidden unit in the CTA's slice (first pass)
+  constexpr bool kWide = NQ == 0;
   const int H = d.H, W = d.W, C = d.C, Cp = d.Cp, Wpad = d.Wpad, hk = d.hk;
   const int kh = d.kh, C4 = Cp / 4, twoC = 2 * C, hs = hk + 4;
   const int taps = kh * KW * C;  // rows of w_shift
@@ -174,7 +193,7 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
   // the lane's tap weights for all H rows: wr[q][cc][dx] of hidden unit jl
   // at tap group qq = s + q*SPLIT, i.e. row dy and channel 4*c4 + cc; zero
   // past C, past the CTA's hidden units and past the last group
-  float wr[NQ][4][KW];
+  float wr[kWide ? 1 : NQ][4][KW];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     const int qq = s + q * SPLIT, dy = qq / C4, c4 = qq % C4;
@@ -183,8 +202,8 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
       const int c = 4 * c4 + cc;
 #pragma unroll
       for (int dx = 0; dx < KW; ++dx)
-        wr[q][cc][dx] = (qq < d.Q && c < C && jl < nj)
-                            ? ws[((dy * KW + dx) * C + c) * hk + jl] : 0.f;
+        wr[q][cc][dx] = (qq < d.Q && c < C && jl0 < nj)
+                            ? ws[((dy * KW + dx) * C + c) * hk + jl0] : 0.f;
     }
   }
   __syncthreads();  // the ring is zeroed
@@ -211,7 +230,10 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
     // hidden units: lane s of each group of 8 sums its tap groups for 8
     // columns, then the group reduce-scatters so that lane s holds column
     // s.  Tap row dy reads rebuilt row row+1+dy (reverse) or row-kh+dy,
-    // kept in ring slot (row+1+dy) mod kh or (row+dy) mod kh.
+    // kept in ring slot (row+1+dy) mod kh or (row+dy) mod kh.  One pass of
+    // JSLOTS hidden units, more on the wide path.
+    for (int jb = 0; jb < (kWide ? hk : 1); jb += JSLOTS) {
+    const int jl = jl0 + jb;
     for (int w0 = 0; w0 < W; w0 += COLS) {
       float acc[COLS];
 #pragma unroll
@@ -239,6 +261,36 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
           }
         }
       }
+      if constexpr (kWide) {
+        // the wide path: each group's 12 weights from shared memory
+        for (int qq = s; qq < d.Q && jl < nj; qq += SPLIT) {
+          const int dy = qq / C4, c4 = qq % C4;
+          float wq[4][KW];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int c = 4 * c4 + cc;
+#pragma unroll
+            for (int dx = 0; dx < KW; ++dx)
+              wq[cc][dx] = c < C ? ws[((dy * KW + dx) * C + c) * hk + jl] : 0.f;
+          }
+          const int slot = (reverse ? row + 1 + dy : row + dy) % kh;
+          const float* src = ring + (slot * Wpad + w0) * Cp + 4 * c4;
+#pragma unroll
+          for (int col = 0; col < COLS + KW - 1; ++col) {
+            const float4 v = *reinterpret_cast<const float4*>(src + col * Cp);
+#pragma unroll
+            for (int dx = 0; dx < KW; ++dx) {
+              const int c = col - dx;
+              if (c >= 0 && c < COLS) {
+                acc[c] = fmaf(v.x, wq[0][dx], acc[c]);
+                acc[c] = fmaf(v.y, wq[1][dx], acc[c]);
+                acc[c] = fmaf(v.z, wq[2][dx], acc[c]);
+                acc[c] = fmaf(v.w, wq[3][dx], acc[c]);
+              }
+            }
+          }
+        }
+      }
       const bool b4 = s & 4, b2 = s & 2, b1 = s & 1;
       float r4[4], r2[2];
 #pragma unroll
@@ -254,12 +306,37 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
       const int w = w0 + s;
       if (w < W && jl < nj) hid_s[w * hs + jl] = elu(sum);
     }
+    }
     __syncthreads();
 
     // the CTA's partial of the 1x1 out product: thread (k, columns w_out,
     // w_out + wstep, ...), the w_hid element shared by its columns
     float* xp = xpart + (i & 1) * W * twoC;
-    if (w_out < wstep) {
+    if (kWide) {
+      // item e: output k of columns 4g .. 4g+3
+      for (int e = tid; e < twoC * ((W + 3) / 4); e += THREADS) {
+        const int kk = e % twoC, wb = 4 * (e / twoC);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < nj; j += 4) {
+          float wv[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) wv[t] = wh[(j + t) * twoC + kk];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (wb + u < W) {
+              const float4 hv = *reinterpret_cast<const float4*>(hid_s + (wb + u) * hs + j);
+              acc[u] = fmaf(hv.x, wv[0], acc[u]);
+              acc[u] = fmaf(hv.y, wv[1], acc[u]);
+              acc[u] = fmaf(hv.z, wv[2], acc[u]);
+              acc[u] = fmaf(hv.w, wv[3], acc[u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (wb + u < W) xp[(wb + u) * twoC + kk] = acc[u];
+      }
+    } else if (w_out < wstep) {
       for (int wb = w_out; wb < W; wb += 4 * wstep) {
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
@@ -316,11 +393,18 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
   if (d.k > 1) cluster.sync();  // no CTA leaves while a peer may read its partials
 }
 
-// The shapes the kernel takes (ops/masked_conv.py::k5_fits mirrors it).
+// The shapes the kernel takes, shared memory aside (ops/masked_conv.py::
+// k5_fits mirrors it and the check in prepare).
 bool takes(const Dims& d) {
   return d.H > 0 && d.W > 0 && d.C > 0 && d.hid > 0 && d.hid % 4 == 0 &&
          d.kh > 0 && d.kw == KW && d.k >= 1 && d.k <= MAX_CLUSTER &&
-         d.hk <= JSLOTS && d.Q <= NQ_MAX * SPLIT && d.W * d.C <= AMAX * THREADS;
+         d.W * d.C <= AMAX * THREADS;
+}
+
+// Whether a lane's tap weights stay in registers (the instances NQ = 1, 2);
+// else the wide path (ops/masked_conv.py::k5_registers mirrors it).
+bool in_registers(const Dims& d) {
+  return d.Q <= NQ_MAX * SPLIT && d.hk <= JSLOTS && 2 * d.C <= THREADS;
 }
 
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
@@ -338,7 +422,9 @@ cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Kernel* kernel,
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  *kernel = d.Q <= SPLIT ? masked_conv_inverse_kernel<1> : masked_conv_inverse_kernel<2>;
+  *kernel = !in_registers(d) ? masked_conv_inverse_kernel<0>
+            : d.Q <= SPLIT   ? masked_conv_inverse_kernel<1>
+                             : masked_conv_inverse_kernel<2>;
   err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;

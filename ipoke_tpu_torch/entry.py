@@ -452,12 +452,13 @@ def build_third_stage_fc(cfg, device, generator: Optional[torch.Generator] = Non
 
 def make_first_stage_batch(cfg, device, seed: int = 0) -> dict:
     """A synthetic batch of clips (B, T+1, H, W, 3) in [-1, 1] at ``cfg``'s
-    data sizes, as a dict with ``images``."""
+    data sizes, as a dict with ``images`` and their ``poke`` maps (B, H, W,
+    2), which the PokeVAE baseline reads."""
     d = cfg["data"]
     np_batch = _make_batch_np(np.random.default_rng(seed),
                               batch_size=d["batch_size"], n_frames=d["max_frames"],
                               spatial_size=d["spatial_size"][0])
-    return {"images": torch.as_tensor(np_batch["images"], device=device)}
+    return {k: torch.as_tensor(np_batch[k], device=device) for k in ("images", "poke")}
 
 
 def build_flow_vae(spatial: int, arch, min_spatial: int, device,

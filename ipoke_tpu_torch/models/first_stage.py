@@ -10,7 +10,9 @@ penalty on a random window), the spatial discriminator's (random frames),
 and the generator's (hinge, feature matching, VGG, L1, KL), in the JAX
 package's order, with the discriminators gated by ``disc_gate``.  The
 same step trains the FC baseline (``models.fc_baseline.FCBaselineModel``,
-``architecture.fc_baseline``), whose motion latent is a vector.
+``architecture.fc_baseline``), whose motion latent is a vector, and the
+PokeVAE baseline (``models.poke_vae.PokeVAEModel``,
+``architecture.baseline``), whose generator forwards take the batch's poke.
 """
 
 from __future__ import annotations
@@ -172,7 +174,8 @@ class FirstStageStep:
       (its stats are the step's new ones), against both discriminators with
       their new params and u in eval.
 
-    With ``disc_gate`` 0 the discriminators' optimizer steps are skipped
+    A model that ``needs_poke`` (the PokeVAE) gets ``batch["poke"]`` in
+    both generator forwards.  With ``disc_gate`` 0 the discriminators' optimizer steps are skipped
     (params and moments stay; their u still advances, as in JAX)."""
 
     def __init__(self, config, model, disc_s, disc_t, vgg, tx_g, tx_ds, tx_dt):
@@ -201,11 +204,14 @@ class FirstStageStep:
                 p.grad = g
             tx.step()
 
-    def fake(self, X, draws):
+    def _poke(self, poke):
+        return {"poke": poke} if getattr(self.model, "needs_poke", False) else {}
+
+    def fake(self, X, draws, poke=None):
         with torch.no_grad():
             saved = [(m, m.u, m.sigma) for m in self.model.modules()
                      if getattr(m, "snorm", False)]
-            X_hat = self.model(X, train=True, noise=draws["noise"])[0]
+            X_hat = self.model(X, train=True, noise=draws["noise"], **self._poke(poke))[0]
             for m, u, sigma in saved:  # discarded, as the JAX step does
                 m.u, m.sigma = u, sigma
         return X_hat
@@ -231,8 +237,9 @@ class FirstStageStep:
         self._apply(self.tx_ds, disc_gate * loss, disc_gate)
         return loss.detach()
 
-    def update_g(self, X, draws, disc_gate, kl_gate=1.0):
-        X_hat, mu, logvar = self.model(X, train=True, noise=draws["noise"])
+    def update_g(self, X, draws, disc_gate, kl_gate=1.0, poke=None):
+        X_hat, mu, logvar = self.model(X, train=True, noise=draws["noise"],
+                                       **self._poke(poke))
         X_fake_w = self.window(torch.cat([X[:, :1], X_hat], dim=1), draws)
         pred_fake_s = self.disc_s(self.frames(X_hat, draws["idx_f"]))[0]
         pred_fake_t, fmap_fake = self.disc_t(X_fake_w)
@@ -252,11 +259,11 @@ class FirstStageStep:
                 "l_vgg": l_vgg, "l_rec": l_l1, "l_kl": l_kl, "loss": loss}
 
     def __call__(self, batch, draws, disc_gate: float, kl_gate: float = 1.0):
-        X = batch["images"]
-        X_hat = self.fake(X, draws)
+        X, poke = batch["images"], batch.get("poke")
+        X_hat = self.fake(X, draws, poke)
         loss_dt, gp_dt = self.update_dt(X, X_hat, draws, disc_gate)
         loss_ds = self.update_ds(X, X_hat, draws, disc_gate)
-        metrics = self.update_g(X, draws, disc_gate, kl_gate)
+        metrics = self.update_g(X, draws, disc_gate, kl_gate, poke)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss_d_dt=loss_dt, loss_gp_dt=gp_dt, loss_d_ds=loss_ds)
         return metrics
@@ -288,16 +295,27 @@ def build_fc_baseline(config):
 def build_first_stage(config):
     """(model, disc_s, disc_t) of a reference-style config tree, on the
     current default device, fp32 params, weights uninitialised (``entry``
-    fills them); ``architecture.fc_baseline`` builds ``build_fc_baseline``'s.
+    fills them); ``architecture.fc_baseline`` builds ``build_fc_baseline``'s,
+    ``architecture.baseline`` the PokeVAE (``models.poke_vae``).
     Under ``training.mixed_prec`` all three compute in bf16 as the JAX
     package's ``dtype=bfloat16`` nets do (``nn.blocks.set_compute_dtype``)."""
     arch, dcfg, tcfg = config["architecture"], config["data"], config["training"]
-    if arch.get("baseline", False) and not arch.get("fc_baseline", False):
-        raise NotImplementedError(
-            "the PokeVAE baseline is not ported yet (ROADMAP queue 1 item 5)")
     full_seq = bool(tcfg.get("full_sequence", True))
     if arch.get("fc_baseline", False):
         model = build_fc_baseline(config)
+    elif arch.get("baseline", False):
+        from .poke_vae import PokeVAEModel
+
+        model = PokeVAEModel(
+            dcfg["spatial_size"][0], z_dim=arch["z_dim"],
+            enc_channels=tuple(arch["ENC_M_channels"]),
+            dec_channels=tuple(arch["dec_channels"]),
+            n_gru_layers=arch.get("n_gru_layers", 4),
+            min_spatial_size=arch.get("min_spatial_size", 8),
+            max_frames=dcfg["max_frames"], full_seq=full_seq,
+            stack_motion_and_poke=arch.get("stack_motion_and_poke", False),
+            norm=arch.get("norm", "group"),
+            spectral_norm=arch.get("spectral_norm", True))
     else:
         model = FirstStageModel(
             dcfg["spatial_size"][0], z_dim=arch["z_dim"],

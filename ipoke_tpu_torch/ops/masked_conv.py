@@ -124,8 +124,10 @@ K5_THREADS, K5_MAX_CLUSTER = 256, 8
 
 def k5_cluster(hid):
     """K5's CTAs per batch item, by shape alone: the fewest (1, 2, 4 or 8)
-    that hold ``hid`` hidden units at most 32 a CTA (rounded up to 4).  At
-    the shipped widths (hid = 4C): 1 at C <= 8, 2 at C <= 16, 4 above."""
+    that hold ``hid`` hidden units at most 32 a CTA (rounded up to 4), else
+    8 (the portable cluster; the CTA then takes its hidden units in passes
+    of 32).  At the shipped widths (hid = 4C): 1 at C <= 8, 2 at C <= 16, 4
+    above; 8 at hid 256 and 384."""
     k = 1
     while k < K5_MAX_CLUSTER and _r4(-(-hid // k)) > K5_THREADS // 8:
         k *= 2
@@ -146,21 +148,27 @@ def k5_smem_bytes(width, c, hid, kh, kw, cluster):
     return 16 + 4 * floats
 
 
+def k5_registers(c, hid, kh):
+    """Whether K5 keeps a lane's tap weights in registers (``in_registers``
+    in its source): at most 16 tap groups, kh * ceil(C/4) <= 16 (C <= 32
+    at kernel (2, 3)), at most 32 hidden units a CTA and 2C within the
+    CTA's threads.  Otherwise its wide path streams them from shared
+    memory, group by group."""
+    hk = _r4(-(-hid // k5_cluster(hid)))
+    return kh * _r4(c) // 4 <= 16 and hk <= K5_THREADS // 8 and 2 * c <= K5_THREADS
+
+
 def k5_fits(shape, hid, kernel_size):
     """Whether K5 takes one flow on a scan-space latent of ``shape`` (B, H,
     W, C), by shape alone (``takes`` and the shared-memory check in its
     source): hid is a multiple of 4 (16-byte bulk copies of the weight
-    slices) and at most 32 a CTA in a cluster of ``k5_cluster(hid)``; kw is
-    3, as every config sets it, and kh * ceil(C/4) <= 16 (a lane's tap
-    weights in registers); W * C <= 1024 (4 affine elements per thread);
-    and ``k5_smem_bytes`` is within ``SMEM_LIMIT``.  Any number of rows."""
+    slices); kw is 3, as every config sets it; W * C <= 1024 (4 affine
+    elements per thread); and ``k5_smem_bytes`` (the CTA's weight slice
+    above all) is within ``SMEM_LIMIT``.  Any number of rows."""
     _, _, width, c = shape
     kh, kw = kernel_size
-    k = k5_cluster(hid)
-    return (hid % 4 == 0 and _r4(-(-hid // k)) <= K5_THREADS // 8
-            and kw == 3 and kh * _r4(c) // 4 <= 16
-            and width * c <= 4 * K5_THREADS
-            and k5_smem_bytes(width, c, hid, kh, kw, k) <= SMEM_LIMIT)
+    return (hid % 4 == 0 and kw == 3 and width * c <= 4 * K5_THREADS
+            and k5_smem_bytes(width, c, hid, kh, kw, k5_cluster(hid)) <= SMEM_LIMIT)
 
 
 def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
@@ -185,11 +193,10 @@ def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
         raise ValueError(
             f"masked_conv_inverse: scan-space latent {tuple(y.shape)} with "
             f"kernel ({kh}, {kw}) and hid {hid} is not a shape K5 takes "
-            f"(k5_fits: hid a multiple of 4, at most 32 a CTA; kw 3; "
-            f"kh*ceil(C/4) <= 16; W*C <= 1024; "
-            f"{k5_smem_bytes(width, c, hid, kh, kw, k)} B of shared memory "
-            f"per CTA within {SMEM_LIMIT}); the JAX package's K5 takes any "
-            f"affine/ELU flow: ROADMAP queue 3 fault (d)")
+            f"(k5_fits: hid a multiple of 4; kw 3; W*C <= 1024; its weight "
+            f"slice, ring and row buffers in shared memory, "
+            f"{k5_smem_bytes(width, c, hid, kh, kw, k)} B per CTA at a "
+            f"cluster of {k}, within the card's {SMEM_LIMIT} B a block)")
     # contiguous, aligned copies are held here until the launch is queued
     y, w_shift, w_hid, hc = (_build.aligned(t) for t in tensors)
     x = torch.empty_like(y)

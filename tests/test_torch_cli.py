@@ -7,6 +7,7 @@ DDI); a NaN metric stops the run; what is not ported raises and names its
 ROADMAP item (the FC experiments: ``tests/test_torch_cli_fc.py``)."""
 
 import copy
+import json
 import os
 
 import numpy as np
@@ -230,16 +231,47 @@ def test_nan_metric_raises(env, monkeypatch):
 
 @pytest.mark.parametrize("name,item", [("pokevae_baseline", 5)])
 def test_unported_experiments_raise(env, name, item):
-    """The PokeVAE baseline (a first stage with ``architecture.baseline``)
-    is not ported; every registered experiment is (the FC ones:
+    """The PokeVAE baseline (a first stage with ``architecture.baseline``,
+    ROADMAP queue 1 item ``item``, refused until it was ported) trains an
+    epoch through the CLI, validating under the batch's poke, and
+    ``--resume`` restores its nets and their three optimizers bit for bit
+    and goes on; every registered experiment now runs (the FC ones:
     ``tests/test_torch_cli_fc.py``)."""
+    from ipoke_tpu_torch.models.poke_vae import PokeVAEModel
+
     path = os.path.join(env.root, f"unported_{name}.yaml")
     with open(path, "w") as f:
-        yaml.safe_dump({"general": {"experiment": "first_stage"}, "data": DATA,
-                        "training": TRAIN, "architecture": dict(FS_ARCH, baseline=True)},
-                       f)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        env.run(path)
+        yaml.safe_dump({"general": {"experiment": "first_stage", "seed": 1}, "data": DATA,
+                        **{k: v for k, v in CONFIGS["first_stage"].items()
+                           if k != "architecture"},
+                        "architecture": dict(FS_ARCH, baseline=True,
+                                             stack_motion_and_poke=True)}, f)
+    argv = ["--config", path, "--model_name", name, "--data_root", env.data,
+            "--device", "cpu"]
+    os.environ["DATAPATH_BASE"] = env.base
+    try:
+        first = cli.run(argv)
+        assert isinstance(first.model, PokeVAEModel)
+        assert (first.step, first.tx.count) == (2, 2)
+        with open(first.metrics_logger.path) as f:
+            val = [r for r in map(json.loads, f) if "val/FVD-val" in r]
+        assert val and all(np.isfinite(v) for r in val for v in r.values())
+        args = cli.parse_args(argv + ["--resume"])
+        cfg, dirs, _ = cli.load_parameters(args)
+        check = ex.FirstStageExperiment(cfg, dirs, data_root=env.data, device="cpu")
+        check.build()
+        check.restore_last()
+        check.metrics_logger.close()
+        for a, b in zip(check.trainer.tx, first.trainer.tx):
+            assert a.count == b.count == 2
+            for q, r in zip(a.params, b.params):
+                assert torch.equal(q, r)
+                assert all(torch.equal(a.adam.state[q][k], b.adam.state[r][k])
+                           for k in b.adam.state[r])
+        resumed = cli.run(argv + ["--resume"])
+    finally:
+        os.environ.pop("DATAPATH_BASE", None)
+    assert (resumed.version, resumed.step, resumed.tx.count) == (0, 4, 4)
 
 
 @pytest.mark.parametrize("extra,error,match", [

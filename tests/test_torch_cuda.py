@@ -200,6 +200,32 @@ def test_masked_conv_inverse_kernel_matches_plain(dev, b, hh, ww, c, ch, order):
     assert torch.equal(got, masked_conv.masked_conv_inverse(y, h, params, order))
 
 
+# K5's wide path (tap weights streamed from shared memory): the `reshape:
+# down` stack's 4x4 flows (C = 128 / 96 / 64, hid 256 / 384 / 256: more than
+# 16 tap groups, and at hid 384 48 hidden units a CTA in passes of 32), and
+# C = 34 (channels padded to float4 groups, 18 tap groups) at 8x8
+K5_WIDE_CASES = [(3, 4, 4, 128, 256, 8, "A"), (2, 4, 4, 96, 384, 0, "D"),
+                 (2, 4, 4, 64, 256, 8, "B"), (2, 8, 8, 34, 136, 6, "C")]
+
+
+@pytest.mark.parametrize("b,hh,ww,c,hid,ch,order", K5_WIDE_CASES)
+def test_masked_conv_inverse_wide_matches_plain(dev, b, hh, ww, c, hid, ch, order):
+    """K5's wide path through its dispatcher against the plain row scan,
+    and two calls bitwise equal."""
+    ks = (2, 3) if order in ("A", "B") else (3, 2)
+    assert not masked_conv.k5_registers(c, hid, 2)
+    params = _mcf_params(dev, c, hid, ch, ks, 120)
+    y = _randn(dev, b, hh, ww, c, seed=130)
+    h = _randn(dev, b, hh, ww, ch, seed=131) if ch else None
+    got = masked_conv.masked_conv_inverse(y, h, params, order)
+    want = masked_conv.scan_inverse(
+        masked_conv.masked_conv_inverse_plain, y,
+        None if h is None else F.elu(h), params, order, 1.0)
+    assert ops.LAUNCHES["masked_conv_inverse"] == 1 and got.shape == y.shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, masked_conv.masked_conv_inverse(y, h, params, order))
+
+
 def test_masked_conv_inverse_footprint_matches_kernel(dev):
     """``k5_smem_bytes`` (which ``k5_fits`` uses) against the kernel's own
     count at every SHIPPED level's width and cluster, rows of 8, 16 and 32
@@ -213,8 +239,12 @@ def test_masked_conv_inverse_footprint_matches_kernel(dev):
         for w in (8, 16, 32):
             assert lib.masked_conv_inverse_smem_bytes(w, c, 4 * c, 2, 3, k) == \
                 masked_conv.k5_smem_bytes(w, c, 4 * c, 2, 3, k), (w, c)
+    for c, hid in ((128, 256), (96, 384), (64, 256), (34, 136)):  # the wide path
+        k = masked_conv.k5_cluster(hid)
+        assert lib.masked_conv_inverse_smem_bytes(4, c, hid, 2, 3, k) == \
+            masked_conv.k5_smem_bytes(4, c, hid, 2, 3, k), (c, hid)
     for shape, hid, ks in (((1, 8, 33, 32), 128, (2, 3)), ((1, 8, 8, 8), 30, (2, 3)),
-                           ((1, 8, 8, 8), 32, (2, 5)), ((1, 8, 8, 36), 144, (2, 3))):
+                           ((1, 8, 8, 8), 32, (2, 5))):
         assert not masked_conv.k5_fits(shape, hid, ks)
         assert lib.masked_conv_inverse_smem_bytes(
             shape[2], shape[3], hid, *ks, masked_conv.k5_cluster(hid)) == -1

@@ -184,13 +184,33 @@ def test_gan_adam_matches_optax():
 
 
 def test_build_first_stage_refuses_unported_branches():
-    """The PokeVAE branch names its queue (the FC baseline is ported:
-    ``tests/test_torch_fc_baseline.py``; bf16 ``mixed_prec``:
-    ``tests/test_torch_first_stage_bf16.py``)."""
-    cfg = copy.deepcopy(TINY)
-    cfg["architecture"]["baseline"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tfs.build_first_stage(cfg)
+    """``architecture.baseline`` builds the PokeVAE (it was refused before
+    its port), under both ``stack_motion_and_poke`` options: its modules
+    take the JAX PokeVAE's whole param and spectral-norm tree by name
+    (``load_flax`` checks every leaf's shape) and leave no port parameter
+    unloaded.  The FC baseline is ``tests/test_torch_fc_baseline.py``'s,
+    bf16 ``mixed_prec`` ``tests/test_torch_first_stage_bf16.py``'s."""
+    from ipoke_tpu.core.config import Config
+    from ipoke_tpu_torch.models.poke_vae import PokeVAEModel
+
+    T = TINY["data"]["max_frames"]
+    for stack in (False, True):
+        cfg = copy.deepcopy(TINY)
+        cfg["architecture"].update(baseline=True, stack_motion_and_poke=stack)
+        jmodel = jfs.build_first_stage(Config(copy.deepcopy(cfg)))[0]
+        shapes = jax.eval_shape(lambda: jmodel.init(
+            {"params": K(0)}, jnp.zeros((1, T + 1, S, S, 3)), rng=K(1),
+            poke=jnp.zeros((1, S, S, 2))))
+        values = _fill(shapes, np.random.default_rng(5))
+        model = tfs.build_first_stage(cfg)[0].to_empty(device="cpu")
+        assert isinstance(model, PokeVAEModel) and model.needs_poke
+        with torch.no_grad():
+            for p in model.parameters():
+                p.fill_(float("nan"))
+        load_flax(model, values["params"], values["batch_stats"])
+        assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+        hidden = 2 * TINY["architecture"]["z_dim"] if stack else TINY["architecture"]["z_dim"]
+        assert model.rnn.cell_0.update_gate.weight.shape[0] == hidden
 
 
 def test_trainer_gates_and_schedule():

@@ -321,18 +321,64 @@ def test_alternative_loss_matches_jax(loss):
 
 
 def test_k5_and_k2_refuse_the_down_stack():
-    """MultiscaleStack ``reshape: down`` over the shipped first stage puts
-    its second block at 4x4x128 with MCF hidden 256: neither K2 nor K5
-    takes that unit (kernel (2, 3): kh * ceil(C/4) <= 16 holds C <= 32),
-    ROADMAP queue 3 fault (d)."""
-    hid = tm.default_mcf_hidden(128)
-    assert hid == 256
-    assert not unit_fits((40, 4, 4, 128), hid, (2, 3))
-    assert not k5_fits((40, 4, 4, 128), hid, (2, 3))
+    """MultiscaleStack ``reshape: down`` over the shipped 8x8x32 first stage
+    (levels [[4,3,2],[4,3,2]], factors [16, 4]) puts its second block at
+    4x4 with C = 128, 96, 64 and MCF hidden ``default_mcf_hidden(C)`` =
+    256, 384, 256.  K2 takes none of these units; K5's gate takes every
+    flow of them (its wide path streams the tap weights from shared
+    memory).  Past shared memory it still refuses: a 2x2x512 flow at hid
+    512 needs 786 KB of w_shift a CTA at a cluster of 8, and the wrapper
+    raises naming that limit before it touches the card."""
+    for c, hid in ((128, 256), (96, 384), (64, 256)):
+        assert tm.default_mcf_hidden(c) == hid
+        assert not unit_fits((40, 4, 4, c), hid, (2, 3))
+        assert k5_fits((40, 4, 4, c), hid, (2, 3))
     assert k5_fits((40, 4, 4, 32), 128, (2, 3))
-    # the wrapper checks the shape before it touches the card, and names
-    # the fault
-    y, w_shift = torch.zeros(1, 4, 4, 128), torch.zeros(2, 3, 128, hid)
-    with pytest.raises(ValueError, match=r"ROADMAP queue 3 fault \(d\)"):
-        masked_conv_inverse_cuda(y, w_shift, torch.zeros(hid, 256),
-                                 torch.zeros(1, 4, 4, 256), 1.0, False)
+    assert not k5_fits((1, 2, 2, 512), 512, (2, 3))
+    y, w_shift = torch.zeros(1, 2, 2, 512), torch.zeros(2, 3, 512, 512)
+    with pytest.raises(ValueError, match=r"within the card's 232448 B a block") as err:
+        masked_conv_inverse_cuda(y, w_shift, torch.zeros(512, 1024),
+                                 torch.zeros(1, 2, 2, 1024), 1.0, False)
+    assert "fault" not in str(err.value)
+
+
+@pytest.fixture(scope="module")
+def k5_wide():
+    """Inputs of the down stack's widest flows at B = 2 (4x4x128 at hid
+    256, 4x4x96 at hid 384, 8 conditioning channels, order A and order D),
+    and the JAX K5 (``masked_conv_inverse_pallas`` in interpret mode) on
+    them, all in one jitted program."""
+    from ipoke_tpu.ops.masked_conv import masked_conv_inverse_pallas
+
+    rng = np.random.default_rng(71)
+    n = lambda *shape, std=1.0: (std * rng.standard_normal(shape)).astype(np.float32)
+    cases = []
+    for (c, hid), order in zip(((128, 256), (96, 384)), "AD"):
+        ks = (2, 3) if order in "AB" else (3, 2)  # C/D store them swapped
+        params = {"w_shift": n(*ks, c, hid, std=(6 * c) ** -0.5),
+                  "out": {"v": n(1, 1, hid + 8, 2 * c, std=0.05),
+                          "g": n(2 * c, std=0.3), "b": n(2 * c, std=0.1)}}
+        v = params["out"]["v"]
+        w_out = (v * (params["out"]["g"] / np.sqrt((v * v).sum((0, 1, 2)) + 1e-12)))[0, 0]
+        cases.append((order, params, n(2, 4, 4, c), n(2, 4, 4, 8), w_out))
+
+    @jax.jit
+    def run(args):
+        return [masked_conv_inverse_pallas(y, h, w, wo, b, order=o, interpret=True)
+                for o, (y, h, w, wo, b) in zip("AD", args)]
+
+    want = run([tuple(map(jnp.asarray, (y, h, p["w_shift"], wo, p["out"]["b"])))
+                for _, p, y, h, wo in cases])
+    return cases, want
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_k5_wide_plain_matches_pallas(k5_wide, i):
+    """K5's plain version (the route of CPU tensors) at the down stack's
+    wide flows against the JAX K5, within 1e-5."""
+    from ipoke_tpu_torch.ops.masked_conv import masked_conv_inverse
+
+    cases, want = k5_wide
+    order, params, y, h, _ = cases[i]
+    got = masked_conv_inverse(_t(y), _t(h), flow_params(params), order)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want[i]), rtol=0, atol=1e-5)

@@ -122,8 +122,9 @@ def check_image_ae_steps(kind, via=None):
     metric within 1e-4 relative; every spectral norm's u and sigma within
     1e-4; params within 2 lr with at most 1% of the entries past lr / 10;
     Adam's first moments by the first-stage rule (3e-4 of the leaf norm).
-    With ``via`` (a directory) the port starts from the JAX state converted
-    as a JAX run (``_converted``), its optimizer fresh as JAX's is."""
+    With ``via`` (a directory) JAX first takes one step of its own, and the
+    port starts from that state converted as a JAX run (``_converted``),
+    Adam's moments and count included: its next steps hold as above."""
     cfg = CONFIGS[kind]
     use_disc = kind == "conditioner"
     jcfg = Config(copy.deepcopy(cfg))
@@ -146,13 +147,19 @@ def check_image_ae_steps(kind, via=None):
         load_image_ae(port, state.params, state.stats,
                       *((pdisc, state.params_d, state.stats_d) if use_disc else ()))
     else:
+        state, _ = jstep(state, {k: jnp.asarray(v) for k, v in _batch().items()},
+                         K(19), 1.0)
         converted = _converted(kind, state, cfg, via)
-        assert converted["tx"] is None
         port.load_state_dict(converted["model"])
         if use_disc:
             pdisc.load_state_dict(converted["disc"])
     ptx, ptx_d = tae.create_image_ae_state(port, pdisc, lambda ps: gan_adam(ps, LR),
                                            use_disc=use_disc)
+    if via is not None:
+        ptx.load_state_dict(converted["tx"])
+        if use_disc:
+            ptx_d.load_state_dict(converted["tx_d"])
+        assert ptx.count == int(state.opt[1].count) == 1
     step = tae.make_image_ae_train_step(cfg, port, pdisc, pvgg, ptx, ptx_d, use_disc)
     batch = _batch()
     nets = [(port, ptx, "params", "stats", "opt")]

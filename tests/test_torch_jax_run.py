@@ -1,24 +1,27 @@
-"""JAX-trained runs in the port (``tools/jax_run_to_torch.py``): toy states
-saved by the JAX package's ``CheckpointStore`` (no training run) are
-converted and restored by the port's store, every leaf equal to its JAX
-value, the manifest, config and log kept; the converted second stage then
-resumes through ``python -m ipoke_tpu_torch.main --resume`` with a fresh
-optimizer.  One port step from a converted state against the JAX step from
-the same state: ``test_torch_cli_parity.py::test_poke_embedder_steps_match_jax``
-(its JAX program), through this tool."""
+"""JAX-trained runs in the port (``tools/jax_run_to_torch.py``), the conv
+pipeline's four experiments: toy states saved by the JAX package's
+``CheckpointStore`` (no training run) are converted and restored by the
+port's store, every leaf equal to its JAX value, the manifest, config and
+log kept; the converted second stage then resumes through ``python -m
+ipoke_tpu_torch.main --resume`` with its optimizer (AMSGrad's moments and
+the schedule's count) carried over.  One port step from a converted state
+against the JAX step from the same state:
+``test_torch_cli_parity.py::test_poke_embedder_steps_match_jax`` (its JAX
+program), through this tool; the other nine experiments and the optimizer
+rules: ``tests/test_torch_jax_runs.py``."""
 
 import copy
 import os
 
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 import yaml
 
 from ipoke_tpu.core.checkpoint import CheckpointStore as JStore
 from ipoke_tpu.core.config import Config as JConfig
+from ipoke_tpu.core.optim import flow_adam as jax_flow_adam
 from ipoke_tpu.core.optim import gan_adam as jax_gan_adam
 from ipoke_tpu.models import first_stage as jfs
 from ipoke_tpu.models import image_ae as jae
@@ -33,7 +36,7 @@ from ipoke_tpu_torch.core.config import Config
 from ipoke_tpu_torch.data.prep import make_synthetic_dataset
 from ipoke_tpu_torch.flows import ParamTree
 from ipoke_tpu_torch.models.second_stage import SecondStageModel
-from tools.jax_run_to_torch import FRESH, build_nets, convert_runs
+from tools.jax_run_to_torch import convert_runs, port_experiment
 
 from test_torch_cli import CONFIGS as CLI_CONFIGS, DATA, FS_ARCH, S, SS, TRAIN
 from test_torch_image_ae import CONFIGS as AE_CONFIGS, _jax_state, _like
@@ -86,23 +89,30 @@ def second_stage(tmp_path_factory):
     model.flow_params = ParamTree(model.init_params(torch.Generator().manual_seed(1), "cpu"))
     entry.perturb(model.flow_params, torch.Generator().manual_seed(2))
     params = _jnp(jax_second_stage_params(model))
-    state = FlowTrainState(params=params, opt=optax.adam(1e-3).init(params),
-                           step=np.int32(7))
+    # the JAX experiment's optimizer (AMSGrad over the trainable leaves), 3
+    # updates in (inside the toy run's 5-step warmup, so the next steps'
+    # lr is not 0): its moments drawn, positive where they must be
+    opt = jax_flow_adam(1e-3, params=params).init(params)
+    rng = np.random.default_rng(9)
+    opt = jax.tree_util.tree_map(
+        lambda a: np.int32(3) if a.shape == () else
+        np.abs(rng.standard_normal(a.shape)).astype(a.dtype) * 1e-3, opt)
+    state = FlowTrainState(params=params, opt=_jnp(opt), step=np.int32(7))
     jstore = _save_jax_run(src, "second_stage", cfg,
                            [(5, 2.5, state.replace(step=np.int32(5))), (7, 1.5, state)],
                            {"params": params})
     lines = []
     assert convert_runs(src, dst, log=lines.append) == 1
-    return src, dst, jstore, jax_second_stage_params(model), lines
+    return src, dst, jstore, jax_second_stage_params(model), lines, opt
 
 
 def test_second_stage_leaves_manifest_and_config(second_stage):
-    src, dst, jstore, tree, lines = second_stage
+    src, dst, jstore, tree, lines, opt = second_stage
     store = CheckpointStore(os.path.join(dst, "second_stage", "ckpt", "toy", "0"))
     want = ParamTree(flow_params(tree["flow"])).state_dict()
     for name, step in (("last", 7), ("step=7-loss=1.500", 7), ("step=5-loss=2.500", 5)):
         state = store.restore(name)
-        assert state["tx"] is None and state["step"] == step
+        assert state["tx"]["count"] == 3 and state["step"] == step
         assert state["flow"].keys() == want.keys()
         for k, v in want.items():
             torch.testing.assert_close(state["flow"][k], v, rtol=0, atol=0)
@@ -118,21 +128,32 @@ def test_second_stage_leaves_manifest_and_config(second_stage):
         assert yaml.safe_load(f)["general"]["base_dir"] == dst
     assert os.path.exists(os.path.join(dst, "second_stage", "log", "toy", "0",
                                        "metrics.jsonl"))
-    assert any(FRESH in line for line in lines)
+    assert any("with its optimizer state" in line for line in lines)
+    # AMSGrad's first moments by leaf path, in the port's optimizer order
+    rule = opt.inner_states["train"].inner_state[1]
+    adam = state["tx"]["adam"]["state"]
+    names = [n for n, _ in ParamTree(flow_params(tree["flow"])).named_parameters()]
+    mu = ParamTree(flow_params(jax.tree_util.tree_map(
+        lambda a: a if isinstance(a, np.ndarray) else np.zeros(0, np.float32),
+        rule.mu["flow"]))).state_dict()
+    assert len(adam) == len(names)
+    for i, n in enumerate(names):
+        assert float(adam[i]["step"]) == 3
+        torch.testing.assert_close(adam[i]["exp_avg"], mu[n], rtol=0, atol=0)
 
 
 def test_converted_second_stage_resumes(second_stage, tmp_path):
     """``main --resume`` on the converted run: the step goes on from the
-    JAX state's 7, the optimizer starts fresh (its count at the 2 new
-    steps), and the params move from the converted ones."""
-    _, dst, _, tree, _ = second_stage
+    JAX state's 7, and the optimizer's count (the lr schedule's) from its 3,
+    and the params move from the converted ones."""
+    _, dst, _, tree, _, _ = second_stage
     data = str(tmp_path / "data")
     make_synthetic_dataset(data, n_videos=5, n_frames=14, spatial_size=S, flow_delta=4)
     e = cli.run(["--config", os.path.join(dst, "second_stage", "config", "toy", "0.yaml"),
                  "--model_name", "toy", "--resume", "--data_root", data,
                  "--device", "cpu"])
     assert e.step == 7 + TRAIN["max_batches_per_epoch"]
-    assert e.trainer.tx.count == TRAIN["max_batches_per_epoch"]
+    assert e.trainer.tx.count == 3 + TRAIN["max_batches_per_epoch"]
     assert e.ddi_runs == 0
     before = ParamTree(flow_params(tree["flow"])).state_dict()
     after = e.model.flow_params.state_dict()
@@ -181,7 +202,8 @@ def test_nets_leaves_equal(exp, tmp_path):
     store = CheckpointStore(os.path.join(dst, exp, "ckpt", "toy", "0"))
     got = store.restore("last")
     assert got["step"] == int(state.step)
-    nets = build_nets(exp, Config(cfg))
+    e = port_experiment(exp, cfg)
+    nets = (e.model, e.disc_s, e.disc_t) if exp == "first_stage" else (e.model, e.disc)
     if exp == "first_stage":
         pairs = [(nets[0], got["model"], state.params_g, state.stats_g),
                  (nets[1], got["disc_s"], state.params_ds, state.stats_ds),

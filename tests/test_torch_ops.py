@@ -27,6 +27,7 @@ from ipoke_tpu_torch.ops import _build
 from ipoke_tpu_torch.ops.masked_conv import (
     k5_cluster,
     k5_fits,
+    k5_registers,
     k5_smem_bytes,
     macow_unit_inverse,
     masked_conv_inverse,
@@ -294,18 +295,23 @@ def test_k5_cluster_by_level(c, k):
 def test_k5_fits_by_shape():
     """K5 takes every latent of the 8x16 path (A/B rows of 16 columns, C/D
     rows of 8, at every shipped level), its card-test shapes (W = 7 and 13,
-    C = 4 and 8) and a 32x32x32 latent, at any number of rows; it refuses
-    rows over 1024 elements, hid not a multiple of 4, kw other than 3 and
-    more than 16 tap groups.  Its footprint grows with W, not H."""
+    C = 4 and 8) and a 32x32x32 latent, at any number of rows, and, on its
+    wide path (more than 16 tap groups or 32 hidden units a CTA), wider
+    flows whose weight slice fits shared memory; it refuses rows over 1024
+    elements, hid not a multiple of 4, kw other than 3 and a CTA's
+    footprint past shared memory.  Its footprint grows with W, not H."""
     for c in range(32, 2, -2):
         for width in (16, 8):
             assert k5_fits((40, 24 - width, width, c), 4 * c, (2, 3)), (c, width)
+            assert k5_registers(c, 4 * c, 2)
     for shape, hid in (((3, 5, 7, 8), 32), ((2, 13, 6, 8), 32), ((2, 8, 8, 4), 16),
-                       ((40, 32, 32, 32), 128), ((1, 4096, 8, 32), 128)):
+                       ((40, 32, 32, 32), 128), ((1, 4096, 8, 32), 128),
+                       ((1, 8, 8, 36), 144), ((1, 8, 8, 32), 512), ((40, 4, 4, 128), 256)):
         assert k5_fits(shape, hid, (2, 3)), shape
+    assert not k5_registers(36, 144, 2) and not k5_registers(32, 512, 2)
     for shape, hid, ks in (((2, 2, 256, 32), 128, (2, 3)), ((1, 8, 33, 32), 128, (2, 3)),
                            ((1, 8, 8, 8), 30, (2, 3)), ((1, 8, 8, 8), 32, (2, 5)),
-                           ((1, 8, 8, 36), 144, (2, 3)), ((1, 8, 8, 32), 512, (2, 3))):
+                           ((1, 2, 2, 512), 512, (2, 3)), ((1, 4, 4, 256), 2048, (2, 3))):
         assert not k5_fits(shape, hid, ks), shape
     # C = 32, hid 128, clusters of 4: 32 hidden units a CTA
     assert k5_smem_bytes(16, 32, 128, 2, 3, 4) == 4 * (
