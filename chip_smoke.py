@@ -275,6 +275,26 @@ Phases, in order; any failure raises and exits non-zero:
       ``phase_poke_vae(dev, smi)``, then in a ``cli_tree``
       ``phase_poke_vae_cli(dev, smi, tree)``.
 
+  (v) K5's streamed instance (fault (e)): 2x2x512 at hid 512, 4x4x256 at
+      hid 2048 and a 16x16x128 row at hid 256, B = 40, rows staged in
+      shared memory, and a 2x64x512 row at hid 512 (B = 8), too wide to
+      stage, each against its
+      plain version within K5_TOL, two calls bitwise equal, with its time
+      and bound.  Alone: ``_build.load()``, ``phase_k5_streamed(dev)``.
+  (w) the dp x tp mesh (``ipoke_tpu_torch.parallel``), two ranks on the
+      one card over gloo: the dryrun's toy step and pass at dp 1 x tp 2
+      and dp 2 x tp 1 within 2e-4 of one rank; the SHIPPED widths at
+      MESH_STEPS (bf16 with fp32 masters) at tp = 2 and dp = 2: a
+      ``forward_sample`` and a train step against one rank
+      (``mesh_shipped_leg``), each rank's K1 and K4 launches counted and
+      held against their plain versions; a world of one over NCCL for one
+      step; K1/K4 at the tp = 2 shard's shapes beside the whole coupling's;
+      the SHIPPED flow's shard bytes at tp = 2 and 4 on ``meta``.  Alone:
+      ``_build.load()``, ``phase_mesh(dev, smi)``.
+  (x) the dormant zoo (MixCDF, the hierarchical coupling flow, MADE, the
+      gated conv and attention, LeapFlow, AdaIN, Generator3D, minibatch
+      discrimination) card against CPU: ``phase_zoo(dev)``.
+
 The line before the last is ``{"kernels": [...]}``: per kernel its route,
 source, the TPU kernel it replaces, its launches in the main-path runs
 (their sum, and per path), its largest error over the phase (c)/(c') cases,
@@ -458,13 +478,15 @@ def bound(nbytes, ops, peak):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def nice_work(m, k1, hid, n, train):
+def nice_work(m, k1, hid, n, train, hs=None):
     """(bytes, flops) of K1 (K4 with ``train``): bf16 zcol and weights read
-    once, u written in fp32 (and a, b in bf16)."""
-    nbytes = 2 * (m * k1 + k1 * hid + hid * hid + hid * n) + 4 * m * n
+    once, u written in fp32 (and a, b in bf16); ``hs``: the hidden width of
+    w2's columns and wp's rows on a mesh rank's shard (Hid when whole)."""
+    hs = hid if hs is None else hs
+    nbytes = 2 * (m * k1 + k1 * hid + hid * hs + hs * n) + 4 * m * n
     if train:
-        nbytes += 2 * 2 * m * hid
-    return nbytes, 2 * m * (k1 * hid + hid * hid + hid * n)
+        nbytes += 2 * m * (hid + hs)
+    return nbytes, 2 * m * (k1 * hid + hid * hs + hs * n)
 
 
 def unit_work(b, s, c, hid):
@@ -3250,9 +3272,10 @@ def _checked_kernels():
 
     def nice(train):
         def dims(args):
-            (m, k1), (hid, n) = args[0].shape, args[3].shape
-            return ({"M": m, "K1": k1, "Hid": hid, "N": n},
-                    nice_work(m, k1, hid, n, train), BF16_FLOPS)
+            (m, k1), hid, (hs, n) = args[0].shape, args[1].shape[1], args[3].shape
+            shard = {} if hs == hid else {"Hs": hs}
+            return ({"M": m, "K1": k1, "Hid": hid, **shard, "N": n},
+                    nice_work(m, k1, hid, n, train, hs), BF16_FLOPS)
         return dims
 
     return {
@@ -4683,6 +4706,362 @@ def phase_poke_vae_cli(dev, smi, tree):
     return launches, results
 
 
+# (v) K5's streamed instance (B, H, W, C, hid, Ch, order): fault (e)'s
+# shapes, past shared memory (2x2x512 at hid 512: 786 KB of w_shift a CTA at
+# a cluster of 8; 4x4x256 at hid 2048) and a row past 1024 elements
+# (16x16x128 at hid 256, order C), each with its row staged in shared
+# memory; and a 2x64x512 row at hid 512, too wide to stage
+K5_STREAMED_CASES = ((40, 2, 2, 512, 512, 128, "A"), (40, 4, 4, 256, 2048, 128, "B"),
+                     (40, 16, 16, 128, 256, 128, "C"), (8, 2, 64, 512, 512, 128, "A"))
+
+
+def phase_k5_streamed(dev):
+    """(v) K5 at ``K5_STREAMED_CASES`` against its plain version within
+    K5_TOL, two calls bitwise equal, with device times and the bound."""
+    from ipoke_tpu_torch.ops import _build, masked_conv
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    lib = _build.load()
+    rows = []
+    for b, hh, ww, c, hid, ch, order in K5_STREAMED_CASES:
+        transposed, reverse = order in "CD", order in "BD"
+        ks = (3, 2) if transposed else (2, 3)
+        params = {"w_shift": randn(*ks, c, hid) * (6 * c) ** -0.5,
+                  "out": {"v": randn(1, 1, hid + ch, 2 * c) * 0.05,
+                          "g": randn(2 * c) * 0.3, "b": randn(2 * c) * 0.1}}
+        y, h = randn(b, hh, ww, c), randn(b, hh, ww, ch)
+        ys = (y.transpose(1, 2) if transposed else y).contiguous()
+        packed = [t.contiguous() for t in masked_conv.pack_mcf(
+            F.elu(h), params, transposed, b, hh, ww)]
+        args = (ys, *packed, 1.0, reverse)
+        sw, k = ys.shape[2], masked_conv.k5_cluster(hid)
+        name = f"(v) K5 streamed {order} B={b} {hh}x{ww} C={c} hid={hid}"
+        if not masked_conv.k5_streamed(sw, c, hid, 2, 3, k) \
+                or lib.masked_conv_inverse_streamed_at(sw, c, hid, 2, 3, k) != 1:
+            raise AssertionError(f"{name}: not the streamed instance")
+        smem = masked_conv.k5_smem_bytes(sw, c, hid, 2, 3, k)
+        if lib.masked_conv_inverse_smem_bytes(sw, c, hid, 2, 3, k) != smem:
+            raise AssertionError(f"{name}: kernel and k5_smem_bytes disagree")
+        got = masked_conv.masked_conv_inverse_cuda(*args)
+        err = check_close(name, got, masked_conv.masked_conv_inverse_plain(*args), K5_TOL)
+        if not torch.equal(got, masked_conv.masked_conv_inverse_cuda(*args)):
+            raise AssertionError(f"{name}: two calls differ")
+        ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_cuda(*args), 10)
+        plain_ms = cuda_ms(lambda: masked_conv.masked_conv_inverse_plain(*args), 2)
+        bound_ms, bound_by = bound(*k5_work(b, hh, ww, c, hid), FP32_FLOPS)
+        staged = smem > masked_conv.K5_STREAMED_SMEM
+        print(f"{name} Ch={ch} ({'row staged' if staged else 'not staged'}): "
+              f"max_abs_err {err:.3e} (tol {K5_TOL}), two calls "
+              f"bitwise equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{1e3 * bound_ms:.2f} us ({bound_by}; {100 * bound_ms / ms:.2f}% of it); "
+              f"clusters of {k}, {smem} B of shared memory per CTA, "
+              f"{lib.masked_conv_inverse_max_clusters(sw, c, hid, 2, 3, k)} clusters "
+              f"resident at once")
+        rows.append({"B": b, "H": hh, "W": ww, "C": c, "hid": hid, "order": order,
+                     "staged": staged, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "cluster": k, "smem_bytes": smem})
+    return rows
+
+
+# (w) the dp x tp mesh on the card: two ranks on the one H100 over gloo
+# (NCCL takes one rank a device).  The SHIPPED widths (128 px, B = 40, T =
+# 10, NICE hidden 2048) cut to MESH_STEPS, bf16 params with fp32 masters
+# at a constant lr MESH_LR, against the same on one rank.  The split sums
+# each coupling's u in another order than one rank: the sharded step's
+# loss within MESH_LOSS_TOL relative of the rank's, every updated param
+# within 2 lr plus 2^-7 of the larger magnitude (AMSGrad's first step moves
+# a master by lr whatever its gradient; each bf16 param rounds its master
+# by half an ulp, at most 2^-8 of its magnitude), the videos within
+# MESH_VIDEO_TOL max and MESH_VIDEO_MEAN_TOL mean (frames in [-1, 1]; a
+# wrong split moves them by O(1) everywhere)
+MESH_STEPS, MESH_LR = (1, 1), 1e-3
+MESH_LOSS_TOL, MESH_VIDEO_TOL, MESH_VIDEO_MEAN_TOL = 1e-2, 0.25, 1e-2
+
+
+def mesh_shipped_leg(rank, device, model_parallel, cfg, check=True):
+    """(w) on one rank: the second stage at ``cfg`` on one rank (the whole
+    batch and tree), then on the mesh of ``model_parallel``: DDI on the
+    whole batch, couplings perturbed, the shard cut at ``start``; one
+    ``forward_sample`` (gathered over the data ranks) and one train step,
+    each with the launch counts zeroed before and read after (``check``:
+    every K1 and K4 launch held against its plain version on its inputs,
+    ``launch_check``), then one more of each on the host clock and
+    (``check``) one more under ``torch.profiler`` on rank 0.  Returns
+    the sharded run's counts, times and differences from the rank's own
+    one-rank run."""
+    import torch.distributed as dist
+
+    from ipoke_tpu_torch import entry, ops
+    from ipoke_tpu_torch.core.optim import cast_floats
+    from ipoke_tpu_torch.flows.base import tree_leaves, tree_map
+    from ipoke_tpu_torch.parallel import gather_params, make_mesh, shard_batch
+    from ipoke_tpu_torch.train import SecondStageTrainer
+
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" \
+        else torch.device(device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mesh = make_mesh(None, model_parallel)
+    batch = entry.make_batch(cfg, dev)
+    b16 = cast_floats(batch, torch.bfloat16)
+    tag = f"(w) tp={mesh.tp} dp={mesh.dp} rank {rank}"
+    res, out = {}, {"shape": dict(mesh.shape)}
+    for name, m in (("one", None), ("mesh", mesh)):
+        model = entry.build(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        trainer = SecondStageTrainer(model, MESH_LR, mesh=m)
+        trainer.ddi(batch)
+        entry.perturb(model.flow_params, torch.Generator(device=dev).manual_seed(1))
+        trainer.start()
+        local = b16 if m is None else shard_batch(b16, m)
+        sample = lambda: model.forward_sample(
+            b16, cfg["T"], torch.Generator(device=dev).manual_seed(2), mesh=m)
+        step = lambda: trainer.train_step(local)
+        if m is None:
+            res[name] = (sample(), float(step()["flow_loss"]),
+                         tree_map(lambda t: t.detach(), model.flow_params.tree()))
+            del model, trainer
+            continue
+        got = {}
+        for what, run, names, want in (
+                ("sample", sample, ("nice_net",), expected_launches(cfg)),
+                ("train", step, ("nice_net", "nice_net_train"),
+                 expected_train_launches(cfg))):
+            sync()
+            ops.reset_launches()
+            keep = lambda run=run, what=what: got.__setitem__(what, run())
+            if check:
+                out[what + "_rows"] = launch_check(f"{tag} {what}", keep, want,
+                                                   names, timed=False)
+            else:
+                keep()
+            sync()
+            out[what + "_launches"] = dict(ops.LAUNCHES)
+            print(f"{tag} {what}: kernel launches {out[what + '_launches']}")
+            for k in names if check else ():
+                if out[what + "_launches"][k] != want[k]:
+                    raise AssertionError(f"{tag} {what} {k}: "
+                                         f"{out[what + '_launches'][k]} != {want[k]}")
+        res[name] = (got["sample"], float(got["train"]["flow_loss"]), tree_map(
+            lambda t: t.detach().clone(), gather_params(model.flow_params.tree(), mesh)))
+        for what, run in (("sample", sample), ("train", step)):  # a second step
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            out[what + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        if check:  # one more of each, rank 0's under torch.profiler
+            for what, run in (("sample", sample), ("train", step)):
+                sync()
+                dist.barrier()
+                if rank == 0:
+                    profiled(f"{tag} {what} (rank 0's kernels; rank 1 shares the card)", run)
+                else:
+                    run()
+    (v1, l1, t1), (v2, l2, t2) = res["one"], res["mesh"]
+    dv = (v2.float() - v1.float()).abs()
+    worst = max(float(((a.float() - b.float()).abs() - (
+        2 * MESH_LR + 2 ** -7 * torch.maximum(a.float().abs(), b.float().abs()))).max())
+        for a, b in zip(tree_leaves(t2), tree_leaves(t1)))
+    out.update(video_max=float(dv.max()), video_mean=float(dv.mean()),
+               loss=l2, loss_one=l1, loss_rel=abs(l2 - l1) / max(abs(l1), 1e-12),
+               param_excess=worst, finite=bool(torch.isfinite(v2).all()))
+    if not (out["finite"] and out["loss_rel"] <= MESH_LOSS_TOL and worst <= 0
+            and out["video_max"] <= MESH_VIDEO_TOL
+            and out["video_mean"] <= MESH_VIDEO_MEAN_TOL):
+        raise AssertionError(f"{tag}: the mesh against one rank: "
+                             + str({k: v for k, v in out.items() if "rows" not in k}))
+    return out
+
+
+def nice_shard_times(dev):
+    """(w) K1 and K4 at the level-0 step coupling's shard at tp = 2 (M =
+    2560, K1 = 144, Hid 2048, S = 2 at N = 1024, S = 3 at K = 1024) beside
+    the whole coupling's call: device times, plain times and the bound."""
+    from ipoke_tpu_torch.ops import nice_net
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    randn = lambda *s, std=1.0: (std * torch.randn(s, generator=gen, device=dev)
+                                 ).to(torch.bfloat16)
+    m, k1, hid, n = 2560, 144, 2048, 288
+    zcol, w1 = randn(m, k1), randn(k1, hid, std=k1 ** -0.5)
+    w2, wp = randn(hid, hid, std=hid ** -0.5), randn(hid, n, std=0.05)
+    rows = {}
+    for name, train in (("nice_net", False), ("nice_net_train", True)):
+        fn = nice_net.nice_net_train_cuda if train else nice_net.nice_net_cuda
+        plain = nice_net.nice_net_train_plain if train else nice_net.nice_net_plain
+        rows[name] = []
+        for hs in (hid, hid // 2):
+            args = (zcol, w1, w2[:, :hs].contiguous(), wp[:hs].contiguous())
+            got, want = fn(*args), plain(*args)
+            got, want = (got, want) if train else ((got,), (want,))
+            err = max(check_close(f"(w) {name} Hs={hs}", g, w, K1_TOL * min(
+                1.0, w.float().abs().max().item()), K1_TOL) for g, w in zip(got, want))
+            ms, plain_ms = cuda_ms(lambda: fn(*args), 20), cuda_ms(lambda: plain(*args), 5)
+            bound_ms, bound_by = bound(*nice_work(m, k1, hid, n, train, hs), BF16_FLOPS)
+            print(f"(w) {name} M={m} K1={k1} Hid={hid} Hs={hs} N={n}: max_abs_err "
+                  f"{err:.3e} (tol {K1_TOL} x min(1, max |ref|) abs + rel), kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+                  f"({bound_by}; {100 * bound_ms / ms:.1f}% of it)")
+            rows[name].append({"M": m, "K1": k1, "Hid": hid, "Hs": hs, "N": n,
+                               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None})
+    return rows
+
+
+def phase_mesh(dev, smi):
+    """(w) the mesh on the card: the dryrun's toy legs (dp 1 x tp 2 and dp 2
+    x tp 1, fp32, loss and pass within 2e-4 of one rank, params within 2
+    lr) and
+    ``mesh_shipped_leg`` at tp = 2 and dp = 2, two ranks over gloo; then a
+    world of one over NCCL for one toy step; K1/K4 at the shard's shapes;
+    the SHIPPED flow's shard bytes at tp = 2 and 4 on ``meta``.  Returns
+    the paths' launch counts (summed over the ranks) and the rows."""
+    import torch.distributed as dist
+
+    from ipoke_tpu_torch import entry
+    from ipoke_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    cfg = dict(entry.SHIPPED, num_steps=MESH_STEPS)
+    calls = [(dryrun.toy_leg, ("mesh", 2)), (dryrun.toy_leg, ("mesh", 1)),
+             (mesh_shipped_leg, (2, cfg)), (mesh_shipped_leg, (1, cfg))]
+    ranks = dryrun.launch(dryrun.legs, 2, "cuda", "gloo", (calls,))
+    for i, what in enumerate(("dp 1 x tp 2", "dp 2 x tp 1")):
+        for r, res in enumerate(ranks):
+            # the updated params within 2 lr: on the card the batch's split
+            # changes cuDNN's algorithms, and AMSGrad's first step of a
+            # gradient near its eps turns with the gradient's rounding
+            # (1.8e-4 seen at dp 2 against 2e-4; the CPU test holds 2e-4)
+            dryrun.check(res[i], f"(w) toy {what} rank {r}", 2 * dryrun.LR)
+        print(f"(w) toy {what}, two ranks on one card over gloo: loss "
+              f"{ranks[0][i]['loss_sharded']:.6f} (one rank {ranks[0][i]['loss']:.6f}), "
+              f"max param diff {ranks[0][i]['params']:.2e}, video max diff "
+              f"{ranks[0][i]['video']:.2e} (tol {dryrun.TOL})")
+    paths, out = {}, {}
+    for i, name in ((2, "tp2"), (3, "dp2")):
+        for r, res in enumerate(ranks):
+            print(f"(w) SHIPPED widths at num_steps {MESH_STEPS}, {name} rank {r} "
+                  f"{res[i]['shape']}: sample {res[i]['sample_ms']:.1f} ms, step "
+                  f"{res[i]['train_ms']:.1f} ms (host clock, both ranks on one card); "
+                  f"loss {res[i]['loss']:.5f} against one rank's {res[i]['loss_one']:.5f} "
+                  f"(rel {res[i]['loss_rel']:.2e}, tol {MESH_LOSS_TOL}); video max diff "
+                  f"{res[i]['video_max']:.3e} (tol {MESH_VIDEO_TOL}), mean "
+                  f"{res[i]['video_mean']:.3e} (tol {MESH_VIDEO_MEAN_TOL}); params "
+                  f"within 2 lr + 2^-7 max |p| (excess {res[i]['param_excess']:.2e})")
+        for what in ("sample", "train"):
+            paths[f"mesh_{name}_{what}"] = {
+                k: sum(res[i][what + "_launches"][k] for res in ranks)
+                for k in ranks[0][i][what + "_launches"]}
+        out[name] = [{k: v for k, v in res[i].items() if not k.endswith("_rows")}
+                     for res in ranks]
+    rows = {"nice_net": [], "nice_net_train": []}
+    for res in ranks:
+        for i in (2, 3):
+            for what in ("sample", "train"):
+                for k, r in res[i].get(what + "_rows", {}).items():
+                    rows[k].extend(r)
+    print(f"(w) two-rank legs: {time.perf_counter() - t0:.1f} s")
+    # a world of one over NCCL: one all-reduce of a CUDA tensor, one toy step
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{dryrun.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        t = torch.arange(4.0, device=dev)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        if not torch.equal(t, torch.arange(4.0, device=dev)):
+            raise AssertionError("(w) NCCL all_reduce over a world of one")
+        res = dryrun.toy_leg(0, "cuda", "mesh", 1)
+        dryrun.check(res, "(w) NCCL world of one", 2 * dryrun.LR)
+        print(f"(w) NCCL world of one: all_reduce and a toy step, loss "
+              f"{res['loss_sharded']:.6f}")
+    finally:
+        dist.destroy_process_group()
+    shard = nice_shard_times(dev)
+    for tp in (2, 4):
+        b = dryrun.shipped_shard_bytes(tp)
+        out[f"shipped_bytes_tp{tp}"] = b
+        print(f"(w) SHIPPED flow on meta at tp={tp}: whole {b['whole'] / 2**30:.3f} GiB "
+              f"fp32, each rank " + ", ".join(f"{x / 2**30:.3f}" for x in b["ranks"])
+              + " GiB")
+    print(f"(w) done in {time.perf_counter() - t0:.1f} s on {smi}")
+    return paths, out, rows, shard
+
+
+def phase_zoo(dev):
+    """(x) each module of the dormant zoo card against CPU at a small size,
+    fp32 with TF32 off, the same params: within 1e-4 abs + rel (no
+    kernel)."""
+    from ipoke_tpu_torch.flows import extra, leapfrog
+    from ipoke_tpu_torch.flows.base import tree_map
+    from ipoke_tpu_torch.nn.blocks import AdaIN
+    from ipoke_tpu_torch.nn.discriminators import MinibatchDiscrimination
+    from ipoke_tpu_torch.nn.motion_generator import Generator3D
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    x4, h4 = torch.randn(2, 4, 4, 8, generator=gen), torch.randn(2, 4, 4, 4, generator=gen)
+    x2, v2 = torch.randn(4, 6, generator=gen), torch.randn(4, 6, generator=gen)
+
+    def perturbed(tree):
+        def walk(node):
+            if isinstance(node, dict):
+                if {"v", "g", "b"} <= node.keys():
+                    node["g"] = 0.3 * torch.randn(node["g"].shape, generator=gen)
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, list):
+                for v in node:
+                    walk(v)
+        walk(tree)
+        return tree
+
+    flows = {
+        "MixCDFCoupling": (extra.MixCDFCoupling(8, 16, 3), (x4,)),
+        "build_mixcdf_flow": (extra.build_mixcdf_flow(8, 2, 16, 2), (x4,)),
+        "HierarchicalCouplingFlow": (extra.HierarchicalCouplingFlow(
+            (1, 1), 8, 16, h_channels=4, factor=4, n_blocks=1), (x4, h4)),
+        "LeapFlow": (leapfrog.LeapFlow(6, 16, depth=1, n_flows=3, extended=False), (x2, v2)),
+        "LeapFlow extended": (leapfrog.LeapFlow(6, 16, depth=1, n_flows=3), (x2, v2)),
+    }
+    calls = {}
+    for name, (flow, args) in flows.items():
+        p = perturbed(flow.init(gen, "cpu"))
+        calls[name] = (lambda p, a, flow=flow: (flow.forward(p, *a),), p, args)
+    made = extra.MADE(5, (16, 16), 10, ncond=3)
+    calls["MADE"] = (lambda p, a: made.apply(p, *a), made.init(gen, "cpu"),
+                     (torch.randn(3, 5, generator=gen), torch.randn(3, 3, generator=gen)))
+    gc = extra.GatedConv2d(8, dim_cond=4)
+    calls["GatedConv2d"] = (lambda p, a: gc.apply(p, *a), gc.init(gen, "cpu"), (x4, h4))
+    ga = extra.GatedAttention(8, 2)
+    calls["GatedAttention"] = (lambda p, a: ga.apply(p, *a), ga.init(gen, "cpu", (4, 4)), (x4,))
+    nets = {"AdaIN": (AdaIN(6, 8), (torch.randn(2, 3, 4, 4, 6, generator=gen),
+                                    torch.randn(2, 8, generator=gen))),
+            "Generator3D": (Generator3D(nf=4, z_dim=8, spatial_size=16, max_frames=4),
+                            (torch.randn(2, 8, generator=gen),
+                             torch.randn(2, 16, 16, 3, generator=gen))),
+            "MinibatchDiscrimination": (MinibatchDiscrimination(6, 4, 3), (x2,))}
+    for name, (net, args) in nets.items():
+        with torch.no_grad():
+            for q in net.parameters():
+                q.copy_(torch.randn(q.shape, generator=gen) * q[0].numel() ** -0.5
+                        if q.ndim > 1 else 0.1 * torch.randn(q.shape, generator=gen))
+        calls[name] = (lambda p, a, net=net: net.to(a[0].device)(*a), None, args)
+    flat = lambda o: [t for x in (o if isinstance(o, (tuple, list)) else (o,))
+                      for t in (x if isinstance(x, (tuple, list)) else (x,))]
+    with torch.no_grad():
+        for name, (fn, p, args) in calls.items():
+            cpu = flat(fn(p, args))
+            card = flat(fn(None if p is None else tree_map(lambda t: t.to(dev), p),
+                           tuple(a.to(dev) for a in args)))
+            err = max(check_close(f"(x) {name}", c.cpu(), w, 1e-4, 1e-4)
+                      for c, w in zip(card, cpu))
+            print(f"(x) {name} card against CPU: max_abs_err {err:.3e} (tol 1e-4 abs + rel)")
+    print(f"(x) done in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     # (a) device
     if not torch.cuda.is_available():
@@ -4754,6 +5133,15 @@ def main():
     t_launches, _, rows = phase_down_stack(dev, smi)
     paths.update(t_launches)
     kernels["masked_conv_inverse"]["down_stack_in_situ"] = rows
+    # (v) K5's streamed instance at fault (e)'s shapes; (w) the dp x tp mesh,
+    # two ranks on the card; (x) the dormant zoo card against CPU
+    kernels["masked_conv_inverse"]["streamed_shapes"] = phase_k5_streamed(dev)
+    w_launches, _, rows, shard = phase_mesh(dev, smi)
+    paths.update(w_launches)
+    for name in ("nice_net", "nice_net_train"):
+        kernels[name]["mesh_in_situ_shapes"] = rows[name]
+        kernels[name]["shard_tp2_shapes"] = shard[name]
+    phase_zoo(dev)
     # (i) the first-stage VAE-GAN train step; (q3) K3 in bf16 at its
     # training shapes, forward and backward; (q1) TINY under mixed_prec and
     # a full_sequence: false step, card vs CPU; (q2) the yaml's step in bf16

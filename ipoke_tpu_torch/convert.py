@@ -32,6 +32,15 @@ The JAX package's trees arrive as nested dicts/lists of numpy arrays
   the GRU cells' ``ir`` .. ``hn`` are Dense layers); its flat flows'
   trees through ``flow_params``.  MotionFeatureNet reads the JAX package's flat npz keys itself
   (``nn.motion_feat.load_motion_feat``).
+* The dormant zoo maps like the rest: the flow trees of ``flows.extra``
+  (MixCDF, the hierarchical coupling flow, MADE, the gated conv and
+  attention) and ``flows.leapfrog`` through ``flow_params``; the flax
+  ``Generator3D`` (its ``_Spade3D``, ``AdaIN`` and biased 3D convs) and
+  ``MinibatchDiscrimination`` (``T``) through ``load_flax``.
+* A tree sharded over a mesh's model axis (``ipoke_tpu_torch.parallel``):
+  ``flow_params_shard`` cuts a rank's shard from a JAX tree,
+  ``jax_flow_params`` gathers a rank's shard back into the whole numpy
+  tree.
 * The evaluation nets: I3D and PoseResNet map like any flax net, their
   inference BatchNorms taking ``scale``/``bias`` from ``params`` and
   ``mean``/``var`` from ``batch_stats``; PoseResNet's deconvs
@@ -67,6 +76,25 @@ def flow_params(tree, device="cpu", dtype=None):
         t = torch.as_tensor(np.array(a), device=device)
         return t.to(dtype) if dtype is not None and t.is_floating_point() else t
     return tree_map(leaf, tree)
+
+
+def flow_params_shard(tree, mesh, device="cpu", dtype=None):
+    """This rank's shard (``parallel.shard_params``) of a numpy flow tree."""
+    from .parallel import shard_params
+
+    return shard_params(flow_params(tree, device, dtype), mesh)
+
+
+def jax_flow_params(tree, mesh=None):
+    """A port flow tree as the JAX package's numpy tree, fp32: on a mesh
+    rank's shard the whole tree, gathered over the model axis
+    (``parallel.gather_params``; every rank of the row calls it)."""
+    if mesh is not None:
+        from .parallel import gather_params
+
+        tree = gather_params(tree, mesh)
+    return tree_map(lambda t: (t.detach().float() if t.is_floating_point() else t)
+                    .cpu().numpy(), tree)
 
 
 def second_stage_params(params, device="cpu", dtype=None):

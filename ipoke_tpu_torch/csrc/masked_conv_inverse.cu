@@ -55,9 +55,28 @@
 //   CTAs an SM holds; passes keep the portable cluster and one path for
 //   every width.  The shapes it opens: a `reshape: down` MultiscaleStack's
 //   4x4 blocks at C = 64-128 and hid 256-384, whose 2x3x128x32 weight slice
-//   (96 KB) fits shared memory and not the registers.  Shared memory stays
-//   the limit (SMEM_LIMIT): a 2x2x512 flow at hid 512 needs 786 KB of
-//   w_shift a CTA at a cluster of 8 and is refused.
+//   (96 KB) fits shared memory and not the registers.
+// - Streamed flows (the third instance): where the CTA's weight slice, ring
+//   and row buffers pass shared memory (2x2x512 at hid 512 needs 786 KB of
+//   w_shift a CTA at a cluster of 8; 4x4x256 at hid 2048 12.6 MB a flow) or
+//   a row holds more than AMAX * THREADS = 1024 elements, the tap weights
+//   stay in device memory (12.6 MB at 4x4x256, hid 2048: they sit in the
+//   50 MB L2) and are read once a row and column tile; the rebuilt rows
+//   are read back from x itself; a row's hiddens go to a (B, W, hid)
+//   scratch in device memory.  Where they fit (``staged``), the kh input
+//   rows of a row and its whole hiddens are copied into shared memory once
+//   a row, so the dots read them from there.
+//   Per row: (1) each CTA computes its hk hidden units for every column,
+//   a thread an (hidden unit, 8 columns) item with up to 8 threads
+//   splitting its taps, their partials summed in a fixed order through
+//   shared memory; (2) a cluster barrier; (3) each CTA computes a
+//   contiguous 1/k of the row's W*C affine elements over all hid hidden
+//   units, any number of elements, threads again splitting the dot; (4) a
+//   cluster barrier.  Each value is one fixed-order sum, so the result is
+//   reproducible.  Data written in the launch is read through L2
+//   (ld.global.cg), past the SM's L1, and each barrier is preceded by a
+//   fence, so a CTA reads what its peers wrote.  Only hid % 4 == 0 and kw
+//   = 3 remain of the limits.
 // - Shared memory grows with W and not with H: the weight slice, a ring of
 //   the last kh rebuilt rows, kh x (W rounded up to 8, plus 2) x C, one row
 //   of the CTA's hiddens and the two partial buffers (~48 KB a CTA at
@@ -393,12 +412,186 @@ masked_conv_inverse_kernel(const float* __restrict__ y,
   if (d.k > 1) cluster.sync();  // no CTA leaves while a peer may read its partials
 }
 
-// The shapes the kernel takes, shared memory aside (ops/masked_conv.py::
-// k5_fits mirrors it and the check in prepare).
+// The streamed instance: tap weights and w_hid read from device memory,
+// the rebuilt rows from x, the row's hiddens through hbuf (B, W, hid).
+// Shared memory: a reduction buffer of THREADS * COLS floats
+// (STREAMED_SMEM bytes) and, where the card's shared memory holds them
+// (``staged``), the row's input window (kh rows of W + 2 columns, zero
+// outside the image) and the row's whole hiddens (W, hid), each read
+// from device memory once a row instead of once per use.
+constexpr int PMAX = 8;  // threads splitting one item's dot
+constexpr size_t STREAMED_SMEM = sizeof(float) * THREADS * COLS;
+
+__host__ __device__ __forceinline__ int window_floats(const Dims& d) {
+  return round4(d.kh * (d.W + 2) * d.C);
+}
+size_t staged_smem_bytes(const Dims& d) {
+  return STREAMED_SMEM + sizeof(float) * ((size_t)window_floats(d) + (size_t)d.W * d.hid);
+}
+
+// Threads splitting each of n items' dots: the most, a power of 2 up to
+// PMAX, that still give every item a thread and keep a warp's lanes on
+// distinct items (so their weight reads coalesce).
+__device__ __forceinline__ int parts_for(int n) {
+  int p = 1;
+  while (2 * p <= PMAX && THREADS / (2 * p) >= max(32, n)) p *= 2;
+  return p;
+}
+
+__device__ __forceinline__ void sync_all(cg::cluster_group& cluster, int k) {
+  __threadfence();  // global writes of this CTA before its peers' reads
+  if (k > 1) cluster.sync(); else __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS)
+masked_conv_inverse_streamed(const float* __restrict__ y,
+                             const float* __restrict__ w_shift,
+                             const float* __restrict__ w_hid,
+                             const float* __restrict__ hc, float* x,
+                             float* hbuf, Dims d, float alpha, int reverse,
+                             int staged) {
+  extern __shared__ __align__(16) float red[];  // [part][item][COLS]
+  float* win = red + THREADS * COLS;            // [dy][W + 2][C], staged only
+  float* hrow = win + window_floats(d);         // [W][hid], staged only
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / d.k;
+  const int tid = threadIdx.x;
+  const int H = d.H, W = d.W, C = d.C, hid = d.hid, kh = d.kh, twoC = 2 * C;
+  const int j0 = rank * d.hk;
+  const int nj = max(0, min(d.hk, hid - j0));  // this CTA's hidden units
+  const int tiles = (W + COLS - 1) / COLS;
+  const int items = nj * tiles;                 // (hidden unit, column tile)
+  const int P = parts_for(items), IP = THREADS / P;
+  const int row_taps = KW * C;                  // taps of one tap row dy
+  const size_t img = (size_t)H * W * C;
+  const float* yb = y + (size_t)b * img;
+  const float* hcb = hc + (size_t)b * img * 2;
+  float* xb = x + (size_t)b * img;
+  float* hb = hbuf + (size_t)b * W * hid;
+  const int n_aff = W * C;
+  const int per = (n_aff + d.k - 1) / d.k;      // affine elements a CTA
+  const int e_lo = min(n_aff, rank * per), e_n = min(n_aff, e_lo + per) - e_lo;
+  const int P2 = parts_for(e_n), IP2 = THREADS / P2;
+  const int wrow = (W + 2) * C;                 // a window row, padded
+
+  for (int i = 0; i < H; ++i) {
+    const int row = reverse ? H - 1 - i : i;
+    if (staged) {  // the kh rows this row reads, zero outside the image
+      for (int t = tid; t < kh * wrow; t += THREADS) {
+        const int dy = t / wrow, w = (t - dy * wrow) / C - 1, c = t % C;
+        const int src = reverse ? row + 1 + dy : row - kh + dy;
+        win[t] = (src >= 0 && src < H && w >= 0 && w < W)
+                     ? __ldcg(xb + (size_t)src * n_aff + w * C + c) : 0.f;
+      }
+      __syncthreads();
+    }
+    // (1) the CTA's hidden units of this row
+    for (int e0 = 0; e0 < items; e0 += IP) {
+      const int e = e0 + tid % IP, p = tid / IP;
+      const bool live = e < items;
+      const int j = live ? e % nj : 0, w0 = live ? e / nj * COLS : 0;
+      float acc[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
+      for (int dy = 0; live && dy < kh; ++dy) {
+        const int src = reverse ? row + 1 + dy : row - kh + dy;
+        if (src < 0 || src >= H) continue;  // the zero rows outside the image
+        const float* xs = xb + (size_t)src * n_aff;
+        const float* ws = w_shift + (size_t)dy * row_taps * hid + j0 + j;
+        const float* wn = win + dy * wrow;
+        for (int t = p; t < row_taps; t += P) {
+          const int dx = t / C, c = t - dx * C;
+          const float wv = __ldg(ws + (size_t)t * hid);
+          if (staged) {
+#pragma unroll
+            for (int col = 0; col < COLS; ++col)
+              if (w0 + col < W) acc[col] = fmaf(wn[(w0 + col + dx) * C + c], wv, acc[col]);
+          } else {
+#pragma unroll
+            for (int col = 0; col < COLS; ++col) {
+              const int w = w0 + col + dx - 1;
+              if (w >= 0 && w < W && w0 + col < W)
+                acc[col] = fmaf(__ldcg(xs + w * C + c), wv, acc[col]);
+            }
+          }
+        }
+      }
+      if (P > 1) {
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) red[(p * IP + tid % IP) * COLS + c] = acc[c];
+        __syncthreads();
+        if (p == 0) {
+          for (int q = 1; q < P; ++q)
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) acc[c] += red[(q * IP + tid) * COLS + c];
+        }
+        __syncthreads();
+      }
+      if (p == 0 && live) {
+#pragma unroll
+        for (int col = 0; col < COLS; ++col)
+          if (w0 + col < W) hb[(size_t)(w0 + col) * hid + j0 + j] = elu(acc[col]);
+      }
+    }
+    sync_all(cluster, d.k);  // every hidden unit of the row is written
+    if (staged) {
+      for (int t = tid; t < W * hid; t += THREADS) hrow[t] = __ldcg(hb + t);
+      __syncthreads();
+    }
+    const float* hsrc = staged ? hrow : hb;
+
+    // (3) the CTA's share of the row's affine inverse over all hid units
+    for (int e0 = 0; e0 < e_n; e0 += IP2) {
+      const int e = e0 + tid % IP2, p = tid / IP2;
+      const bool live = e < e_n;
+      const int idx = e_lo + (live ? e : 0), w = idx / C, c = idx - w * C;
+      float mu = 0.f, ls = 0.f;
+      if (live) {
+        const float* hw = hsrc + (size_t)w * hid;
+        for (int j = p; j < hid; j += P2) {
+          const float hv = staged ? hw[j] : __ldcg(hw + j);
+          mu = fmaf(hv, __ldg(w_hid + (size_t)j * twoC + c), mu);
+          ls = fmaf(hv, __ldg(w_hid + (size_t)j * twoC + C + c), ls);
+        }
+      }
+      if (P2 > 1) {
+        red[2 * (p * IP2 + tid % IP2)] = mu;
+        red[2 * (p * IP2 + tid % IP2) + 1] = ls;
+        __syncthreads();
+        if (p == 0) {
+          for (int q = 1; q < P2; ++q) {
+            mu += red[2 * (q * IP2 + tid)];
+            ls += red[2 * (q * IP2 + tid) + 1];
+          }
+        }
+        __syncthreads();
+      }
+      if (p == 0 && live) {
+        const float* hp = hcb + ((size_t)row * W + w) * twoC + c;
+        mu += __ldg(hp);
+        ls += __ldg(hp + C);
+        const float scale = tanhf(ls * 0.5f) * alpha + 1.0f;
+        xb[(size_t)row * n_aff + idx] =
+            (__ldg(yb + (size_t)row * n_aff + idx) - mu) / (scale + 1e-12f);
+      }
+    }
+    sync_all(cluster, d.k);  // the row is in x before the next row reads it
+  }
+}
+
+// The shapes the kernel takes (ops/masked_conv.py::k5_fits mirrors it).
 bool takes(const Dims& d) {
   return d.H > 0 && d.W > 0 && d.C > 0 && d.hid > 0 && d.hid % 4 == 0 &&
-         d.kh > 0 && d.kw == KW && d.k >= 1 && d.k <= MAX_CLUSTER &&
-         d.W * d.C <= AMAX * THREADS;
+         d.kh > 0 && d.kw == KW && d.k >= 1 && d.k <= MAX_CLUSTER;
+}
+
+// Whether the shared-memory instances (NQ = 0, 1, 2) hold the flow: a row
+// of at most AMAX * THREADS elements and their footprint within what a
+// block may opt into; else the streamed instance
+// (ops/masked_conv.py::k5_streamed mirrors it).
+bool in_smem(const Dims& d, int max_smem) {
+  return d.W * d.C <= AMAX * THREADS && smem_bytes(d) <= (size_t)max_smem;
 }
 
 // Whether a lane's tap weights stay in registers (the instances NQ = 1, 2);
@@ -409,24 +602,43 @@ bool in_registers(const Dims& d) {
 
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
                         float*, Dims, float, int);
+using Streamed = void (*)(const float*, const float*, const float*, const float*,
+                          float*, float*, Dims, float, int, int);
 
-// A launch of the kernel for B items at d: the instance for its tap groups,
-// its shared memory opted into, a cluster of d.k CTAs per item.
-cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Kernel* kernel,
+struct Plan {
+  Kernel kernel = nullptr;      // a shared-memory instance, or
+  Streamed streamed = nullptr;  // the streamed one,
+  int staged = 0;               // with its window and hiddens staged
+  size_t smem = 0;
+};
+
+// The instance for d (its tap groups where shared memory holds the flow,
+// else the streamed one), its shared memory opted into, and a launch of a
+// cluster of d.k CTAs per item for B items.
+cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Plan* plan,
                     cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   if (B <= 0 || !takes(d)) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  *kernel = !in_registers(d) ? masked_conv_inverse_kernel<0>
-            : d.Q <= SPLIT   ? masked_conv_inverse_kernel<1>
-                             : masked_conv_inverse_kernel<2>;
-  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  *plan = Plan{};
+  const void* fn;
+  if (in_smem(d, max_smem)) {
+    plan->smem = smem_bytes(d);
+    plan->kernel = !in_registers(d) ? masked_conv_inverse_kernel<0>
+                   : d.Q <= SPLIT   ? masked_conv_inverse_kernel<1>
+                                    : masked_conv_inverse_kernel<2>;
+    fn = (const void*)plan->kernel;
+  } else {
+    plan->staged = staged_smem_bytes(d) <= (size_t)max_smem;
+    plan->smem = plan->staged ? staged_smem_bytes(d) : STREAMED_SMEM;
+    plan->streamed = masked_conv_inverse_streamed;
+    fn = (const void*)plan->streamed;
+  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)plan->smem);
   if (err != cudaSuccess) return err;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = d.k;
@@ -435,7 +647,7 @@ cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Kernel* kernel,
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(B * d.k);
   cfg->blockDim = dim3(THREADS);
-  cfg->dynamicSmemBytes = smem;
+  cfg->dynamicSmemBytes = plan->smem;
   cfg->stream = stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
@@ -445,34 +657,61 @@ cudaError_t prepare(const Dims& d, int B, cudaStream_t stream, Kernel* kernel,
 }  // namespace
 
 // y, x (B, H, W, C) in scan space; w_shift (kh, kw, C, hid) in scan space;
-// w_hid (hid, 2C); hc (B, H, W, 2C) in scan space.  All fp32, contiguous,
+// w_hid (hid, 2C); hc (B, H, W, 2C) in scan space; scratch (B, W, hid), used
+// by the streamed instance only (may be null where shared memory holds the
+// flow: masked_conv_inverse_streamed_at says which).  All fp32, contiguous,
 // 16-byte aligned; hid a multiple of 4, kw 3.  reverse: order B (rows
 // depend on the rows below), else order A.  cluster: CTAs per batch item.
 // A refused launch returns its error; there is no other kernel to fall
 // back on.
 extern "C" int masked_conv_inverse(const void* y, const void* w_shift,
                                    const void* w_hid, const void* hc, void* x,
-                                   int B, int H, int W, int C, int hid, int kh,
-                                   int kw, float alpha, int reverse, int cluster,
-                                   void* stream) {
+                                   void* scratch, int B, int H, int W, int C,
+                                   int hid, int kh, int kw, float alpha,
+                                   int reverse, int cluster, void* stream) {
   const Dims d = make_dims(H, W, C, hid, kh, kw, cluster);
-  Kernel kernel;
+  Plan plan;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = prepare(d, B, (cudaStream_t)stream, &kernel, &cfg, attr);
+  cudaError_t err = prepare(d, B, (cudaStream_t)stream, &plan, &cfg, attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const float*)y, (const float*)w_shift,
-                           (const float*)w_hid, (const float*)hc, (float*)x, d,
-                           alpha, reverse);
+  if (plan.streamed) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    err = cudaLaunchKernelEx(&cfg, plan.streamed, (const float*)y,
+                             (const float*)w_shift, (const float*)w_hid,
+                             (const float*)hc, (float*)x, (float*)scratch, d,
+                             alpha, reverse, plan.staged);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, plan.kernel, (const float*)y,
+                             (const float*)w_shift, (const float*)w_hid,
+                             (const float*)hc, (float*)x, d, alpha, reverse);
+  }
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The kernel's shared memory per CTA in bytes at a shape it takes (any
-// number of rows), else -1.
+// 1 where the launch at this shape takes the streamed instance (and needs
+// the scratch), 0 where a shared-memory instance holds it, -1 where the
+// kernel does not take the shape.
+extern "C" int masked_conv_inverse_streamed_at(int W, int C, int hid, int kh, int kw,
+                                               int cluster) {
+  const Dims d = make_dims(1, W, C, hid, kh, kw, cluster);
+  int dev = 0, max_smem = 0;
+  if (!takes(d) || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return -1;
+  return in_smem(d, max_smem) ? 0 : 1;
+}
+
+// The chosen instance's shared memory per CTA in bytes at a shape it takes
+// (any number of rows), else -1.
 extern "C" int masked_conv_inverse_smem_bytes(int W, int C, int hid, int kh, int kw,
                                               int cluster) {
   const Dims d = make_dims(1, W, C, hid, kh, kw, cluster);
-  return takes(d) ? (int)smem_bytes(d) : -1;
+  Plan plan;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  return prepare(d, 1, nullptr, &plan, &cfg, attr) == cudaSuccess ? (int)plan.smem : -1;
 }
 
 // How many of the kernel's clusters the card holds at once at a shape
@@ -480,11 +719,14 @@ extern "C" int masked_conv_inverse_smem_bytes(int W, int C, int hid, int kh, int
 extern "C" int masked_conv_inverse_max_clusters(int W, int C, int hid, int kh, int kw,
                                                 int cluster) {
   const Dims d = make_dims(1, W, C, hid, kh, kw, cluster);
-  Kernel kernel;
+  Plan plan;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = prepare(d, 1, nullptr, &kernel, &cfg, attr);
+  cudaError_t err = prepare(d, 1, nullptr, &plan, &cfg, attr);
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err == cudaSuccess)
+    err = plan.streamed
+              ? cudaOccupancyMaxActiveClusters(&n, (const void*)plan.streamed, &cfg)
+              : cudaOccupancyMaxActiveClusters(&n, (const void*)plan.kernel, &cfg);
   return err != cudaSuccess ? -(int)err : n;
 }

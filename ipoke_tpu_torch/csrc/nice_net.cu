@@ -345,23 +345,37 @@ cudaError_t launch_stage(const CUtensorMap& a, const CUtensorMap& b,
 
 }  // namespace
 
+// K1 and K4 on a rank's shard of the hidden width (the dp x tp mesh of
+// ipoke_tpu_torch/parallel): w2 (hid x hs) holds hs of w2's columns and wp
+// (hs x Np) the same rows of the tap-packed out weight, so S = 2 runs at N =
+// hs and S = 3 at K = hs; a (M x hid) and b (M x hs) bf16 receive the
+// post-ELU hiddens.  u (M x Np fp32) is the rank's partial of the coupling's
+// u, which the caller sums over the ranks.  hs = hid is the unsplit chain.
+// Three launches on `stream`; returns the first CUDA error.
+extern "C" int nice_net_u_split(const void* zcol, const void* w1, const void* w2,
+                                const void* wp, void* u, void* a, void* b, int M,
+                                int K1p, int hid, int hs, int Np, void* stream) {
+  if (M <= 0 || K1p <= 0 || K1p % 16 || hid <= 0 || hid % 128 || hs <= 0 ||
+      hs % 128 || Np <= 0 || Np % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_z, m_w1, m_a, m_w2, m_b, m_wp;
+  if (!tensor_map(&m_z, zcol, M, K1p, BM) || !tensor_map(&m_w1, w1, K1p, hid, BK) ||
+      !tensor_map(&m_a, a, M, hid, BM) || !tensor_map(&m_w2, w2, hid, hs, BK) ||
+      !tensor_map(&m_b, b, M, hs, BM) || !tensor_map(&m_wp, wp, hs, Np, BK))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  float* out = (float*)u;
+  cudaError_t err = launch_stage<1>(m_z, m_w1, m_a, out, M, hid, K1p, s);
+  if (err == cudaSuccess) err = launch_stage<2>(m_a, m_w2, m_b, out, M, hs, hid, s);
+  if (err == cudaSuccess) err = launch_stage<3>(m_b, m_wp, m_b, out, M, Np, hs, s);
+  return (int)err;
+}
+
 // K1 and K4: u (M x Np fp32) = elu(elu(zcol·w1)·w2)·wp; a and b (M x hid
 // bf16, row-major) receive the post-ELU hiddens (scratch for K1).  Three
 // launches on `stream`; returns the first CUDA error.
 extern "C" int nice_net_u(const void* zcol, const void* w1, const void* w2,
                           const void* wp, void* u, void* a, void* b, int M,
                           int K1p, int hid, int Np, void* stream) {
-  if (M <= 0 || K1p <= 0 || K1p % 16 || hid <= 0 || hid % 128 || Np <= 0 || Np % 16)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap m_z, m_w1, m_a, m_w2, m_b, m_wp;
-  if (!tensor_map(&m_z, zcol, M, K1p, BM) || !tensor_map(&m_w1, w1, K1p, hid, BK) ||
-      !tensor_map(&m_a, a, M, hid, BM) || !tensor_map(&m_w2, w2, hid, hid, BK) ||
-      !tensor_map(&m_b, b, M, hid, BM) || !tensor_map(&m_wp, wp, hid, Np, BK))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  float* out = (float*)u;
-  cudaError_t err = launch_stage<1>(m_z, m_w1, m_a, out, M, hid, K1p, s);
-  if (err == cudaSuccess) err = launch_stage<2>(m_a, m_w2, m_b, out, M, hid, hid, s);
-  if (err == cudaSuccess) err = launch_stage<3>(m_b, m_wp, m_b, out, M, Np, hid, s);
-  return (int)err;
+  return nice_net_u_split(zcol, w1, w2, wp, u, a, b, M, K1p, hid, hid, Np, stream);
 }

@@ -15,6 +15,11 @@ PyTorch version on CPU tensors.
 ``ScannedSteps.forward`` recomputes each step in the backward pass (the JAX
 package's ``remat``): the forward keeps only step boundaries, and its
 no-grad pass runs K1 while the recompute runs K4.
+
+On a rank of the dp x tp mesh (``ipoke_tpu_torch.parallel``) a NICE
+coupling whose params hold a shard of ``w2`` runs split over the mesh's
+model axis (``NICE2d._mesh``): K1 and K4 at the shard's shapes, or the
+plain split coupling outside their family; every other flow runs whole.
 """
 
 from __future__ import annotations
@@ -215,7 +220,30 @@ class NICE2d(Flow):
         return act(c)
 
     def _raw(self, params, z, h):
+        mesh = self._mesh(params)
+        if mesh is not None:
+            from ..ops.nice_net import nice_net_raw_split_plain
+
+            return nice_net_raw_split_plain(
+                params, z, h if self.h_channels else None, mesh,
+                _act(self.activation))
         return wn_conv_apply_packed(params["out"], self._net_hidden(params, z, h))
+
+    def _mesh(self, params):
+        """The mesh whose model axis splits this coupling's hidden width,
+        where ``params`` hold a rank's shard of w2 (Hid/tp of its columns,
+        ``parallel.shard_params``); None for a whole w2."""
+        hid, hs = params["w2"].shape[-2:]
+        if hs == hid:
+            return None
+        from ..parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        if mesh is None or hs * mesh.tp != hid:
+            raise ValueError(
+                f"NICE2d params hold {hs} of {hid} hidden columns of w2: a "
+                "shard runs inside `with mesh:` of its model_parallel")
+        return mesh
 
     def _zp_z(self, z1, z2):
         return (z1, z2) if self.order == "up" else (z2, z1)
@@ -243,7 +271,7 @@ class NICE2d(Flow):
         if (self.activation == "elu" and z.dtype == torch.bfloat16
                 and (self.h_channels == 0 or h is not None)
                 and nice_net_fits(params, z, hh)):
-            return nice_net_raw(params, z, hh)
+            return nice_net_raw(params, z, hh, self._mesh(params))
         return self._raw(params, z, h)
 
     def _raw_train(self, params, z, h):
@@ -251,9 +279,15 @@ class NICE2d(Flow):
         (ELU, bf16 activations, bf16 out bias, the kernels' shape family):
         K4 with its hand-written backward while autograd records, K1 when
         it does not (the no-grad pass of a remat step); else plain."""
-        from ..ops.nice_net import nice_net_fits, nice_net_raw, nice_net_raw_train
+        from ..ops.nice_net import (
+            nice_net_fits,
+            nice_net_raw,
+            nice_net_raw_train,
+            nice_net_raw_train_split,
+        )
 
         hh = h if self.h_channels else None
+        mesh = self._mesh(params)
         if (self.activation == "elu" and z.dtype == torch.bfloat16
                 and params["out"]["b"].dtype == torch.bfloat16
                 and (self.h_channels == 0 or h is not None)
@@ -261,11 +295,15 @@ class NICE2d(Flow):
             inputs = [z, hh, params["w1"], params["w2"], *params["out"].values()]
             if torch.is_grad_enabled() and any(
                     t is not None and t.requires_grad for t in inputs):
+                if mesh is not None:
+                    return nice_net_raw_train_split(params, z, hh, mesh)
                 return nice_net_raw_train(params, z, hh)
-            return nice_net_raw(params, z, hh)
+            return nice_net_raw(params, z, hh, mesh)
         return self._raw(params, z, h)
 
     def ddi(self, params, x, h=None):
+        if params["w2"].shape[-1] != params["w2"].shape[-2]:
+            raise ValueError("NICE2d DDI runs on the whole tree: shard after it")
         z1, z2 = self._split(x)
         z, _ = self._zp_z(z1, z2)
         new = dict(params, out=wn_conv_ddi(

@@ -18,7 +18,8 @@ control_sensitivity, transfer, kps_acc on a second stage, conv or FC;
 realism and the third stage's accuracy on a ``third_stage_fc`` run).  TF32 is off
 for the run.  ``--device`` defaults to
 ``cuda`` and raises without a card: only ``--device cpu`` runs on the CPU.
-``--devices`` above 1 (ROADMAP queue 1 item 11) is not ported and raises;
+``--devices`` above 1 raises rather than be ignored, as the JAX CLI does
+(sharded training: ``ipoke_tpu_torch.parallel``);
 ``--gpus`` is accepted and ignored, as in ``main.py``.
 """
 
@@ -108,7 +109,10 @@ def check_args(args):
     """Raise for what the port does not run (before any file is written)."""
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(
-            "--devices > 1 is not ported yet (ROADMAP queue 1 item 11)")
+            "--devices > 1: the JAX CLI stores --devices and shards nothing "
+            "either; sharded second-stage training runs through "
+            "ipoke_tpu_torch.parallel (make_mesh, SecondStageTrainer(mesh=...), "
+            "python -m ipoke_tpu_torch.parallel.dryrun)")
     check_device(args.device)
 
 

@@ -25,6 +25,7 @@ flow's tree alone (``init_params``)."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -218,15 +219,28 @@ class SecondStageModel(nn.Module):
     @torch.no_grad()
     def forward_sample(self, batch, length: int,
                        generator: Optional[torch.Generator] = None,
-                       z: Optional[torch.Tensor] = None):
+                       z: Optional[torch.Tensor] = None, mesh=None):
         """Sample videos (B, T, H, W, 3): z ~ N(0, I) at ``z_shape`` (or the
         given ``z``), the cINN inverse, then the first-stage decode.  z and
-        the work run in the dtype of ``batch["images"]``."""
+        the work run in the dtype of ``batch["images"]``.
+
+        ``mesh`` (``ipoke_tpu_torch.parallel``; the model's params sharded
+        by ``shard_params``): ``batch`` is the whole batch on every rank;
+        every rank draws the whole z from ``generator`` and keeps its slice
+        of the batch and of z, and the videos are gathered over the data
+        ranks, so the result is the single device's."""
         x = batch["images"]
-        cond = self.embed_conditioning(batch)
         if z is None:
             z = torch.randn((x.shape[0], *self.z_shape()), generator=generator,
                             device=x.device, dtype=x.dtype)
+        if mesh is not None:
+            from ..parallel.mesh import gather_batch, shard_batch
+
+            batch, z = shard_batch((batch, z), mesh)
+            with mesh:
+                return gather_batch(self.forward_sample(batch, length, z=z), mesh)
+        x = batch["images"]
+        cond = self.embed_conditioning(batch)
         motion = self.flow.inverse(self.flow_tree(), z, cond)
         motion = motion[..., :self.first_stage.z_dim]
         return self.first_stage.decode(motion, x[:, 0], length)
@@ -240,25 +254,46 @@ def create_second_stage_state(model: SecondStageModel, make_tx: Callable):
     return make_tx(model.flow_params.trainable())
 
 
-def make_second_stage_train_step(model: SecondStageModel, tx) -> Callable:
+def make_second_stage_train_step(model: SecondStageModel, tx, mesh=None) -> Callable:
     """``step(batch, generator=None) -> log``: density forward, NLL, backward,
     one optimizer step.  Under ``training.mixed_prec_master`` the batch is
     cast to bf16 to match the bf16-resident params; the loss and logdet
     reductions are fp32.  ``generator`` draws the motion sample and the
-    ``reference_nll_loss`` diagnostic's sample."""
+    ``reference_nll_loss`` diagnostic's sample.
+
+    ``mesh`` (``ipoke_tpu_torch.parallel``): the model's params are this
+    rank's shard (``shard_params``) and ``batch`` its slice of the batch
+    (``shard_batch``).  The step runs its slice on its shard, averages the
+    gradients over the data ranks (a bucketed all-reduce, as DDP does)
+    before the optimizer, and returns the logs averaged over them.  The
+    clip by global norm and Adafactor's factored moments would need the
+    whole of a split leaf: with a model axis the step refuses them."""
     tcfg = model.config.get("training", {})
     spatial_mean = bool(tcfg.get("spatial_mean", False))
     mixed = bool(tcfg.get("mixed_prec_master", False))
     radial = bool(getattr(model, "radial", False))  # the FC second stage's option
+    clip = getattr(getattr(tx, "inner", tx), "clip", 0)  # master_weights wraps
+    if mesh is not None and mesh.tp > 1 and (
+            clip > 0 or tcfg.get("use_adafactor", False)):
+        raise NotImplementedError(
+            "a model_parallel mesh step takes neither clip_grad_norm nor "
+            "Adafactor: both read the whole of a split w2")
 
     def step(batch, generator: Optional[torch.Generator] = None):
         if mixed:
             batch = cast_floats(batch, torch.bfloat16)
-        z, logdet = model.forward_density(batch, generator)
-        loss, log = flow_loss(z, logdet, generator=generator,
-                              spatial_mean=spatial_mean, radial=radial)
-        loss.backward()
+        with contextlib.nullcontext() if mesh is None else mesh:
+            z, logdet = model.forward_density(batch, generator)
+            loss, log = flow_loss(z, logdet, generator=generator,
+                                  spatial_mean=spatial_mean, radial=radial)
+            loss.backward()
+        log = {k: v.detach() for k, v in log.items()}
+        if mesh is not None:
+            from ..parallel.mesh import average_grads, mean_over_batch
+
+            average_grads(model.flow_params.parameters(), mesh)
+            log = mean_over_batch(log, mesh)
         tx.step()
-        return {k: v.detach() for k, v in log.items()}
+        return log
 
     return step

@@ -424,3 +424,23 @@ class Spade(nn.Module):
         gamma, beta = mod
         return spade_gn_modulate(x, gamma, beta, _num_groups(self.num_features),
                                  1e-5)
+
+
+class AdaIN(nn.Module):
+    """Instance norm of (B, T, H, W, C) over (T, H, W), modulated by
+    (1 + gamma) and beta from a Dense layer on leaky_relu(z, 0.2)
+    (counterpart of ``ipoke_tpu/nn/blocks.py::AdaIN``, the 3D ADAIN of the
+    alternative motion generator): two-pass variance, eps 1e-5."""
+
+    def __init__(self, num_features: int, z_dim: int):
+        super().__init__()
+        from .discriminators import Dense
+
+        self.Dense_0 = Dense(z_dim, 2 * num_features, bias=True)
+
+    def forward(self, x, z):
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
+        out = (x - mean) * torch.rsqrt(var + 1e-5)
+        gamma, beta = torch.chunk(self.Dense_0(F.leaky_relu(z, 0.2)), 2, dim=-1)
+        return (1.0 + gamma[:, None, None, None, :]) * out + beta[:, None, None, None, :]

@@ -168,3 +168,28 @@ def gradient_penalty(disc_apply: Callable, x):
 def adaptive_disc_weight(nll_grad_norm, g_grad_norm, max_w: float = 1e4):
     """||grad(nll)|| / (||grad(g)|| + 1e-4), clipped to [0, max_w]."""
     return torch.clamp(nll_grad_norm / (g_grad_norm + 1e-4), 0.0, max_w)
+
+
+class MinibatchDiscrimination(nn.Module):
+    """Salimans et al.'s minibatch features (counterpart of
+    ``ipoke_tpu/nn/discriminators.py::MinibatchDiscrimination``): each
+    sample's kernel similarities exp(-L1) to the rest of the batch, appended
+    to its features.  x (B, A) -> (B, A + out_features); ``T`` (A,
+    out_features, kernel_dims) as flax's param."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_dims: int,
+                 mean: bool = False):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.kernel_dims, self.mean = kernel_dims, mean
+        self.T = nn.Parameter(torch.empty(in_features, out_features, kernel_dims))
+
+    def forward(self, x):
+        x = x.reshape(-1, self.in_features)
+        m = (x @ self.T.reshape(self.in_features, -1)).reshape(
+            -1, self.out_features, self.kernel_dims)
+        norm = torch.abs(m[None] - m[:, None]).sum(dim=3)  # (B, B, F)
+        o_b = torch.exp(-norm).sum(dim=0) - 1.0  # without the self distance
+        if self.mean:
+            o_b = o_b / (x.shape[0] - 1)
+        return torch.cat([x, o_b], dim=1)

@@ -45,8 +45,16 @@ class Conv3d(Typed, SpectralNormed):
 
     def forward(self, x, train: bool = False):
         x, w = promote(self.compute_dtype, x, self.normed_weight(train))
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, stride=self.stride,
-                     padding=self.padding)
+        xc = x.permute(0, 4, 1, 2, 3)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            # the fp32 product rounded once, as XLA's CPU conv computes a
+            # bf16 conv: torch's CPU bf16 conv3d read uninitialised memory
+            # on an AVX512 host (torch 2.11: outputs that differ from run
+            # to run on equal inputs, and NaN)
+            y = F.conv3d(xc.float(), w.float(), None, stride=self.stride,
+                         padding=self.padding).to(x.dtype)
+        else:
+            y = F.conv3d(xc, w, None, stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 
 

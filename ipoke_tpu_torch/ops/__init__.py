@@ -6,12 +6,14 @@ same function.
   ``ipoke_tpu/ops/nice_net.py::nice_net_raw_pallas``;
 * ``nice_net_train`` (K4, the same CUDA source, with its autograd backward in
   ``ops/nice_net.py``) replaces ``ipoke_tpu/ops/nice_net.py::_train_impl``,
-  the forward rule of ``nice_net_raw_train``;
+  the forward rule of ``nice_net_raw_train``; K1 and K4 also run at a mesh
+  rank's shard of the hidden width (``parallel``);
 * ``masked_conv`` (K2, CUDA C++ ``csrc/macow_unit_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::macow_unit_inverse_pallas``;
 * ``masked_conv`` (K5, CUDA C++ ``csrc/masked_conv_inverse.cu``) replaces
   ``ipoke_tpu/ops/masked_conv.py::masked_conv_inverse_pallas``, for the
-  units whose latent K2 cannot hold (``unit_fits``);
+  units whose latent K2 cannot hold (``unit_fits``): register, wide and
+  streamed instances, so it takes every affine/ELU flow;
 * ``spade_gn`` (K3, CUDA C++ ``csrc/spade_gn.cu``, with the portable
   backward of ``spade_gn_fused`` on the card) replaces
   ``ipoke_tpu/ops/spade_gn.py::spade_gn_modulate_pallas``.

@@ -30,12 +30,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes), each returns the cudaError_t of its launch
 SIGNATURES = {
     "nice_net_u": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "nice_net_u_split": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "macow_unit_inverse": (_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "macow_unit_inverse_smem_bytes": (_I, _I, _I, _I, _I, _I),
     "macow_unit_inverse_max_clusters": (_I, _I, _I, _I, _I, _I),
-    "masked_conv_inverse": (_P, _P, _P, _P, _P,
+    "masked_conv_inverse": (_P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "masked_conv_inverse_streamed_at": (_I, _I, _I, _I, _I, _I),
     "masked_conv_inverse_smem_bytes": (_I, _I, _I, _I, _I, _I),
     "masked_conv_inverse_max_clusters": (_I, _I, _I, _I, _I, _I),
     "spade_gn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),

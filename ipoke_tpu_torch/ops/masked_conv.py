@@ -11,9 +11,10 @@ in each CTA's shared memory, so it takes square latents up to what
 ``unit_fits`` allows (16x16 at C=32).  K5
 (``csrc/masked_conv_inverse.cu``) runs one flow in a thread-block cluster
 per batch item and keeps only a ring of the last kh rows on chip, so it
-takes any number of rows (and rows up to what ``k5_fits`` allows, W*C <=
-1024): the flows route every unit that K2 cannot take through it, flow by
-flow.
+takes any number of rows; a flow whose weights or rows its shared memory
+cannot hold goes to its streamed instance, which reads them from device
+memory (``k5_streamed``).  The flows route every unit that K2 cannot take
+through it, flow by flow.
 
 ``pack_mcf`` does the precompute that the JAX package also runs outside its
 kernels: the kernel in scan space, the weight-norm 1x1 out conv split into
@@ -134,18 +135,55 @@ def k5_cluster(hid):
     return k
 
 
-def k5_smem_bytes(width, c, hid, kh, kw, cluster):
-    """K5's shared memory per CTA (``smem_bytes`` in its source): 16 bytes
-    of mbarrier, then the CTA's weight slice (hk = hid/cluster hidden
-    units, rounded up to 4), a ring of kh padded rows (W rounded up to 8
-    plus kw - 1 columns, C rounded up to 4), one row of the CTA's hiddens
-    and two buffers of the row's partial products, each region rounded up
-    to 16 bytes.  Independent of the number of rows."""
+def _k5_ring_bytes(width, c, hid, kh, kw, cluster):
+    """The shared-memory instances' footprint per CTA (``smem_bytes`` in
+    K5's source): 16 bytes of mbarrier, then the CTA's weight slice (hk =
+    hid/cluster hidden units, rounded up to 4), a ring of kh padded rows (W
+    rounded up to 8 plus kw - 1 columns, C rounded up to 4), one row of the
+    CTA's hiddens and two buffers of the row's partial products, each
+    region rounded up to 16 bytes.  Independent of the number of rows."""
     hk, cp = _r4(-(-hid // cluster)), _r4(c)
     wpad = -(-width // 8) * 8 + kw - 1
     floats = (kh * kw * c * hk + hk * 2 * c + _r4(kh * wpad * cp)
               + _r4(width * (hk + 4)) + _r4(4 * width * c))
     return 16 + 4 * floats
+
+
+# the streamed instance's shared memory: one reduction buffer of
+# K5_THREADS x 8 floats (``STREAMED_SMEM`` in K5's source)
+K5_STREAMED_SMEM = 4 * K5_THREADS * 8
+
+
+def _k5_staged_bytes(width, c, hid, kh):
+    """The streamed instance's footprint with its row staged
+    (``staged_smem_bytes`` in K5's source): the reduction buffer, the kh
+    input rows of W + 2 columns (rounded up to 4 floats) and the row's
+    whole hiddens (W, hid)."""
+    return K5_STREAMED_SMEM + 4 * (_r4(kh * (width + 2) * c) + width * hid)
+
+
+def k5_streamed(width, c, hid, kh, kw, cluster):
+    """Whether K5 takes a flow on its streamed instance (``in_smem`` in its
+    source, negated): a row of more than 1024 elements (W * C), or the
+    shared-memory instances' footprint (``_k5_ring_bytes``, the CTA's
+    weight slice above all) past ``SMEM_LIMIT``.  The streamed instance
+    keeps the tap weights in device memory (L2) and the row's hiddens in a
+    (B, W, hid) scratch, staging a row's inputs and hiddens in shared
+    memory where they fit, so it has no limit of its own."""
+    return (width * c > 4 * K5_THREADS
+            or _k5_ring_bytes(width, c, hid, kh, kw, cluster) > SMEM_LIMIT)
+
+
+def k5_smem_bytes(width, c, hid, kh, kw, cluster):
+    """K5's shared memory per CTA on the instance it takes at this shape
+    (``masked_conv_inverse_smem_bytes`` in its source): the weight slice,
+    ring and row buffers of ``_k5_ring_bytes``; on the streamed instance
+    its staged row (``_k5_staged_bytes``) where that fits ``SMEM_LIMIT``,
+    else its reduction buffer alone."""
+    if k5_streamed(width, c, hid, kh, kw, cluster):
+        staged = _k5_staged_bytes(width, c, hid, kh)
+        return staged if staged <= SMEM_LIMIT else K5_STREAMED_SMEM
+    return _k5_ring_bytes(width, c, hid, kh, kw, cluster)
 
 
 def k5_registers(c, hid, kh):
@@ -160,15 +198,13 @@ def k5_registers(c, hid, kh):
 
 def k5_fits(shape, hid, kernel_size):
     """Whether K5 takes one flow on a scan-space latent of ``shape`` (B, H,
-    W, C), by shape alone (``takes`` and the shared-memory check in its
-    source): hid is a multiple of 4 (16-byte bulk copies of the weight
-    slices); kw is 3, as every config sets it; W * C <= 1024 (4 affine
-    elements per thread); and ``k5_smem_bytes`` (the CTA's weight slice
-    above all) is within ``SMEM_LIMIT``.  Any number of rows."""
-    _, _, width, c = shape
+    W, C), by shape alone (``takes`` in its source): hid is a multiple of 4
+    (16-byte bulk copies of the weight slices) and kw is 3, as every config
+    sets both.  Any number of rows, any row width and any hid: where its
+    shared-memory instances cannot hold the flow, the streamed one takes it
+    (``k5_streamed``)."""
     kh, kw = kernel_size
-    return (hid % 4 == 0 and kw == 3 and width * c <= 4 * K5_THREADS
-            and k5_smem_bytes(width, c, hid, kh, kw, k5_cluster(hid)) <= SMEM_LIMIT)
+    return hid % 4 == 0 and kw == 3 and min(shape) > 0 and kh > 0
 
 
 def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
@@ -193,20 +229,20 @@ def masked_conv_inverse_cuda(y, w_shift, w_hid, hc, alpha, reverse):
         raise ValueError(
             f"masked_conv_inverse: scan-space latent {tuple(y.shape)} with "
             f"kernel ({kh}, {kw}) and hid {hid} is not a shape K5 takes "
-            f"(k5_fits: hid a multiple of 4; kw 3; W*C <= 1024; its weight "
-            f"slice, ring and row buffers in shared memory, "
-            f"{k5_smem_bytes(width, c, hid, kh, kw, k)} B per CTA at a "
-            f"cluster of {k}, within the card's {SMEM_LIMIT} B a block)")
+            f"(k5_fits: hid a multiple of 4 and kw 3)")
     # contiguous, aligned copies are held here until the launch is queued
     y, w_shift, w_hid, hc = (_build.aligned(t) for t in tensors)
     x = torch.empty_like(y)
+    # the streamed instance's row of hiddens, (B, W, hid)
+    scratch = torch.empty((b, width, hid), dtype=torch.float32, device=y.device) \
+        if k5_streamed(width, c, hid, kh, kw, k) else None
     lib = _build.load()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.masked_conv_inverse(
             y.data_ptr(), w_shift.data_ptr(), w_hid.data_ptr(), hc.data_ptr(),
-            x.data_ptr(), b, height, width, c, hid, kh, kw, float(alpha),
-            int(reverse), k, stream)
+            x.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, height, width, c, hid, kh, kw, float(alpha), int(reverse), k, stream)
     _build.check(err, "masked_conv_inverse")
     LAUNCHES["masked_conv_inverse"] += 1
     return x

@@ -19,6 +19,17 @@ plain PyTorch.
 K4 is the same launches, returning a and b as well (for K1 they are
 scratch; ``nice_net_train_plain`` beside it), inside ``_NiceNetTrain``, an
 autograd Function whose backward is the JAX package's hand-written one.
+
+On a rank of a dp x tp mesh (``ipoke_tpu_torch/parallel``) a coupling
+holds a shard of w2, Hid/tp of its output columns.  The same three
+launches then run at the shard's shapes (S = 2 at N = Hid/tp, S = 3 at K =
+Hid/tp over the rows of wp of the rank's hidden units), and one all-reduce
+of the fp32 tap-summed output closes the coupling (``nice_net_raw`` with a
+mesh).  ``_NiceNetTrainSplit`` is K4's split form: its backward runs the
+four products on the shard, sums the first hidden's gradient over the
+model axis once, and the out weight's hidden rows once (Megatron's f/g
+pair).  ``nice_net_raw_split_plain`` is the split coupling in plain
+PyTorch, through autograd, for the couplings outside K1's family.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from . import LAUNCHES, _build
 from ..flows.primitives import (
     _v_norm,
+    conv1x1_dot,
     plain_conv_apply,
     shifted_tap_sum,
     wn_conv_apply_packed,
@@ -38,14 +50,16 @@ from ..flows.primitives import (
 def nice_net_fits(params, z, h) -> bool:
     """The JAX package's static shape family for the kernel
     (``nice_net_fits``) without its TPU VMEM budget: 3x3 in and out convs,
-    a 1x1 w2, a hidden width that is a multiple of 128, at most 512 pixels
-    per image, and ``h`` given when the out conv has conditioning rows."""
+    a 1x1 w2, a hidden width that is a multiple of 128 (on a rank of the
+    mesh, the shard's: w2's columns), at most 512 pixels per image, and
+    ``h`` given when the out conv has conditioning rows."""
     w1, v = params["w1"], params["out"]["v"]
     kh, kw, _, hid = w1.shape
     if (kh, kw) != (3, 3) or tuple(v.shape[:2]) != (3, 3) \
             or tuple(params["w2"].shape[:2]) != (1, 1):
         return False
-    if hid % 128 != 0 or z.shape[1] * z.shape[2] > 512:
+    if hid % 128 != 0 or params["w2"].shape[-1] % 128 != 0 \
+            or z.shape[1] * z.shape[2] > 512:
         return False
     return not (v.shape[2] > hid and h is None)
 
@@ -76,8 +90,9 @@ def _pad_cols(t, n):
 
 def _launch(zcol, w1, w2, wp, train: bool):
     """Launch K1 (``train=False``: returns u) or K4 (returns u, a, b):
-    ``zcol`` (M, K1), ``w1`` (K1, Hid), ``w2`` (Hid, Hid), ``wp`` (Hid, N),
-    all bf16 on one CUDA device; u is (M, N) fp32, a and b (M, Hid) bf16.
+    ``zcol`` (M, K1), ``w1`` (K1, Hid), ``w2`` (Hid, Hs), ``wp`` (Hs, N),
+    all bf16 on one CUDA device (Hs = Hid, or a mesh rank's shard of the
+    hidden width); u is (M, N) fp32, a (M, Hid) and b (M, Hs) bf16.
     K1 and N are zero-padded to multiples of 16 here.  Both are the same
     three CUDA launches (a, b, then u; ``csrc/nice_net.cu``), so K4's u is
     K1's bit for bit; ``LAUNCHES`` counts wrapper calls."""
@@ -88,12 +103,12 @@ def _launch(zcol, w1, w2, wp, train: bool):
     if any(t.device != zcol.device for t in tensors):
         raise ValueError(f"{name} operands must lie on one device")
     m, k1 = zcol.shape
-    hid, n = wp.shape
-    if w1.shape != (k1, hid) or w2.shape != (hid, hid):
+    hid, hs, n = w1.shape[1], wp.shape[0], wp.shape[1]
+    if w1.shape != (k1, hid) or w2.shape != (hid, hs):
         raise ValueError(f"{name} shapes: zcol {tuple(zcol.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, wp {tuple(wp.shape)}")
-    if hid % 128:
-        raise ValueError(f"{name} kernel needs hidden % 128 == 0, got {hid}")
+    if hid % 128 or hs % 128:
+        raise ValueError(f"{name} kernel needs hidden % 128 == 0, got {hid} / {hs}")
     k1p, n_p = -(-k1 // 16) * 16, -(-n // 16) * 16
     zcol_p = _pad_cols(zcol, k1p).contiguous()
     w1_p = F.pad(w1, (0, 0, 0, k1p - k1)).contiguous()
@@ -102,13 +117,13 @@ def _launch(zcol, w1, w2, wp, train: bool):
     u = torch.empty((m, n_p), dtype=torch.float32, device=zcol.device)
     # the hiddens: K4's residuals, K1's scratch (the kernel writes both)
     a = torch.empty((m, hid), dtype=torch.bfloat16, device=zcol.device)
-    b = torch.empty_like(a)
+    b = torch.empty((m, hs), dtype=torch.bfloat16, device=zcol.device)
     lib = _build.load()
     with torch.cuda.device(zcol.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nice_net_u(zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
-                             wp_p.data_ptr(), u.data_ptr(), a.data_ptr(),
-                             b.data_ptr(), m, k1p, hid, n_p, stream)
+        err = lib.nice_net_u_split(zcol_p.data_ptr(), w1_p.data_ptr(), w2_c.data_ptr(),
+                                   wp_p.data_ptr(), u.data_ptr(), a.data_ptr(),
+                                   b.data_ptr(), m, k1p, hid, hs, n_p, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return (u[:, :n], a, b) if train else u[:, :n]
@@ -156,24 +171,40 @@ def im2col3x3(z):
     return cols.reshape(b * hh * ww, 9 * c)
 
 
-def _operands(params, z):
+def _shard_rows(mesh, hid, hs):
+    """The rows of the out weight's hidden half that the rank's shard of
+    ``hs`` hidden units reads: all ``hid`` without a mesh."""
+    r = 0 if mesh is None else mesh.index("model")
+    return slice(r * hs, (r + 1) * hs)
+
+
+def _operands(params, z, mesh=None):
     """The kernels' operands from a NICE2d param dict: (zcol, w1 (9*C1, Hid),
-    w2 (Hid, Hid), the tap-packed hidden half of the weight-normed out conv
-    wp (Hid, 9*Cout)), all in z's dtype, and the whole out weight w_eff."""
+    w2 (Hid, Hs), the tap-packed hidden half of the weight-normed out conv
+    wp (Hs, 9*Cout)), all in z's dtype, and the whole out weight w_eff.  Hs
+    = Hid, or on a mesh rank the shard's width (w2's columns), wp then the
+    rows of the rank's hidden units."""
     w1, w2, v, g = params["w1"], params["w2"], params["out"]["v"], params["out"]["g"]
     _, _, c1, hid = w1.shape
+    hs = w2.shape[-1]
     dt = z.dtype
     w_eff = (v * (g / _v_norm(v))).to(dt)  # (3, 3, Hid+Ch, Cout)
-    wp = w_eff[:, :, :hid, :].permute(2, 0, 1, 3).reshape(hid, -1)
+    wp = w_eff[:, :, _shard_rows(mesh, hid, hs), :].permute(2, 0, 1, 3).reshape(hs, -1)
     return im2col3x3(z), w1.reshape(9 * c1, hid).to(dt), w2[0, 0].to(dt), wp, w_eff
 
 
-def _epilogue(u, w_eff, b_out, z, h, hid):
+def _epilogue(u, w_eff, b_out, z, h, hid, mesh=None):
     """Shifted-add of the tap-packed out conv, bias, and the h-conditioning
     half of the out conv, ``conv3x3(elu(h)) @ w_out[Hid:]``, which
-    separates from the hidden half (ELU is elementwise over the concat)."""
+    separates from the hidden half (ELU is elementwise over the concat).
+    On a mesh rank the fp32 tap sum of its hidden units is summed over the
+    model axis first (the coupling's one all-reduce)."""
     batch, hh, ww, _ = z.shape
     raw = shifted_tap_sum(u.reshape(batch, hh, ww, 3, 3, -1), 3, 3)
+    if mesh is not None:
+        from ..parallel.comm import reduce_from_model
+
+        raw = reduce_from_model(raw, mesh)
     raw = raw.to(z.dtype) + b_out
     if h is not None and w_eff.shape[2] > hid:
         raw = raw + plain_conv_apply(w_eff[:, :, hid:, :], F.elu(h.to(z.dtype)),
@@ -181,16 +212,17 @@ def _epilogue(u, w_eff, b_out, z, h, hid):
     return raw
 
 
-def nice_net_raw(params, z, h):
+def nice_net_raw(params, z, h, mesh=None):
     """Fused ``NICE2d._raw`` through K1: the pre-transform net output
     (B, H, W, Cout).
 
     ``params``: the NICE2d param dict - w1 (3,3,C1,Hid), w2 (1,1,Hid,Hid),
     out {v (3,3,Hid+Ch,Cout), g, b}.  ``h``: conditioning (B,H,W,Ch) or
-    None."""
-    zcol, w1, w2, wp, w_eff = _operands(params, z)
+    None.  ``mesh``: the mesh whose model axis splits the hidden width,
+    where w2 holds the rank's Hid/tp columns."""
+    zcol, w1, w2, wp, w_eff = _operands(params, z, mesh)
     return _epilogue(nice_net_u(zcol, w1, w2, wp), w_eff, params["out"]["b"],
-                     z, h, w1.shape[-1])
+                     z, h, w1.shape[-1], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +235,14 @@ def _train_forward(params, z, h):
     zcol, w1, w2, wp, w_eff = _operands(params, z)
     u, a, b = nice_net_train_u(zcol, w1, w2, wp)
     return _epilogue(u, w_eff, params["out"]["b"], z, h, w1.shape[-1]), a, b
+
+
+def _mm32(x, y):
+    """x @ y with fp32 sums and an fp32 result (cuBLAS's fp32 output on
+    CUDA; fp32 operands on the CPU)."""
+    if x.is_cuda:
+        return torch.mm(x, y, out_dtype=torch.float32)
+    return torch.matmul(x.float(), y.float())
 
 
 def _mm(x, y):
@@ -278,3 +318,105 @@ def nice_net_raw_train(params, z, h):
     out = params["out"]
     return _NiceNetTrain.apply(z, h, params["w1"], params["w2"], out["v"],
                                out["g"], out["b"])
+
+
+# ---------------------------------------------------------------------------
+# The split coupling of a dp x tp mesh rank
+# ---------------------------------------------------------------------------
+
+def _split_tail(out_params, h, b4d, mesh, hid, act=F.elu, reduce=True):
+    """The out conv of a rank's hidden shard ``b4d`` (B, H, W, Hs): the
+    weight-normed out weight whole (its norm over the whole contraction
+    axis), its hidden rows behind ``copy_to_model`` (their gradient summed
+    over the model axis), the rank's rows' tap-packed product and shifted
+    sum in fp32, summed over the model axis (``reduce``; the identity in
+    backward, so a backward pass may leave it out), rounded, the bias and
+    the h-conditioning half."""
+    from ..parallel.comm import copy_to_model, reduce_from_model
+
+    v, g, bias = out_params["v"], out_params["g"], out_params["b"]
+    dt = b4d.dtype
+    bsz, hh, ww, hs = b4d.shape
+    w = (v * (g / _v_norm(v))).to(dt)
+    wh = copy_to_model(w[:, :, :hid, :], mesh)[:, :, _shard_rows(mesh, hid, hs), :]
+    wp = wh.permute(2, 0, 1, 3).reshape(hs, -1)
+    u = torch.matmul(b4d.reshape(-1, hs).float(), wp.float())
+    raw = shifted_tap_sum(u.reshape(bsz, hh, ww, 3, 3, -1), 3, 3)
+    if reduce:
+        raw = reduce_from_model(raw, mesh)
+    raw = raw.to(dt) + bias
+    if h is not None and w.shape[2] > hid:
+        raw = raw + plain_conv_apply(w[:, :, hid:, :], act(h.to(dt)), padding="SAME")
+    return raw
+
+
+def nice_net_raw_split_plain(params, z, h, mesh, act=F.elu):
+    """``NICE2d._raw`` of a mesh rank's shard in plain PyTorch, for any
+    activation and dtype: the first hidden a = act(conv3x3(z, w1)) whole
+    (its gradient summed over the model axis), the rank's columns of the
+    second, b = act(a @ w2), then ``_split_tail``.  Autograd through it
+    gives the split backward."""
+    from ..parallel.comm import copy_to_model
+
+    a = copy_to_model(act(plain_conv_apply(params["w1"], z, padding="SAME")), mesh)
+    b = act(conv1x1_dot(params["w2"], a))
+    return _split_tail(params["out"], h, b, mesh, params["w1"].shape[-1], act)
+
+
+class _NiceNetTrainSplit(torch.autograd.Function):
+    """K4 at a mesh rank's shard: the forward is K4's launches at S = 2's N
+    and S = 3's K of Hid/tp and the coupling's all-reduce; the backward is
+    the four products on the shard,
+
+        db = du @ wp_r^T,  dwp_r = b_r^T @ du  (through ``_split_tail``),
+        dw2_r = a^T @ d(pre_b_r),  da = d(pre_b_r) @ w2_r^T (a partial sum),
+
+    one all-reduce of da in fp32, then dw1 and dzcol, the same on every
+    rank.  The out weight's hidden rows get their gradient summed over the
+    model axis in ``_split_tail``'s backward."""
+
+    @staticmethod
+    def forward(ctx, z, h, w1, w2, v, g, b_out, mesh):
+        params = {"w1": w1, "w2": w2, "out": {"v": v, "g": g, "b": b_out}}
+        zcol, w1m, w2m, wp, w_eff = _operands(params, z, mesh)
+        u, a, b = nice_net_train_u(zcol, w1m, w2m, wp)
+        ctx.mesh = mesh
+        ctx.save_for_backward(z, h, w1, w2, v, g, b_out, a, b)
+        return _epilogue(u, w_eff, b_out, z, h, w1.shape[-1], mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..parallel.comm import all_reduce_
+
+        z, h, w1, w2, v, g, b_out, a, b = ctx.saved_tensors
+        mesh = ctx.mesh
+        dt = z.dtype
+        hid, hs = w1.shape[-1], w2.shape[-1]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (v, g, b_out)]
+            b4d = b.reshape(*z.shape[:3], hs).detach().requires_grad_()
+            hd = None if h is None else h.detach().requires_grad_()
+            out = dict(zip(("v", "g", "b"), leaves))
+            inputs = leaves + [b4d] + ([] if hd is None else [hd])
+            dv, dg, db_out, db4d, *dh = torch.autograd.grad(
+                _split_tail(out, hd, b4d, mesh, hid, reduce=False), inputs, grad)
+        db_pre = _elu_bwd(b, db4d.reshape(-1, hs))
+        dw2 = _mm(a.t(), db_pre)
+        da = all_reduce_(_mm32(db_pre, w2[0, 0].to(dt).t()), mesh.group("model"))
+        da_pre = _elu_bwd(a, da.to(dt))
+        zcol = im2col3x3(z)
+        dw1 = _mm(zcol.t(), da_pre)
+        dzcol = _mm(da_pre, w1.reshape(-1, hid).to(dt).t())
+        with torch.enable_grad():
+            zd = z.detach().requires_grad_()
+            dz, = torch.autograd.grad(im2col3x3(zd), zd, dzcol)
+        return (dz, dh[0] if dh else None, dw1.reshape(w1.shape).to(w1.dtype),
+                dw2[None, None].to(w2.dtype), dv, dg, db_out, None)
+
+
+def nice_net_raw_train_split(params, z, h, mesh):
+    """``nice_net_raw_train`` on a mesh rank's shard: K4 forward at the
+    shard's shapes, the split hand-written backward."""
+    out = params["out"]
+    return _NiceNetTrainSplit.apply(z, h, params["w1"], params["w2"], out["v"],
+                                    out["g"], out["b"], mesh)

@@ -96,8 +96,9 @@ class SecondStageTrainer:
     rule, under ``mixed_prec_master`` too."""
 
     def __init__(self, model: SecondStageModel, lr_schedule,
-                 clip_grad_norm: float = 0.0, wrap=_identity):
+                 clip_grad_norm: float = 0.0, wrap=_identity, mesh=None):
         self.model = model
+        self.mesh = mesh
         tcfg = model.config.get("training", {})
         self.mixed = bool(tcfg.get("mixed_prec_master", False))
         rule = {k: bool(tcfg.get(k, False)) for k in ("use_adabelief", "use_adafactor")}
@@ -112,14 +113,22 @@ class SecondStageTrainer:
         self.model.flow_params.load_tree(new)
 
     def start(self) -> None:
-        """Cast to bf16 under the mixed recipe, then build the optimizer."""
+        """Cast to bf16 under the mixed recipe, on a ``mesh`` cut the
+        rank's shard of the flow params (``parallel.shard_params``; DDI ran
+        on the whole tree), then build the optimizer."""
+        if self.mesh is not None:
+            from .flows import ParamTree
+            from .parallel import shard_params
+
+            self.model.flow_params = ParamTree(
+                shard_params(self.model.flow_params.tree(), self.mesh))
         if self.mixed:
             self.model.to(torch.bfloat16)
             make = lambda params: master_weights(params, self.make_tx)
         else:
             make = self.make_tx
         self.tx = self.wrap(create_second_stage_state(self.model, make))
-        self._step = make_second_stage_train_step(self.model, self.tx)
+        self._step = make_second_stage_train_step(self.model, self.tx, self.mesh)
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None):
         if self.tx is None:

@@ -277,9 +277,12 @@ def test_unported_experiments_raise(env, name, item):
 @pytest.mark.parametrize("extra,error,match", [
     (["--test", "fvd"], AssertionError, "no frozen-submodel sampler"),
     (["--test", "samples"], AssertionError, "no frozen-submodel sampler"),
-    (["--devices", "2"], NotImplementedError, "item 11")])
+    (["--devices", "2"], NotImplementedError,
+     "JAX CLI stores --devices and shards nothing either.*ipoke_tpu_torch.parallel")])
 def test_unported_flags_raise(env, extra, error, match):
-    """``--devices 2`` is not ported; the ``--test`` modes are
+    """``--devices 2`` raises rather than be ignored (the JAX CLI reads it
+    and shards nothing; the port's sharded step is
+    ``ipoke_tpu_torch.parallel``); the ``--test`` modes are ported
     (``tests/test_torch_cli_testing.py``) and refuse, as the JAX package's
     do, an experiment without a sampling pipeline (the flow VAE)."""
     with pytest.raises(error, match=match):

@@ -226,11 +226,37 @@ def test_masked_conv_inverse_wide_matches_plain(dev, b, hh, ww, c, hid, ch, orde
     assert torch.equal(got, masked_conv.masked_conv_inverse(y, h, params, order))
 
 
+# K5's streamed instance (fault (e)): past shared memory (2x2x512 at hid
+# 512, 4x4x256 at hid 2048) and rows over 1024 elements (16x16x128), its
+# row staged in shared memory; and a 2x64x512 row too wide to stage
+K5_STREAMED_CASES = [(2, 2, 2, 512, 512, 8, "B"), (2, 4, 4, 256, 2048, 0, "A"),
+                     (2, 16, 16, 128, 256, 8, "C"), (2, 2, 64, 512, 512, 0, "A")]
+
+
+@pytest.mark.parametrize("b,hh,ww,c,hid,ch,order", K5_STREAMED_CASES)
+def test_masked_conv_inverse_streamed_matches_plain(dev, b, hh, ww, c, hid, ch, order):
+    """K5's streamed instance through its dispatcher against the plain row
+    scan, and two calls bitwise equal."""
+    ks = (2, 3) if order in ("A", "B") else (3, 2)
+    assert masked_conv.k5_streamed(ww if order in "AB" else hh, c, hid, 2, 3,
+                                   masked_conv.k5_cluster(hid))
+    params = _mcf_params(dev, c, hid, ch, ks, 140)
+    y = _randn(dev, b, hh, ww, c, seed=150)
+    h = _randn(dev, b, hh, ww, ch, seed=151) if ch else None
+    got = masked_conv.masked_conv_inverse(y, h, params, order)
+    want = masked_conv.scan_inverse(
+        masked_conv.masked_conv_inverse_plain, y,
+        None if h is None else F.elu(h), params, order, 1.0)
+    assert ops.LAUNCHES["masked_conv_inverse"] == 1 and got.shape == y.shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, masked_conv.masked_conv_inverse(y, h, params, order))
+
+
 def test_masked_conv_inverse_footprint_matches_kernel(dev):
-    """``k5_smem_bytes`` (which ``k5_fits`` uses) against the kernel's own
-    count at every SHIPPED level's width and cluster, rows of 8, 16 and 32
-    columns, and the kernel refuses what ``k5_fits`` refuses for a reason
-    other than the footprint."""
+    """``k5_smem_bytes`` and ``k5_streamed`` against the kernel's own count
+    and choice at every SHIPPED level's width and cluster, rows of 8, 16
+    and 32 columns, the wide path's and the streamed instance's shapes, and
+    the kernel refuses what ``k5_fits`` refuses."""
     from ipoke_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -243,8 +269,15 @@ def test_masked_conv_inverse_footprint_matches_kernel(dev):
         k = masked_conv.k5_cluster(hid)
         assert lib.masked_conv_inverse_smem_bytes(4, c, hid, 2, 3, k) == \
             masked_conv.k5_smem_bytes(4, c, hid, 2, 3, k), (c, hid)
-    for shape, hid, ks in (((1, 8, 33, 32), 128, (2, 3)), ((1, 8, 8, 8), 30, (2, 3)),
-                           ((1, 8, 8, 8), 32, (2, 5))):
+    for w, c, hid in ((33, 32, 128), (2, 512, 512), (4, 256, 2048), (16, 128, 256),
+                      (64, 512, 512)):
+        k = masked_conv.k5_cluster(hid)
+        assert masked_conv.k5_streamed(w, c, hid, 2, 3, k)
+        assert lib.masked_conv_inverse_streamed_at(w, c, hid, 2, 3, k) == 1
+        assert lib.masked_conv_inverse_smem_bytes(w, c, hid, 2, 3, k) == \
+            masked_conv.k5_smem_bytes(w, c, hid, 2, 3, k), (w, c, hid)
+    assert lib.masked_conv_inverse_streamed_at(16, 32, 128, 2, 3, 4) == 0
+    for shape, hid, ks in (((1, 8, 8, 8), 30, (2, 3)), ((1, 8, 8, 8), 32, (2, 5))):
         assert not masked_conv.k5_fits(shape, hid, ks)
         assert lib.masked_conv_inverse_smem_bytes(
             shape[2], shape[3], hid, *ks, masked_conv.k5_cluster(hid)) == -1

@@ -26,7 +26,13 @@ from ipoke_tpu_torch.flows import build_macow_transformer as tbuild
 from ipoke_tpu_torch.flows import loss as tloss
 from ipoke_tpu_torch.flows import macow as tm
 from ipoke_tpu_torch.flows import primitives as tp
-from ipoke_tpu_torch.ops.masked_conv import k5_fits, masked_conv_inverse_cuda, unit_fits
+from ipoke_tpu_torch.ops.masked_conv import (
+    k5_cluster,
+    k5_fits,
+    k5_streamed,
+    masked_conv_inverse_cuda,
+    unit_fits,
+)
 
 from test_torch_density import leaves
 from test_torch_ops import _few_threads, _jnp, _t  # noqa: F401 (_few_threads)
@@ -326,18 +332,23 @@ def test_k5_and_k2_refuse_the_down_stack():
     4x4 with C = 128, 96, 64 and MCF hidden ``default_mcf_hidden(C)`` =
     256, 384, 256.  K2 takes none of these units; K5's gate takes every
     flow of them (its wide path streams the tap weights from shared
-    memory).  Past shared memory it still refuses: a 2x2x512 flow at hid
-    512 needs 786 KB of w_shift a CTA at a cluster of 8, and the wrapper
-    raises naming that limit before it touches the card."""
+    memory).  Past shared memory its streamed instance takes the flow: a
+    2x2x512 flow at hid 512 (786 KB of w_shift a CTA at a cluster of 8),
+    4x4x256 at hid 2048 and a row of 16x128 elements.  It refuses only a
+    hid that is not a multiple of 4 or kw other than 3, and the wrapper
+    raises naming that gate before it touches the card."""
     for c, hid in ((128, 256), (96, 384), (64, 256)):
         assert tm.default_mcf_hidden(c) == hid
         assert not unit_fits((40, 4, 4, c), hid, (2, 3))
         assert k5_fits((40, 4, 4, c), hid, (2, 3))
     assert k5_fits((40, 4, 4, 32), 128, (2, 3))
-    assert not k5_fits((1, 2, 2, 512), 512, (2, 3))
-    y, w_shift = torch.zeros(1, 2, 2, 512), torch.zeros(2, 3, 512, 512)
-    with pytest.raises(ValueError, match=r"within the card's 232448 B a block") as err:
-        masked_conv_inverse_cuda(y, w_shift, torch.zeros(512, 1024),
+    for shape, hid in (((1, 2, 2, 512), 512), ((40, 4, 4, 256), 2048),
+                       ((2, 16, 16, 128), 256)):
+        assert k5_fits(shape, hid, (2, 3)) and not unit_fits(shape, hid, (2, 3))
+        assert k5_streamed(shape[2], shape[3], hid, 2, 3, k5_cluster(hid))
+    y, w_shift = torch.zeros(1, 2, 2, 512), torch.zeros(2, 3, 512, 510)
+    with pytest.raises(ValueError, match=r"k5_fits: hid a multiple of 4") as err:
+        masked_conv_inverse_cuda(y, w_shift, torch.zeros(510, 1024),
                                  torch.zeros(1, 2, 2, 1024), 1.0, False)
     assert "fault" not in str(err.value)
 
@@ -362,20 +373,34 @@ def k5_wide():
         w_out = (v * (params["out"]["g"] / np.sqrt((v * v).sum((0, 1, 2)) + 1e-12)))[0, 0]
         cases.append((order, params, n(2, 4, 4, c), n(2, 4, 4, 8), w_out))
 
+    # fault (e)'s 2x2x512 flow at hid 512, order B, through the JAX
+    # package's portable inverse (its K5 branch needs a TPU)
+    params = {"w_shift": n(2, 3, 512, 512, std=(6 * 512) ** -0.5),
+              "out": {"v": n(1, 1, 512 + 8, 1024, std=0.05),
+                      "g": n(1024, std=0.3), "b": n(1024, std=0.1)}}
+    cases.append(("B", params, n(2, 2, 2, 512), n(2, 2, 2, 8), None))
+    flow = jm.MaskedConvFlow(512, (2, 3), order="B", hidden_channels=512,
+                             h_channels=8)
+
     @jax.jit
-    def run(args):
+    def run(args, big):
         return [masked_conv_inverse_pallas(y, h, w, wo, b, order=o, interpret=True)
-                for o, (y, h, w, wo, b) in zip("AD", args)]
+                for o, (y, h, w, wo, b) in zip("AD", args)] + [
+            flow._inverse_portable(*big)]
 
     want = run([tuple(map(jnp.asarray, (y, h, p["w_shift"], wo, p["out"]["b"])))
-                for _, p, y, h, wo in cases])
+                for _, p, y, h, wo in cases[:2]],
+               (jax.tree_util.tree_map(jnp.asarray, params),
+                jnp.asarray(cases[2][2]), jnp.asarray(cases[2][3])))
     return cases, want
 
 
-@pytest.mark.parametrize("i", [0, 1])
+@pytest.mark.parametrize("i", [0, 1, 2])
 def test_k5_wide_plain_matches_pallas(k5_wide, i):
     """K5's plain version (the route of CPU tensors) at the down stack's
-    wide flows against the JAX K5, within 1e-5."""
+    wide flows against the JAX K5, and at fault (e)'s 2x2x512 flow (hid
+    512, the streamed instance's shape on the card) against the JAX
+    package's portable inverse, within 1e-5."""
     from ipoke_tpu_torch.ops.masked_conv import masked_conv_inverse
 
     cases, want = k5_wide

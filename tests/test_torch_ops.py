@@ -29,6 +29,7 @@ from ipoke_tpu_torch.ops.masked_conv import (
     k5_fits,
     k5_registers,
     k5_smem_bytes,
+    k5_streamed,
     macow_unit_inverse,
     masked_conv_inverse,
 )
@@ -297,21 +298,35 @@ def test_k5_fits_by_shape():
     rows of 8, at every shipped level), its card-test shapes (W = 7 and 13,
     C = 4 and 8) and a 32x32x32 latent, at any number of rows, and, on its
     wide path (more than 16 tap groups or 32 hidden units a CTA), wider
-    flows whose weight slice fits shared memory; it refuses rows over 1024
-    elements, hid not a multiple of 4, kw other than 3 and a CTA's
-    footprint past shared memory.  Its footprint grows with W, not H."""
+    flows whose weight slice fits shared memory; past shared memory or a
+    row of 1024 elements, its streamed instance takes the flow (2x2x512 at
+    hid 512, 4x4x256 at hid 2048, rows of 8192 and 1056 elements).  It
+    refuses only hid not a multiple of 4 and kw other than 3.  The
+    shared-memory footprint grows with W, not H."""
     for c in range(32, 2, -2):
         for width in (16, 8):
             assert k5_fits((40, 24 - width, width, c), 4 * c, (2, 3)), (c, width)
             assert k5_registers(c, 4 * c, 2)
+            assert not k5_streamed(width, c, 4 * c, 2, 3, k5_cluster(4 * c))
     for shape, hid in (((3, 5, 7, 8), 32), ((2, 13, 6, 8), 32), ((2, 8, 8, 4), 16),
                        ((40, 32, 32, 32), 128), ((1, 4096, 8, 32), 128),
                        ((1, 8, 8, 36), 144), ((1, 8, 8, 32), 512), ((40, 4, 4, 128), 256)):
         assert k5_fits(shape, hid, (2, 3)), shape
+        assert not k5_streamed(shape[2], shape[3], hid, 2, 3, k5_cluster(hid)), shape
     assert not k5_registers(36, 144, 2) and not k5_registers(32, 512, 2)
-    for shape, hid, ks in (((2, 2, 256, 32), 128, (2, 3)), ((1, 8, 33, 32), 128, (2, 3)),
-                           ((1, 8, 8, 8), 30, (2, 3)), ((1, 8, 8, 8), 32, (2, 5)),
-                           ((1, 2, 2, 512), 512, (2, 3)), ((1, 4, 4, 256), 2048, (2, 3))):
+    for shape, hid in (((2, 2, 256, 32), 128), ((1, 8, 33, 32), 128),
+                       ((1, 2, 2, 512), 512), ((1, 4, 4, 256), 2048),
+                       ((2, 16, 16, 128), 256), ((2, 2, 64, 512), 512)):
+        assert k5_fits(shape, hid, (2, 3)), shape
+        assert k5_streamed(shape[2], shape[3], hid, 2, 3, k5_cluster(hid)), shape
+        # its row staged in shared memory where it fits (2 rows of W + 2
+        # columns, the row's hiddens), else the reduction buffer alone
+        w, c = shape[2], shape[3]
+        staged = 8192 + 4 * (-(-2 * (w + 2) * c // 4) * 4 + w * hid)
+        assert k5_smem_bytes(w, c, hid, 2, 3, k5_cluster(hid)) == \
+            (staged if staged <= 232448 else 8192), shape
+    assert k5_smem_bytes(64, 512, 512, 2, 3, 8) == 8192  # 2 x 66 x 512 rows: not staged
+    for shape, hid, ks in (((1, 8, 8, 8), 30, (2, 3)), ((1, 8, 8, 8), 32, (2, 5))):
         assert not k5_fits(shape, hid, ks), shape
     # C = 32, hid 128, clusters of 4: 32 hidden units a CTA
     assert k5_smem_bytes(16, 32, 128, 2, 3, 4) == 4 * (

@@ -200,7 +200,7 @@ def main():
         x = torch.empty_like(y)
         k = masked_conv.k5_cluster(4 * c)
         cargs = (y.data_ptr(), w_shift.data_ptr(), w_hid.data_ptr(), hc.data_ptr(),
-                 x.data_ptr(), b, hh, ww, c, 4 * c, 2, 3, alpha, int(reverse), k,
+                 x.data_ptr(), None, b, hh, ww, c, 4 * c, 2, 3, alpha, int(reverse), k,
                  torch.cuda.current_stream().cuda_stream)
         fn = _build._lib.masked_conv_inverse
 
