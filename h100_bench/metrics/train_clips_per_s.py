@@ -1,0 +1,7 @@
+"""Clips of all the window's steps over the window's seconds."""
+
+import readers
+
+
+def read(ctx):
+    return readers.rate(ctx)
